@@ -1,0 +1,13 @@
+from repro_torch.metrics.runtime_metrics import (
+    LagHistogram,
+    collect_serve_stats,
+    serve_latency_counts,
+    serve_latency_stats,
+)
+
+__all__ = [
+    "LagHistogram",
+    "collect_serve_stats",
+    "serve_latency_counts",
+    "serve_latency_stats",
+]
