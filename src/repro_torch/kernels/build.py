@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_kv_write", "paged_attention", "paged_attention_varlen")
+SOURCES = ("paged_kv_write", "paged_attention", "paged_attention_varlen",
+           "fused_logprob", "fused_logprob_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

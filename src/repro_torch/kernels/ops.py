@@ -1,4 +1,4 @@
-"""Device dispatch over the paged kernels (port of ``repro.kernels.ops``).
+"""Device dispatch over the kernels (port of ``repro.kernels.ops``).
 
 The JAX signatures are kept, minus ``mode`` and ``mesh``: the kernel is
 chosen by the tensor's device.  A CPU tensor takes the plain PyTorch
@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.logprobs import LogprobsFn
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.paged_attention_varlen import \
     paged_attention_varlen_cuda
@@ -25,7 +26,7 @@ from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
 def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
-    raise ValueError(f"paged kernels run on cpu or cuda, not {t.device}")
+    raise ValueError(f"kernels run on cpu or cuda, not {t.device}")
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -89,3 +90,19 @@ def paged_kv_write(
         k_pages, v_pages, k_rows.to(k_pages.dtype).contiguous(),
         v_rows.to(v_pages.dtype).contiguous(), _i32(page_idx), _i32(offset),
         _i32(active), layer=layer)
+
+
+def logprobs_from_logits(logits, targets):
+    """``(logp, entropy)``, each of ``targets``' shape, float32, from
+    ``logits`` ``[..., V]``; differentiable w.r.t. the logits.  A CUDA
+    tensor goes through the fused kernel and its backward kernel (the
+    logits are made contiguous first: a strided slice is copied); a CPU
+    tensor through the plain versions."""
+    _route(logits)
+    lead = logits.shape[:-1]
+    flat = logits.reshape(-1, logits.shape[-1])
+    tgt = targets.reshape(-1)
+    if logits.device.type == "cuda":
+        flat, tgt = flat.contiguous(), _i32(tgt)
+    logp, ent = LogprobsFn.apply(flat, tgt)
+    return logp.reshape(lead), ent.reshape(lead)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the paged kernels (ports of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (ports of ``repro.kernels.ref``).
 
 Each function is the semantic ground truth its CUDA kernel must
 reproduce.  They run on any device: the CPU path of ``kernels.ops``
@@ -168,3 +168,48 @@ def ref_paged_kv_write(
         pages[layer][:, pidx, off, :] = \
             rows[sel].to(pages.dtype).transpose(0, 1)
     return k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# Fused per-token log-prob (the RLVR learner's hot spot)
+# ---------------------------------------------------------------------------
+
+
+def ref_logprobs_from_logits(
+    logits: torch.Tensor,    # [N, V] (callers flatten [B, S, V])
+    targets: torch.Tensor,   # [N] int
+) -> torch.Tensor:
+    """log softmax gathered at targets, float32 accumulation."""
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    tgt = torch.gather(logits32, 1, targets.long()[:, None])[:, 0]
+    return tgt - lse
+
+
+def ref_entropy_from_logits(logits: torch.Tensor) -> torch.Tensor:
+    """Per-row softmax entropy, float32."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.sum(torch.exp(lp) * lp, dim=-1)
+
+
+def ref_logprobs_backward(
+    logits: torch.Tensor,           # [N, V]
+    targets: torch.Tensor,          # [N] int
+    lse: torch.Tensor,              # [N] float32 logsumexp of each row
+    ent: torch.Tensor,              # [N] float32 entropy of each row
+    g_lp: Optional[torch.Tensor],   # [N] gradient of logp, or None
+    g_ent: Optional[torch.Tensor],  # [N] gradient of ent, or None
+) -> torch.Tensor:
+    """Gradient of ``sum(g_lp * logp + g_ent * ent)`` w.r.t. the logits,
+    in their dtype: with ``p = exp(x - lse)`` and ``H = ent``,
+    ``dx = g_lp * (onehot(t) - p) - g_ent * p * (x - lse + H)``.  An
+    absent gradient contributes nothing."""
+    x = logits.float()
+    p = torch.exp(x - lse[:, None])
+    dx = torch.zeros_like(x)
+    if g_lp is not None:
+        onehot = torch.zeros_like(x).scatter_(1, targets.long()[:, None], 1.0)
+        dx = dx + g_lp[:, None] * (onehot - p)
+    if g_ent is not None:
+        dx = dx - g_ent[:, None] * p * (x - lse[:, None] + ent[:, None])
+    return dx.to(logits.dtype)

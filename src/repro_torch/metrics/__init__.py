@@ -1,5 +1,7 @@
 from repro_torch.metrics.runtime_metrics import (
     LagHistogram,
+    RuntimeQueueStats,
+    collect_runtime_stats,
     collect_serve_stats,
     serve_latency_counts,
     serve_latency_stats,
@@ -7,6 +9,8 @@ from repro_torch.metrics.runtime_metrics import (
 
 __all__ = [
     "LagHistogram",
+    "RuntimeQueueStats",
+    "collect_runtime_stats",
     "collect_serve_stats",
     "serve_latency_counts",
     "serve_latency_stats",

@@ -1,4 +1,4 @@
-# Serve-stats part of src/repro/metrics/runtime_metrics.py, copied; keep the two in step.
+# Copied from src/repro/metrics/runtime_metrics.py; keep the two in step.
 """Observability for the async actor-learner runtime.
 
 Per-version lag histograms, queue depth, and admission-drop rates — the
@@ -8,6 +8,7 @@ Python (no jax), cheap enough to update on every queue operation.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Any, Dict
 
 
@@ -23,6 +24,38 @@ class LagHistogram:
 
     def snapshot(self) -> Dict[int, int]:
         return dict(sorted(self._counts.items()))
+
+
+@dataclass(frozen=True)
+class RuntimeQueueStats:
+    """One consistent snapshot of a TrajectoryQueue's counters."""
+
+    depth: int
+    puts: int
+    admitted: int
+    dropped: int
+    downweighted: int
+    admission_drop_rate: float
+    drops_by_reason: Dict[str, int] = field(default_factory=dict)
+    lag_histogram: Dict[int, int] = field(default_factory=dict)
+    controller: str = ""
+    downweights_by_reason: Dict[str, int] = field(default_factory=dict)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "depth": self.depth,
+            "puts": self.puts,
+            "admitted": self.admitted,
+            "dropped": self.dropped,
+            "downweighted": self.downweighted,
+            "admission_drop_rate": self.admission_drop_rate,
+            "drops_by_reason": dict(self.drops_by_reason),
+            "lag_histogram": {
+                str(k): v for k, v in self.lag_histogram.items()
+            },
+            "controller": self.controller,
+            "downweights_by_reason": dict(self.downweights_by_reason),
+        }
 
 
 def collect_serve_stats(engine: Any) -> Dict[str, Any]:
@@ -202,4 +235,38 @@ def collect_resilience_stats(registry: Any, store: Any = None,
         out["quarantined_versions"] = sorted(store.quarantined_versions())
     if injector is not None and getattr(injector, "active", False):
         out["faults_fired"] = dict(injector.fired_counts())
+    return out
+
+
+def collect_runtime_stats(store: Any, queue: Any) -> Dict[str, Any]:
+    """Joined store+queue view, JSON-ready, for launchers and examples."""
+    stats = queue.stats()
+    hist = stats.lag_histogram
+    total = sum(hist.values())
+    mean_lag = (
+        sum(k * v for k, v in hist.items()) / total if total else 0.0
+    )
+    out = {
+        "policy_version": store.version,
+        "retained_versions": store.retained_versions(),
+        "queue": stats.as_dict(),
+        "mean_lag": mean_lag,
+        "max_lag": max(hist) if hist else 0,
+        # The labelled-counter view of the same decisions, keyed by the
+        # active controller (satisfies dashboards that join on the
+        # queue_admission_total{controller,outcome,reason} counters).
+        "admission": {
+            "controller": stats.controller,
+            "drops_by_reason": dict(stats.drops_by_reason),
+            "downweights_by_reason": dict(stats.downweights_by_reason),
+        },
+    }
+    counters_fn = getattr(queue, "admission_counters", None)
+    if counters_fn is not None:
+        out["admission"]["counters"] = counters_fn()
+    resilience = collect_resilience_stats(
+        getattr(queue, "registry", None), store=store,
+        injector=getattr(queue, "injector", None))
+    if resilience:
+        out["resilience"] = resilience
     return out

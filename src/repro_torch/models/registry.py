@@ -1,9 +1,13 @@
 """Model registry (port of ``repro.models.registry`` for dense archs).
 
 ``build(cfg)`` returns a ``ModelBundle`` of plain functions over the
-config, so the serve engine never special-cases architectures:
+config, so the serve engine and the learner never special-case
+architectures:
 
     bundle.init(gen, dtype, device)                      -> params
+    bundle.forward(params, tokens, ...)                  -> ModelOutput
+    bundle.init_cache(batch, max_len, ...)               -> dense cache
+    bundle.decode_step(params, token, cache)             -> (out, cache)
     bundle.init_paged_cache(num_blocks, block_size, ...) -> pages
     bundle.decode_step_paged(params, token, pages, ...)  -> (out, pages)
     bundle.decode_step_paged_multi(...) / decode_step_paged_varlen(...)
@@ -23,6 +27,9 @@ from repro_torch.models import transformer as tf_mod
 class ModelBundle:
     cfg: ModelConfig
     init: Callable
+    forward: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
     decode_step_paged: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     decode_step_paged_multi: Optional[Callable] = None
@@ -36,6 +43,15 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
     def init(gen: torch.Generator, dtype=torch.float32, device=None):
         return tf_mod.init_params(gen, cfg, dtype, device)
+
+    def forward(params, tokens, **kw):
+        return tf_mod.forward(params, cfg, tokens, **kw)
+
+    def init_cache(batch, max_len, dtype=torch.float32, device=None):
+        return tf_mod.init_cache(cfg, batch, max_len, dtype, device)
+
+    def decode_step(params, token, cache):
+        return tf_mod.decode_step(params, cfg, token, cache)
 
     def decode_step_paged(params, token, pages, block_tables, pos, active):
         return tf_mod.decode_step_paged(params, cfg, token, pages,
@@ -57,7 +73,9 @@ def build(cfg: ModelConfig) -> ModelBundle:
         return tf_mod.init_paged_cache(cfg, num_blocks, block_size, dtype,
                                        device)
 
-    return ModelBundle(cfg, init, decode_step_paged=decode_step_paged,
+    return ModelBundle(cfg, init, forward=forward, init_cache=init_cache,
+                       decode_step=decode_step,
+                       decode_step_paged=decode_step_paged,
                        init_paged_cache=init_paged_cache,
                        decode_step_paged_multi=decode_step_paged_multi,
                        decode_step_paged_varlen=decode_step_paged_varlen)

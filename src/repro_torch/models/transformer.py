@@ -1,21 +1,25 @@
-"""Dense decoder, paged serve path (port of ``repro.models.transformer``).
+"""Dense decoder (port of ``repro.models.transformer``).
 
-Ported here: ``init_params``, ``init_paged_cache`` and the three paged
-steps the serve engine dispatches — ``decode_step_paged`` (one token per
-slot, through the decode kernel), ``decode_step_paged_varlen`` (ragged
-rows per slot, through the varlen kernel) and ``decode_step_paged_multi``
-(the fixed-``T`` verify shape, a thin wrapper over the varlen step).
-``forward`` and the prefill writers come with later slices.
+Ported here: ``init_params``; the training/prefill ``forward`` with the
+value head, the dense KV cache (``init_cache``) and its one-token
+``decode_step``, which the learner and the static ``generate`` run; and
+``init_paged_cache`` with the three paged steps the serve engine
+dispatches — ``decode_step_paged`` (one token per slot, through the
+decode kernel), ``decode_step_paged_varlen`` (ragged rows per slot,
+through the varlen kernel) and ``decode_step_paged_multi`` (the
+fixed-``T`` verify shape, a thin wrapper over the varlen step).  The
+prefill writers come with a later slice.  The layer loop is a Python
+loop (JAX scans over the stacked layers).
 
 Parameters keep the JAX layout and names: nested dicts, layer leaves
 stacked ``[L, ...]``, dense weights ``[d_in, d_out]``.  The paged pool is
 ``{"k_pages", "v_pages"}`` of ``[L, KV, NB, BS, Dh]``.
 
-**In place.**  JAX returns new pools (donated buffers that XLA updates in
-place); here every step writes the pool tensors it is given in place and
-returns the same dict.  Each layer's K/V rows are written before that
-layer's attention reads the pool, so step *t* sees its own rows and
-every later step sees them too.
+**In place.**  JAX returns new pools and caches (donated buffers that XLA
+updates in place); here every step writes the pool or cache tensors it
+is given in place and returns the same dict.  Each layer's K/V rows are
+written before that layer's attention reads them, so step *t* sees its
+own rows and every later step sees them too.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.utils.tree import tree_map, tree_to  # noqa: F401 (re-export)
 from repro_torch.models.layers import (
     apply_rope,
     dense_apply,
@@ -67,15 +72,19 @@ def paged_arch_unsupported(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
+def _check_arch(cfg: ModelConfig) -> None:
+    reason = paged_arch_unsupported(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"{cfg.name}: {reason}")
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32, device=None) -> Dict:
     """Random init of a dense decoder from ``gen`` (the same
     distributions as the JAX init; not the same numbers).  Sampling runs
     on ``gen``'s device; the result moves to ``device`` when given, so
     one CPU generator gives identical weights on every device."""
-    reason = paged_arch_unsupported(cfg)
-    if reason is not None:
-        raise NotImplementedError(f"{cfg.name}: {reason}")
+    _check_arch(cfg)
     lead = (cfg.n_layers,)
     dev = gen.device
     p: Dict[str, Any] = {
@@ -93,16 +102,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     if cfg.value_head:
         p["value_head"] = dense_init(gen, cfg.d_model, 1, dtype, bias=True)
     return tree_to(p, device) if device is not None else p
-
-
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def tree_to(tree, device):
-    return tree_map(lambda t: t.to(device), tree)
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -269,3 +268,82 @@ def decode_step_paged_multi(
     row_len = torch.where(active, t, 0).to(torch.int32)
     return decode_step_paged_varlen(params, cfg, tokens, pages,
                                     block_tables, pos, row_len, write_cap)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill) and dense-cache decode
+# ---------------------------------------------------------------------------
+
+
+def _layers(params: Dict, n_layers: int):
+    """Per-layer views of the stacked ``[L, ...]`` leaves.  ``unbind``
+    makes the backward one stack per leaf, where indexing each layer
+    would allocate a zero ``[L, ...]`` gradient per layer."""
+    per_leaf = tree_map(lambda a: a.unbind(0), params["layers"])
+    return [tree_map(lambda t: t[i], per_leaf) for i in range(n_layers)]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> Dict:
+    """The dense decode cache for ``batch`` streams of up to
+    ``max_len`` tokens: ``k``/``v`` ``[L, B, max_len, KV, Dh]``, ``pos``."""
+    _check_arch(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def forward(
+    params: Dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                      # [B, S]
+    *,
+    return_cache: bool = False,
+    cache_len: Optional[int] = None,           # cache capacity for prefill
+) -> ModelOutput:
+    """Logits ``[B, S, V]`` and values ``[B, S]`` of every position;
+    with ``return_cache`` also the dense cache holding the sequence's K/V
+    rows, sized for ``cache_len`` tokens."""
+    _check_arch(cfg)
+    x = _embed(params, cfg, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None, :].expand(b, s)
+    cache = None
+    if return_cache:
+        cache = init_cache(cfg, b, cache_len if cache_len is not None else s,
+                           x.dtype, tokens.device)
+        cache["pos"].fill_(s)
+    for layer, lp in enumerate(_layers(params, cfg.n_layers)):
+        h = rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+        attn_out, (k, v) = attn.attn_forward(
+            lp["attn"], h, positions, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
+            window=cfg.window_for_layer(layer))
+        x = x + attn_out
+        if cache is not None:
+            cache["k"][layer, :, :s] = k.detach()
+            cache["v"][layer, :, :s] = v.detach()
+        h = rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(lp["mlp"], h)
+    return _paged_head_full(params, cfg, x)._replace(cache=cache)
+
+
+def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: Dict) -> Tuple[ModelOutput, Dict]:
+    """One autoregressive step of ``token`` [B] against the dense cache
+    (written in place); returns logits ``[B, V]`` and the cache with
+    ``pos + 1``."""
+    _check_arch(cfg)
+    x = _embed(params, cfg, token[:, None])
+    pos = cache["pos"]
+    for layer, lp in enumerate(_layers(params, cfg.n_layers)):
+        h = rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+        x = x + attn.attn_decode(
+            lp["attn"], h, pos, cache["k"][layer], cache["v"][layer],
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            rope_theta=cfg.rope_theta, window=cfg.window_for_layer(layer))
+        h = rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(lp["mlp"], h)
+    return _paged_head(params, cfg, x), dict(cache, pos=pos + 1)

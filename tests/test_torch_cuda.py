@@ -106,3 +106,75 @@ def test_model_step_on_card_launches_kernels_and_matches_cpu(dev):
                           rtol=1e-4, atol=1e-4)
     for k in want_pages:
         assert torch.allclose(got_pages[k].cpu(), want_pages[k], atol=1e-5)
+
+
+def _logprob_case(dev, dtype, n, v, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    logits = (4.0 * torch.randn(n, v, generator=g)).to(dtype)
+    targets = torch.randint(0, v, (n,), generator=g)
+    targets[0], targets[-1] = 0, v - 1               # both ends of the row
+    logits[1, v // 2:] = ref.NEG_INF                 # a row padded with -1e30
+    targets[1] = v // 4
+    return logits.to(dev), targets.to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("dtype,tol_lp,tol_ent", [
+    (torch.float32, 1e-5, 1e-4), (torch.bfloat16, 2e-2, 2e-2)])
+@pytest.mark.parametrize("n,v", [(37, 1000), (5, 131), (64, 151936)])
+def test_fused_logprob_kernel_matches_plain(dev, dtype, tol_lp, tol_ent, n,
+                                            v):
+    from repro_torch.kernels.logprobs import fused_logprob_cuda
+
+    logits, targets = _logprob_case(dev, dtype, n, v)
+    logp, ent, lse = fused_logprob_cuda(logits, targets)
+    torch.cuda.synchronize()
+    want_lp = ref.ref_logprobs_from_logits(logits, targets)
+    want_ent = ref.ref_entropy_from_logits(logits)
+    want_lse = torch.logsumexp(logits.float(), dim=-1)
+    assert (logp - want_lp).abs().max().item() <= tol_lp
+    assert (ent - want_ent).abs().max().item() <= tol_ent
+    assert (lse - want_lse).abs().max().item() <= tol_lp
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("with_ent", [False, True])
+@pytest.mark.parametrize("n,v", [(37, 1000), (5, 131), (64, 151936)])
+def test_fused_logprob_backward_matches_autograd(dev, dtype, tol, with_ent,
+                                                 n, v):
+    """The backward kernel against autograd of the plain forward; the
+    tolerance scales with the gradient's largest magnitude."""
+    logits, targets = _logprob_case(dev, dtype, n, v, seed=1)
+    g = torch.Generator().manual_seed(2)
+    g_lp = torch.randn(n, generator=g).to(dev)
+    g_ent = torch.randn(n, generator=g).to(dev) if with_ent else None
+    x = logits.float().requires_grad_(True)
+    loss = (g_lp * ref.ref_logprobs_from_logits(x, targets)).sum()
+    if with_ent:
+        loss = loss + (g_ent * ref.ref_entropy_from_logits(x)).sum()
+    (want,) = torch.autograd.grad(loss, x)
+    kernels.reset_launch_counts()
+    y = logits.clone().requires_grad_(True)
+    logp, ent = ops.logprobs_from_logits(y, targets)
+    out = (g_lp * logp).sum() + ((g_ent * ent).sum() if with_ent else 0)
+    (got,) = torch.autograd.grad(out, y)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_logprob"] == 1
+    assert kernels.launch_counts()["fused_logprob_bwd"] == 1
+    assert got.dtype == dtype
+    scale = max(1.0, want.abs().max().item())
+    assert (got.float() - want).abs().max().item() <= tol * scale
+
+
+def test_logprob_wrappers_refuse_bad_inputs(dev):
+    from repro_torch.kernels.logprobs import fused_logprob_cuda
+
+    logits, targets = _logprob_case(dev, torch.float32, 4, 64)
+    with pytest.raises(TypeError):
+        fused_logprob_cuda(logits.half(), targets)
+    with pytest.raises(TypeError):
+        fused_logprob_cuda(logits, targets.long())
+    with pytest.raises(ValueError):
+        fused_logprob_cuda(logits[:, ::2], targets)
+    with pytest.raises(ValueError):
+        fused_logprob_cuda(logits, targets[:3])

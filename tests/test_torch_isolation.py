@@ -32,6 +32,8 @@ def _env():
 def test_importing_every_module_pulls_in_no_jax():
     mods = _modules()
     assert "repro_torch.serve.engine" in mods
+    assert "repro_torch.train.trainer_rlvr" in mods
+    assert "repro_torch.launch.train" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -85,6 +87,22 @@ def test_launcher_without_cpu_raises_when_cuda_is_absent(monkeypatch):
         serve.main(["--engine", "continuous", "--requests", "1"])
     with pytest.raises(SystemExit, match="not ported"):
         serve.main(["--engine", "static"])
+
+
+def test_trainer_and_train_launcher_raise_when_cuda_is_absent(monkeypatch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.mathgen import MathTaskDataset
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build
+    from repro_torch.train import RLVRHyperparams, RLVRTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RLVRTrainer(build(reduced_config("qwen2.5-0.5b", vocab=64)),
+                    MathTaskDataset(prompt_len=16, pool_size=64),
+                    RLVRHyperparams())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["rlvr", "--warmup-steps", "0"])
 
 
 def test_cuda_only_tests_skip_cleanly_without_a_card():
