@@ -7,7 +7,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device probe: needs ``torch.cuda.is_available()``; prints the card's
    ``nvidia-smi`` name and power limit; float32 matmuls without TF32.
-2. build: compiles every CUDA kernel of the serve path from
+2. build: compiles every CUDA kernel of the port from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version at the serve
    path's full-width shapes (H=14, KV=2, Dh=64, BS=8, M=32, B=4,
@@ -43,6 +43,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
    each AdamW step made to the params within 1e-2 in L2 norm, and no
    entry of the updates further apart than 2 x lr.
 
+10. V-trace kernel: ``vtrace`` against ``ref_vtrace`` at the paper's
+    shape (B = 500 trajectories, T = 1000 steps), the JAX sweep shapes
+    (1, 5), (4, 13), (8, 64), (13, 100) and T = 1, with episode ends
+    (zero discounts), log-ratios of +-3 (both clips bite) and
+    (rho_bar, c_bar, lam) = (1, 1, 1) and (2, 0.5, 0.95), from float32
+    and bfloat16 inputs; within 1e-5 (bfloat16 5e-2) of max(1, |ref|).
+    Timed at 500 x 1000 beside the plain version and the bound; no
+    single PyTorch call computes the recurrence, so no library time.
+11. rl: ``repro_torch.launch.train rl`` in-process at the paper's scale
+    (500 actors x 1000 steps, a 4-snapshot mixture) with the launcher's
+    defaults (VACO, ``backward_mixture``, ``pass_through``) for 2
+    phases: finite returns and metrics, ``vtrace`` launched once per
+    phase, the policy moved.  Then one collection and one learner phase
+    at that scale, each timed and profiled (device busy / idle share).
+12. rl parity: hidden 64, 8 actors x 32 steps, on ``cpu`` and ``cuda``
+    with the same draws: one ``collect_rollout`` over a 4-slot mixture
+    (obs, actions, log_beta within 1e-4 of max(1, |cpu|), equal slots
+    and dones), then one VACO ``train_phase`` (1 epoch, 4 minibatches,
+    filter active): losses, tv, frac_filtered and grad norm within 1e-4
+    relative, the param update within 1e-2 in L2 norm.
+
 Then one JSON line of every kernel's numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -67,6 +88,9 @@ N_LEARN, V_FULL = 512, 151936
 LOGPROB_TOL = {"float32": (1e-5, 1e-4, 1e-5),     # logp, entropy, grad
                "bfloat16": (2e-2, 2e-2, 2e-2)}
 SERVE_KERNELS = ("paged_kv_write", "paged_attention", "paged_attention_varlen")
+# The paper's classic-RL scale (Table 1): 500 envs x 1000 steps.
+RL_ACTORS, RL_STEPS, RL_PHASES = 500, 1000, 2
+VTRACE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
 
 def emit(**fields) -> None:
@@ -891,6 +915,261 @@ def train_parity_phase(torch):
     check(not failures, "train parity: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: the classic-RL path
+# ---------------------------------------------------------------------------
+
+
+def _vtrace_inputs(torch, b, t, dtype, seed):
+    """Log-ratios 0.5 N(0, 1) with +-3 mixed in, values/rewards/bootstrap
+    N(0, 1), discounts 0.99 with 10 % episode ends, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    uni = lambda: torch.rand(b, t, generator=gen, device="cuda")
+    lr = 0.5 * rnd(b, t)
+    lr[uni() < 0.1] = 3.0
+    lr[uni() < 0.1] = -3.0
+    d = 0.99 * (uni() > 0.1).float()
+    return tuple(x.to(dtype) for x in (lr, rnd(b, t), rnd(b), rnd(b, t), d))
+
+
+def vtrace_kernel_phase(torch):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vtrace import vtrace_cuda
+
+    headline, worst = {}, {}
+    shapes = ((RL_ACTORS, RL_STEPS), (1, 5), (4, 13), (8, 64), (13, 100),
+              (RL_ACTORS, 1))
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for b, t in shapes:
+            for clips in ((1.0, 1.0, 1.0), (2.0, 0.5, 0.95)):
+                kw = dict(zip(("rho_bar", "c_bar", "lam"), clips))
+                args = _vtrace_inputs(torch, b, t, dtype, seed=b * t)
+                got = vtrace_cuda(*args, **kw)
+                want = ref.ref_vtrace(*args, **kw)
+                torch.cuda.synchronize()
+                err = 0.0
+                for g, w, what in zip(got, want, ("vs", "adv")):
+                    check(bool(torch.isfinite(g).all()) and g.shape == (b, t),
+                          f"vtrace/{b}x{t}/{dname}: bad {what}")
+                    e = (g - w).abs().max().item()
+                    check(e <= VTRACE_TOL[dname] * max(
+                        1.0, w.abs().max().item()),
+                        f"vtrace/{b}x{t}/{dname}/{clips}: {what} err {e}")
+                    err = max(err, e)
+                worst[dname] = max(worst.get(dname, 0.0), err)
+                if (b, t) != (RL_ACTORS, RL_STEPS) or clips[0] != 1.0:
+                    continue
+                # The main path's call: Table 1 clips, 500 x 1000.
+                kern = lambda: vtrace_cuda(*args, **kw)
+                plain = lambda: ref.ref_vtrace(*args, **kw)
+                # Four [B, T] inputs and the bootstrap read once, two
+                # [B, T] float32 outputs written once; ~12 operations per
+                # element (exp, two mins, the delta, the carry, the
+                # advantage).
+                b_ms, b_by = bound(4 * b * t * esize + b * esize
+                                   + 2 * b * t * 4, 12 * b * t, "float32")
+                rec = dict(phase="kernel", kernel="vtrace", case="paper",
+                           dtype=dname, B=b, T=t, max_abs_err=err,
+                           tol=VTRACE_TOL[dname],
+                           kernel_ms=time_ms(kern, iters=100),
+                           plain_ms=time_ms(plain, iters=5, warmup=1),
+                           library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                           kernel_device_ms=device_ms(kern, "vtrace_kernel"),
+                           plain_device_ms=device_ms(plain, iters=2))
+                emit(**rec)
+                headline[("vtrace", dname)] = rec
+    for dname, err in worst.items():
+        headline[("vtrace", dname)] = dict(headline[("vtrace", dname)],
+                                           max_abs_err=err)
+    # Latency against width: one block per 32 trajectories, so device
+    # time flat in B up to 132 blocks (4224 rows) means the per-chunk
+    # chain, not the bytes, sets it; T = 250 against 1000 gives the
+    # cost per chunk.
+    scaling = {}
+    for b, t in ((32, RL_STEPS), (RL_ACTORS, RL_STEPS), (4224, RL_STEPS),
+                 (RL_ACTORS, 250)):
+        args = _vtrace_inputs(torch, b, t, torch.float32, seed=7)
+        scaling[f"{b}x{t}"] = device_ms(lambda: vtrace_cuda(*args),
+                                        "vtrace_kernel")
+    emit(phase="vtrace_scaling", device_ms=scaling)
+    return headline
+
+
+def rl_phase(torch):
+    from repro_torch import kernels
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.tracer import Tracer
+
+    args = launcher.build_parser().parse_args([
+        "rl", "--device", "cuda", "--n-actors", str(RL_ACTORS),
+        "--rollout-steps", str(RL_STEPS), "--buffer-capacity", "4",
+        "--phases", str(RL_PHASES)])
+    tracer = Tracer(detail="spans")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = launcher.run_rl(args, tracer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(len(res.returns) == RL_PHASES,
+          f"rl: {len(res.returns)} of {RL_PHASES} phases ran")
+    check(all(math.isfinite(r) for r in res.returns) and
+          all(math.isfinite(v) for m in res.metrics for v in m.values()),
+          f"rl: non-finite returns {res.returns} or metrics")
+    # VACO realigns once per phase; nothing else launches V-trace.
+    check(launches["vtrace"] == RL_PHASES,
+          f"vtrace launched {launches['vtrace']} times in {RL_PHASES} phases")
+    # Phase 1 trains on data from the initial policy alone: unchanged
+    # params would leave its final TV at float noise (< 1e-6).
+    m0 = res.metrics[0]
+    check(m0["policy_lag"] == 0 and m0["final_tv"] > 1e-4 and
+          m0["grad_norm"] > 0, f"rl: the policy did not move: {m0}")
+    produce = _span_seconds(tracer, "produce")
+    learn = _span_seconds(tracer, "learner_step")
+    evals = _span_seconds(tracer, "eval")
+    emit(phase="rl", env=args.env, algorithm=args.algorithm,
+         runtime=args.runtime, actors=RL_ACTORS, steps=RL_STEPS,
+         buffer_capacity=args.buffer_capacity, phases=RL_PHASES,
+         seconds=seconds, collect_s=produce, learner_s=learn, eval_s=evals,
+         env_steps_per_s=len(produce) * RL_ACTORS * RL_STEPS / sum(produce),
+         learner_phase_ms=[x * 1e3 for x in learn],
+         eval_ms=[x * 1e3 for x in evals], returns=res.returns,
+         metrics=res.metrics,
+         lag_histogram=res.runtime_stats["queue"]["lag_histogram"],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches=launches)
+    return launches
+
+
+def rl_profile_phase(torch):
+    """One collection and one learner phase at the paper's scale, each
+    timed once plain and once under the profiler: device busy time, idle
+    share and launches, by kernel."""
+    from repro_torch.envs import make_env, wrap_autoreset
+    from repro_torch.models.mlp_policy import act, mlp_policy_init
+    from repro_torch.runtime import MixtureRolloutProducer, PolicyStore
+    from repro_torch.train import (RLHyperparams, init_train_state,
+                                   make_train_phase)
+    from repro_torch.rollout.env_rollout import default_draws
+
+    env = wrap_autoreset(make_env("pendulum"))
+    params = mlp_policy_init(torch.Generator(device="cuda").manual_seed(0),
+                             env.obs_dim, env.act_dim)
+    store = PolicyStore(params, 4)
+    producer = MixtureRolloutProducer(env, act, n_actors=RL_ACTORS,
+                                      rollout_steps=RL_STEPS, seed=1,
+                                      device="cuda")
+    train_phase = make_train_phase(RLHyperparams())
+    state = init_train_state(params)
+    batch = None
+
+    def collect():
+        nonlocal batch
+        batch, slots = producer(store.buffer)
+        return slots.cpu()
+
+    def learn():
+        return train_phase(state, batch, default_draws(2, "cuda"))
+
+    rec = dict(phase="rl_profile", actors=RL_ACTORS, steps=RL_STEPS)
+    for name, fn in (("collect", collect), ("learner", learn)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, rows = profile_kernels(fn)
+        n = sum(c for _, _, c in rows)
+        rec[name] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                         idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                         kernel_launches=n, top_kernels=rows[:8],
+                         vtrace_ms=sum(ms for k, ms, _ in rows
+                                       if "vtrace" in k))
+    rec["collect"]["launches_per_env_step"] = (
+        rec["collect"]["kernel_launches"] / RL_STEPS)
+    emit(**rec)
+
+
+def rl_parity_phase(torch):
+    from repro_torch import kernels
+    from repro_torch.envs import make_env, wrap_autoreset
+    from repro_torch.models.mlp_policy import act, mlp_policy_init
+    from repro_torch.rollout.async_engine import SimulatedAsyncActors
+    from repro_torch.rollout.env_rollout import GeneratorDraws, RolloutBatch
+    from repro_torch.train import (RLHyperparams, init_train_state,
+                                   make_train_phase)
+    from repro_torch.utils.tree import tree_leaves, tree_to
+
+    env = wrap_autoreset(make_env("pendulum"))
+    gen = torch.Generator().manual_seed(0)
+    snaps = [mlp_policy_init(gen, env.obs_dim, env.act_dim)
+             for _ in range(4)]
+    for p in snaps:                # actions off the mean by more than eps
+        p["actor"]["head"]["w"] *= 30.0
+    rec = dict(phase="rl_parity", actors=8, steps=32, hidden=64, tol=1e-4,
+               update_tol=1e-2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        # One CPU stream of draws for both devices.
+        draws = GeneratorDraws(torch.Generator().manual_seed(21), dev)
+        actors = SimulatedAsyncActors(
+            env, act, tree_to(snaps[0], dev), n_actors=8, buffer_capacity=4,
+            rollout_steps=32, device=dev, draws=draws)
+        for p in snaps[1:]:
+            actors.push_policy(tree_to(p, dev))
+        batch, slots = actors.collect()
+        out[dev] = (RolloutBatch(*(x.cpu() for x in batch)), slots.cpu())
+    (cb, cs), (gb, gs) = out["cpu"], out["cuda"]
+    check(torch.equal(cs, gs) and len(set(cs.tolist())) > 1,
+          f"rl parity: slots cpu {cs} cuda {gs}")
+    check(torch.equal(cb.dones, gb.dones), "rl parity: dones differ")
+    rec["collect_max_abs_err"] = {}
+    for k in ("obs", "actions", "log_beta", "rewards", "final_obs"):
+        rec["collect_max_abs_err"][k] = _scaled_err(
+            getattr(gb, k), getattr(cb, k), 1e-4, f"collect {k}")
+    # One VACO phase on the CPU's batch, behaviour 0.3 nats off so the
+    # TV filter acts, with one CPU stream of permutations.
+    noise = torch.randn(cb.log_beta.shape,
+                        generator=torch.Generator().manual_seed(23))
+    batch = cb._replace(log_beta=cb.log_beta + 0.3 * noise)
+    hp = RLHyperparams(num_epochs=1, num_minibatches=4)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        state = init_train_state(tree_to(snaps[-1], dev))
+        new, m = make_train_phase(hp)(
+            state, RolloutBatch(*(x.to(dev) for x in batch)),
+            GeneratorDraws(torch.Generator().manual_seed(22), dev))
+        res[dev] = (m, [(a - b).cpu() for a, b in
+                        zip(tree_leaves(new.params),
+                            tree_leaves(state.params))],
+                    kernels.launch_counts()["vtrace"])
+    (cm, cu, cl), (gm, gu, gl) = res["cpu"], res["cuda"]
+    check(cl == 0 and gl == 1, f"rl parity: vtrace launches cpu {cl} "
+          f"cuda {gl}")
+    failures = []
+    for k in ("total_loss", "policy_loss", "value_loss", "tv",
+              "frac_filtered", "grad_norm"):
+        err = abs(gm[k] - cm[k])
+        rec[k] = dict(cpu=cm[k], cuda=gm[k], abs_err=err)
+        if err > 1e-4 * max(1.0, abs(cm[k])):
+            failures.append(f"{k} cpu {cm[k]} cuda {gm[k]}")
+    diff = sum(((x - y) ** 2).sum().item() for x, y in zip(gu, cu)) ** 0.5
+    step = sum((y ** 2).sum().item() for y in cu) ** 0.5
+    rec["update"] = dict(update_norm=step, update_diff_norm=diff,
+                         rel_err=diff / step)
+    if not diff <= 1e-2 * step:
+        failures.append(f"update: {rec['update']}")
+    emit(**rec)
+    check(cm["frac_filtered"] > 0 and step > 0,
+          f"rl parity: VACO filter idle or no update {cm}")
+    check(not failures, "rl parity: " + "; ".join(failures))
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -905,6 +1184,8 @@ KERNELS = (
     # kernel is forward-only).
     ("fused_logprob_bwd", "src/repro_torch/kernels/csrc/fused_logprob_bwd.cu",
      "src/repro/kernels/ref.py:284"),
+    ("vtrace", "src/repro_torch/kernels/csrc/vtrace.cu",
+     "src/repro/kernels/vtrace_pallas.py:81"),
 )
 
 
@@ -952,6 +1233,10 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     train_parity_phase(torch)
+    headline.update(vtrace_kernel_phase(torch))
+    launches["vtrace"] = rl_phase(torch)["vtrace"]
+    rl_profile_phase(torch)
+    rl_parity_phase(torch)
 
     rows = []
     for name, source, replaces in KERNELS:

@@ -1,3 +1,3 @@
-"""Algorithm core of the learner (port of the parts of ``repro.core`` the
-RLVR learner runs): the TV filter, the GRPO/VACO losses and the policy
-snapshot ring."""
+"""Algorithm core of the learners (port of ``repro.core``): the TV
+filter, the VACO/PPO/SPO/IMPALA and GRPO losses, V-trace, GAE, the
+diagonal Gaussian and the policy snapshot ring."""

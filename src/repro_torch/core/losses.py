@@ -1,5 +1,6 @@
-"""The RLVR learner's policy losses (port of the GRPO/VACO/PPO part of
-``repro.core.losses``).
+"""The learners' losses (port of ``repro.core.losses``): VACO, PPO, SPO
+and IMPALA for the classic-RL trainer, GRPO/GRPO+VACO for the RLVR
+learner.
 
 Same convention as the JAX package: ``log_pi`` is differentiable,
 ``log_beta`` and the advantages are constants, reductions are masked
@@ -59,6 +60,35 @@ def vaco_policy_loss(
     return loss, aux
 
 
+def value_loss_mse(
+    values: torch.Tensor,
+    targets: torch.Tensor,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """0.5 * mean (V_phi(s) - v_target)^2 (Algorithm 1's L_v)."""
+    return 0.5 * _masked_mean(torch.square(values - targets.detach()),
+                              valid_mask)
+
+
+def vaco_total_loss(
+    *,
+    log_pi: torch.Tensor,
+    log_beta: torch.Tensor,
+    advantages: torch.Tensor,
+    values: torch.Tensor,
+    value_targets: torch.Tensor,
+    cfg: VACOConfig,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    l_pi, aux = vaco_policy_loss(log_pi=log_pi, log_beta=log_beta,
+                                 advantages=advantages, cfg=cfg,
+                                 valid_mask=valid_mask)
+    l_v = value_loss_mse(values, value_targets, valid_mask)
+    loss = cfg.policy_coef * l_pi + cfg.value_coef * l_v
+    aux = dict(aux, policy_loss=l_pi, value_loss=l_v, total_loss=loss)
+    return loss, aux
+
+
 class PPOConfig(NamedTuple):
     clip_low: float = 0.2        # ratio clipped to [1-clip_low, 1+clip_high]
     clip_high: float = 0.2       # DAPO-style asymmetric clipping supported
@@ -97,6 +127,112 @@ def ppo_policy_loss(
         "clip_frac": clip_frac,
         "tv": tv_estimate(log_ratios.detach(), valid_mask),
         "mean_ratio": _masked_mean(ratios, valid_mask),
+    }
+    return loss, aux
+
+
+def ppo_total_loss(
+    *,
+    log_pi: torch.Tensor,
+    log_beta: torch.Tensor,
+    advantages: torch.Tensor,
+    values: torch.Tensor,
+    value_targets: torch.Tensor,
+    entropy: torch.Tensor,
+    cfg: PPOConfig,
+    old_values: Optional[torch.Tensor] = None,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    l_pi, aux = ppo_policy_loss(log_pi=log_pi, log_beta=log_beta,
+                                advantages=advantages, cfg=cfg,
+                                valid_mask=valid_mask)
+    if cfg.clip_value and old_values is not None:
+        v_clipped = old_values + torch.clamp(
+            values - old_values, -cfg.value_clip_eps, cfg.value_clip_eps)
+        l_v = 0.5 * _masked_mean(
+            torch.maximum(torch.square(values - value_targets),
+                          torch.square(v_clipped - value_targets)),
+            valid_mask)
+    else:
+        l_v = value_loss_mse(values, value_targets, valid_mask)
+    l_ent = _masked_mean(entropy, valid_mask)
+    loss = l_pi + cfg.value_coef * l_v - cfg.entropy_coef * l_ent
+    aux = dict(aux, policy_loss=l_pi, value_loss=l_v, entropy=l_ent,
+               total_loss=loss)
+    return loss, aux
+
+
+class SPOConfig(NamedTuple):
+    """SPO, Simple Policy Optimization (Xie et al., 2025): squared-TV
+    penalty instead of a clip."""
+
+    penalty_coef: float = 20.0   # lambda on E[(ratio - 1)^2]
+    entropy_coef: float = 0.0
+    value_coef: float = 0.5
+
+
+def spo_total_loss(
+    *,
+    log_pi: torch.Tensor,
+    log_beta: torch.Tensor,
+    advantages: torch.Tensor,
+    values: torch.Tensor,
+    value_targets: torch.Tensor,
+    entropy: torch.Tensor,
+    cfg: SPOConfig,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    advantages = advantages.detach()
+    log_ratios = log_pi - log_beta.detach()
+    ratios = torch.exp(log_ratios)
+    surrogate = ratios * advantages
+    penalty = torch.square(ratios - 1.0)  # squared-TV surrogate, no clip
+    l_pi = -_masked_mean(surrogate - cfg.penalty_coef * penalty, valid_mask)
+    l_v = value_loss_mse(values, value_targets, valid_mask)
+    l_ent = _masked_mean(entropy, valid_mask)
+    loss = l_pi + cfg.value_coef * l_v - cfg.entropy_coef * l_ent
+    aux = {
+        "policy_loss": l_pi,
+        "value_loss": l_v,
+        "entropy": l_ent,
+        "tv": tv_estimate(log_ratios.detach(), valid_mask),
+        "penalty": _masked_mean(penalty, valid_mask),
+        "total_loss": loss,
+    }
+    return loss, aux
+
+
+class IMPALAConfig(NamedTuple):
+    """IMPALA, per-update V-trace actor-critic (Espeholt et al., 2018)."""
+
+    entropy_coef: float = 0.0
+    value_coef: float = 0.5
+    rho_bar_pg: float = 1.0
+
+
+def impala_total_loss(
+    *,
+    log_pi: torch.Tensor,
+    log_beta: torch.Tensor,
+    pg_advantages: torch.Tensor,  # rho_t * (r + gamma v_{t+1} - V)
+    values: torch.Tensor,
+    value_targets: torch.Tensor,  # vs from the per-update V-trace pass
+    entropy: torch.Tensor,
+    cfg: IMPALAConfig,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    pg_advantages = pg_advantages.detach()
+    l_pi = -_masked_mean(log_pi * pg_advantages, valid_mask)
+    l_v = value_loss_mse(values, value_targets, valid_mask)
+    l_ent = _masked_mean(entropy, valid_mask)
+    loss = l_pi + cfg.value_coef * l_v - cfg.entropy_coef * l_ent
+    log_ratios = log_pi - log_beta.detach()
+    aux = {
+        "policy_loss": l_pi,
+        "value_loss": l_v,
+        "entropy": l_ent,
+        "tv": tv_estimate(log_ratios.detach(), valid_mask),
+        "total_loss": loss,
     }
     return loss, aux
 

@@ -1,5 +1,6 @@
 """The policy snapshot ring (port of ``repro.core.policy_lag``'s
-``PolicyBuffer``, ``buffer_init``, ``buffer_push`` and ``buffer_latest``).
+``PolicyBuffer``, ``buffer_init``, ``buffer_push``, ``buffer_sample`` and
+``buffer_latest``).
 
 JAX builds a new stacked tree on every push; here the ring is allocated
 once, ``[capacity, ...]`` per leaf, and a push **copies** the snapshot
@@ -44,6 +45,21 @@ def buffer_push(buf: PolicyBuffer, params: Any) -> PolicyBuffer:
     cap = buf.capacity
     return PolicyBuffer(stacked=buf.stacked, head=(buf.head + 1) % cap,
                         count=min(buf.count + 1, cap))
+
+
+def buffer_sample(buf: PolicyBuffer, draws: Any, n_actors: int):
+    """Uniformly sample ``n_actors`` policies from the valid entries.
+
+    ``draws.slots(n, count)`` gives the age-order indices (uniform in
+    ``[0, count)``, the JAX ``randint``).  Returns ``(params_batched,
+    slots)``: every leaf of ``params_batched`` leads with ``n_actors``.
+    It is a gathered **copy** (``s[slots]``), so a later publish, which
+    writes a ring slot in place, leaves it as it was."""
+    cap = buf.capacity
+    idx = draws.slots(n_actors, buf.count)
+    # Ring-buffer order: entry j (age order) lives at (head - count + j) % cap
+    slots = (buf.head - buf.count + idx) % cap
+    return tree_map(lambda s: s[slots], buf.stacked), slots
 
 
 def buffer_slot(buf: PolicyBuffer, slot: int) -> Any:

@@ -6,11 +6,12 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import (logprobs, paged_attention,
-                                 paged_attention_varlen, paged_kv_write)
+                                 paged_attention_varlen, paged_kv_write,
+                                 vtrace)
 
 _KERNELS = (paged_kv_write.KERNEL, paged_attention.KERNEL,
             paged_attention_varlen.KERNEL, logprobs.FWD_KERNEL,
-            logprobs.BWD_KERNEL)
+            logprobs.BWD_KERNEL, vtrace.KERNEL)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -21,6 +21,7 @@ from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.paged_attention_varlen import \
     paged_attention_varlen_cuda
 from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
+from repro_torch.kernels.vtrace import vtrace_cuda
 
 
 def _route(t: torch.Tensor) -> str:
@@ -106,3 +107,20 @@ def logprobs_from_logits(logits, targets):
         flat, tgt = flat.contiguous(), _i32(tgt)
     logp, ent = LogprobsFn.apply(flat, tgt)
     return logp.reshape(lead), ent.reshape(lead)
+
+
+def vtrace(
+    log_ratios, values, bootstrap_value, rewards, discounts,
+    *, rho_bar: float = 1.0, c_bar: float = 1.0, lam: float = 1.0,
+):
+    """``(vs, advantages)`` ``[B, T]`` float32 (paper Eqs. 14-15).  No
+    gradient: callers pass constants (the kernel raises on inputs that
+    require grad).  On the card, inputs of mixed dtypes are cast to
+    float32 and every input is made contiguous."""
+    args = (log_ratios, values, bootstrap_value, rewards, discounts)
+    if _route(values) == "cpu":
+        return ref.ref_vtrace(*args, rho_bar=rho_bar, c_bar=c_bar, lam=lam)
+    if len({t.dtype for t in args}) > 1:
+        args = tuple(t.float() for t in args)
+    return vtrace_cuda(*(t.contiguous() for t in args), rho_bar=rho_bar,
+                       c_bar=c_bar, lam=lam)

@@ -13,6 +13,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core.vtrace import vtrace
+
 NEG_INF = -1e30
 
 
@@ -213,3 +215,28 @@ def ref_logprobs_backward(
     if g_ent is not None:
         dx = dx - g_ent[:, None] * p * (x - lse[:, None] + ent[:, None])
     return dx.to(logits.dtype)
+
+
+# ---------------------------------------------------------------------------
+# V-trace (paper Eqs. 14-15)
+# ---------------------------------------------------------------------------
+
+
+def ref_vtrace(
+    log_ratios: torch.Tensor,       # [B, T]
+    values: torch.Tensor,           # [B, T]
+    bootstrap_value: torch.Tensor,  # [B]
+    rewards: torch.Tensor,          # [B, T]
+    discounts: torch.Tensor,        # [B, T]
+    rho_bar: float = 1.0,
+    c_bar: float = 1.0,
+    lam: float = 1.0,
+):
+    """``(vs, advantages)`` of ``core.vtrace.vtrace``, in float32 whatever
+    the input dtype, as the kernel computes them."""
+    f32 = lambda x: x.float()
+    out = vtrace(log_ratios=f32(log_ratios), values=f32(values),
+                 bootstrap_value=f32(bootstrap_value), rewards=f32(rewards),
+                 discounts=f32(discounts), rho_bar=rho_bar, c_bar=c_bar,
+                 lam=lam)
+    return out.vs, out.advantages

@@ -1,23 +1,32 @@
-"""Training launcher of the port: forward-lag RLVR (§5.2) on the GPU by
-default.
+"""Training launcher of the port, on the GPU by default: simulated-async
+classic RL (§5.1) and forward-lag RLVR (§5.2).
 
+  # classic RL: VACO over a 4-snapshot backward mixture, paper scale
+  PYTHONPATH=src python -m repro_torch.launch.train rl \\
+      --env pendulum --algorithm vaco --buffer-capacity 4 \\
+      --n-actors 500 --rollout-steps 1000 --phases 30 [--device cpu]
+
+  # RLVR: GRPO+VACO on qwen2.5-0.5b
   PYTHONPATH=src python -m repro_torch.launch.train rlvr \\
       --algorithm grpo_vaco --n-minibatches 4 --phases 10 \\
       [--full-width] [--device cpu]
 
-Same flags and printout as ``repro.launch.train rlvr`` for the parts
-ported: the legacy producer (``ForwardLagGenerator``) under the
-``forward_n`` runtime, with the ``pass_through``, ``max_lag``,
-``tv_gate`` and ``tv_gate_tokenwise`` controllers.  ``--full-width``
-trains ``get_config("qwen2.5-0.5b")`` (24 layers, vocab 151936) instead of
-``reduced_config``; the math tokenizer's ids fit in either vocab.
-Weights are a random init from ``--seed``.
+Same flags, defaults and printout as ``repro.launch.train`` for the
+parts ported, plus ``--device``.  ``rl`` runs all five algorithms and
+all five envs under the ``backward_mixture`` and ``forward_n`` runtimes.
+``rlvr`` runs the legacy producer (``ForwardLagGenerator``) under
+``forward_n``; ``--full-width`` trains ``get_config("qwen2.5-0.5b")``
+(24 layers, vocab 151936) instead of ``reduced_config``.  Weights are a
+random init from ``--seed``.  Both take the ``pass_through``,
+``max_lag`` and ``tv_gate`` controllers (``rlvr`` also
+``tv_gate_tokenwise``).
 
-Not ported yet (each exits with a message): the ``rl`` subcommand,
-``--producer serve``, ``--runtime threaded``, the controllers ``gac``,
-``stable_async`` and ``asympo``, ``--fault-plan``,
-``--watchdog-restarts``, ``--request-deadline``, ``--checkpoint-dir``
-and ``--guard-checkpoint-dir``.
+Not ported yet (each exits with a message): ``--runtime threaded``, the
+controllers ``gac``, ``stable_async`` and ``asympo``, and
+``--checkpoint-dir``; for ``rlvr`` also ``--producer serve``,
+``--forced-lag``, ``--fault-plan``, ``--watchdog-restarts``,
+``--request-deadline`` and ``--guard-checkpoint-dir``.  As in the JAX
+launcher, ``--metrics-out`` writes nothing for ``rl``.
 """
 from __future__ import annotations
 
@@ -27,25 +36,71 @@ import sys
 from typing import Any, List, Optional
 
 _NOT_PORTED = (
-    ("--producer serve", lambda a: a.producer == "serve"),
     ("--runtime threaded", lambda a: a.runtime == "threaded"),
+    ("--checkpoint-dir", lambda a: a.checkpoint_dir),
+)
+_NOT_PORTED_RLVR = (
+    ("--producer serve", lambda a: a.producer == "serve"),
     ("--fault-plan", lambda a: a.fault_plan),
     ("--watchdog-restarts", lambda a: a.watchdog_restarts > 0),
     ("--request-deadline", lambda a: a.request_deadline is not None),
-    ("--checkpoint-dir", lambda a: a.checkpoint_dir),
     ("--guard-checkpoint-dir", lambda a: a.guard_checkpoint_dir),
     ("--forced-lag", lambda a: a.forced_lag is not None),
 )
 _CONTROLLERS_NOT_PORTED = ("gac", "stable_async", "asympo")
 
 
+def _add_runtime_args(p, *, regimes, default_regime,
+                      admissions=("pass_through", "max_lag", "tv_gate"),
+                      ) -> None:
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--runtime", default=default_regime, choices=regimes,
+                   help="lag regime driving the actor-learner runtime")
+    p.add_argument("--controller", default=None, metavar="SPEC",
+                   help="lag controller spec 'name:key=val,...', e.g. "
+                        "'tv_gate:delta=0.2,mode=downweight'")
+    p.add_argument("--admission", default=None, choices=list(admissions),
+                   help="DEPRECATED: use --controller 'name:...'")
+    p.add_argument("--max-lag", type=int, default=None,
+                   help="DEPRECATED: use --controller 'max_lag:max_lag=N'")
+    p.add_argument("--admission-mode", default=None,
+                   choices=["drop", "downweight"],
+                   help="DEPRECATED: use --controller "
+                        "'tv_gate:delta=...,mode=...'")
+    p.add_argument("--queue-maxsize", type=int, default=4)
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write an execution trace: .json -> Perfetto, "
+                        ".jsonl -> flat event lines")
+    p.add_argument("--trace-detail", default="spans",
+                   choices=["off", "spans", "full"])
+    p.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="append one metrics-registry snapshot as a JSONL "
+                        "line at exit")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     sub = ap.add_subparsers(dest="mode", required=True)
-    sub.add_parser("rl", help="simulated-async classic RL (not ported yet)")
+
+    rl = sub.add_parser("rl", help="simulated-async classic RL (§5.1)")
+    rl.add_argument("--env", default="pendulum")
+    rl.add_argument("--algorithm", default="vaco",
+                    choices=["vaco", "ppo", "ppo_kl", "spo", "impala"])
+    rl.add_argument("--buffer-capacity", type=int, default=1)
+    rl.add_argument("--n-actors", type=int, default=32)
+    rl.add_argument("--rollout-steps", type=int, default=128)
+    rl.add_argument("--phases", type=int, default=30)
+    rl.add_argument("--seed", type=int, default=0)
+    rl.add_argument("--delta", type=float, default=0.2)
+    rl.add_argument("--forward-n", type=int, default=4,
+                    help="items per frozen policy (forward_n regime)")
+    rl.add_argument("--checkpoint-dir", default=None)
+    _add_runtime_args(
+        rl, regimes=["backward_mixture", "forward_n", "threaded"],
+        default_regime="backward_mixture")
+
     rv = sub.add_parser("rlvr", help="forward-lag RLVR (§5.2)")
     rv.add_argument("--arch", default="qwen2.5-0.5b")
-    rv.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     rv.add_argument("--full-width", action="store_true",
                     help="train the full config (get_config) instead of "
                          "the reduced one")
@@ -76,31 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "publishes quarantined, non-finite learner "
                          "steps skipped + rolled back)")
     rv.add_argument("--guard-checkpoint-dir", default=None)
-    rv.add_argument("--runtime", default="forward_n",
-                    choices=["forward_n", "threaded"],
-                    help="lag regime driving the actor-learner runtime")
-    rv.add_argument("--controller", default=None, metavar="SPEC",
-                    help="lag controller spec 'name:key=val,...', e.g. "
-                         "'tv_gate:delta=0.2,mode=downweight'")
-    rv.add_argument("--admission", default=None,
-                    choices=["pass_through", "max_lag", "tv_gate",
-                             "tv_gate_tokenwise"],
-                    help="DEPRECATED: use --controller 'name:...'")
-    rv.add_argument("--max-lag", type=int, default=None,
-                    help="DEPRECATED: use --controller 'max_lag:max_lag=N'")
-    rv.add_argument("--admission-mode", default=None,
-                    choices=["drop", "downweight"],
-                    help="DEPRECATED: use --controller "
-                         "'tv_gate:delta=...,mode=...'")
-    rv.add_argument("--queue-maxsize", type=int, default=4)
-    rv.add_argument("--trace", default=None, metavar="PATH",
-                    help="write an execution trace: .json -> Perfetto, "
-                         ".jsonl -> flat event lines")
-    rv.add_argument("--trace-detail", default="spans",
-                    choices=["off", "spans", "full"])
-    rv.add_argument("--metrics-out", default=None, metavar="PATH",
-                    help="append one metrics-registry snapshot as a JSONL "
-                         "line at exit")
+    _add_runtime_args(
+        rv, regimes=["forward_n", "threaded"], default_regime="forward_n",
+        admissions=("pass_through", "max_lag", "tv_gate",
+                    "tv_gate_tokenwise"))
     return ap
 
 
@@ -127,10 +161,8 @@ def _resolve_controller(args, *, delta):
 
 
 def _refuse_unported(args) -> None:
-    if args.mode == "rl":
-        raise SystemExit("the rl subcommand is not ported to the PyTorch "
-                         "launcher yet; use repro.launch.train rl")
-    for flag, on in _NOT_PORTED:
+    checks = _NOT_PORTED + (_NOT_PORTED_RLVR if args.mode == "rlvr" else ())
+    for flag, on in checks:
         if on(args):
             raise SystemExit(f"{flag} is not ported to the PyTorch trainer "
                              "yet; use repro.launch.train for it")
@@ -140,8 +172,34 @@ def _refuse_unported(args) -> None:
                          "PyTorch trainer yet; use repro.launch.train for it")
 
 
+def run_rl(args, tracer: Any = None):
+    """The classic-RL run ``args`` describe; prints the JAX launcher's
+    JSON and returns the ``AsyncRLResult``."""
+    from repro_torch.train import (AsyncRLRunConfig, RLHyperparams,
+                                   run_async_rl)
+
+    res = run_async_rl(AsyncRLRunConfig(
+        env_name=args.env, algorithm=args.algorithm,
+        buffer_capacity=args.buffer_capacity,
+        n_actors=args.n_actors, rollout_steps=args.rollout_steps,
+        total_phases=args.phases, seed=args.seed,
+        hp=RLHyperparams(delta=args.delta),
+        runtime=args.runtime, forward_n=args.forward_n,
+        queue_maxsize=args.queue_maxsize,
+        controller=_resolve_controller(args, delta=args.delta),
+        tracer=tracer, device=args.device))
+    print(json.dumps({
+        "runtime": args.runtime,
+        "returns": res.returns,
+        "final_tv": res.final_tv,
+        "runtime_stats": res.runtime_stats,
+    }, indent=1))
+    return res
+
+
 def build_trainer(args, tracer: Any = None):
-    """The trainer ``args`` describe (model, dataset, hyperparameters)."""
+    """The RLVR trainer ``args`` describe (model, dataset,
+    hyperparameters)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.mathgen import MathTaskDataset
     from repro_torch.data.tokenizer import get_tokenizer
@@ -165,7 +223,7 @@ def build_trainer(args, tracer: Any = None):
 
 
 def run(args, tracer: Any = None):
-    """Warmup, train and print, as the JAX launcher does; returns
+    """RLVR warmup, train and print, as the JAX launcher does; returns
     ``(trainer, result, warmup_loss)``."""
     trainer = build_trainer(args, tracer)
     wl = trainer.warmup()
@@ -197,7 +255,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     from repro_torch.obs.tracer import make_tracer
 
     tracer = make_tracer(args.trace_detail if args.trace else "off")
-    trainer, _, _ = run(args, tracer)
+    if args.mode == "rl":
+        run_rl(args, tracer if args.trace else None)
+    else:
+        trainer, _, _ = run(args, tracer)
     if args.trace:
         from repro_torch.obs.perfetto import (export_perfetto,
                                               export_trace_jsonl)
@@ -209,7 +270,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"trace: {n} events -> {args.trace} "
               f"(detail={args.trace_detail}, "
               f"ring-dropped={tracer.dropped})")
-    if args.metrics_out:
+    if args.mode == "rlvr" and args.metrics_out:
         trainer.metrics.export_jsonl(args.metrics_out)
         print(f"metrics: snapshot -> {args.metrics_out}")
     return 0

@@ -1,1 +1,2 @@
-"""Models of the port: the dense decoder's paged serve path."""
+"""Models of the port: the dense decoder (training forward and the paged
+serve path) and the classic-RL Gaussian MLP actor-critic."""

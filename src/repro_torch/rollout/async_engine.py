@@ -1,5 +1,10 @@
-"""The RLVR producer (port of ``repro.rollout.async_engine``'s
-``RLVRMinibatch`` and ``ForwardLagGenerator``).
+"""The phase-locked producers (port of ``repro.rollout.async_engine``):
+``SimulatedAsyncActors``, the §5.1 backward-lag mixture, and the RLVR
+producer's ``RLVRMinibatch`` and ``ForwardLagGenerator``.
+
+``SimulatedAsyncActors`` is the legacy surface over the runtime: a
+``PolicyStore`` whose ring is the old ``PolicyBuffer`` and the
+``MixtureRolloutProducer`` the ``backward_mixture`` regime drives.
 
 ``ForwardLagGenerator.generate_minibatch`` is the producer callable the
 lag regimes drive: sample prompts, generate grouped completions with the
@@ -9,14 +14,58 @@ hook a test overrides to replay the JAX key chain.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.data.mathgen import verify
+from repro_torch.envs.base import Env
+from repro_torch.rollout.env_rollout import Draws, RolloutBatch
 from repro_torch.rollout.sampler import (GenerationResult, NoiseFn, generate,
                                          gumbel_noise)
+from repro_torch.runtime.policy_store import PolicyStore
+from repro_torch.runtime.regimes import MixtureRolloutProducer
+
+
+class SimulatedAsyncActors:
+    """Policy-ring actors over batched environments (adapter)."""
+
+    def __init__(
+        self,
+        env: Env,
+        policy_apply: Callable,
+        init_params: Any,
+        *,
+        n_actors: int,
+        buffer_capacity: int,
+        rollout_steps: int,
+        seed: int = 0,
+        device: Any = "cpu",
+        draws: Optional[Draws] = None,
+    ) -> None:
+        self.env = env
+        self.n_actors = n_actors
+        self.rollout_steps = rollout_steps
+        self.store = PolicyStore(init_params, buffer_capacity)
+        self._producer = MixtureRolloutProducer(
+            env, policy_apply, n_actors=n_actors,
+            rollout_steps=rollout_steps, seed=seed, device=device,
+            draws=draws)
+
+    @property
+    def buffer(self):
+        """The underlying policy ring (legacy attribute)."""
+        return self.store.buffer
+
+    def push_policy(self, params: Any) -> int:
+        """Learner publishes a new policy snapshot (end of train phase)."""
+        return self.store.publish(params)
+
+    def collect(self) -> Tuple[RolloutBatch, torch.Tensor]:
+        """One collection phase: every actor re-samples a stale policy and
+        rolls ``rollout_steps`` steps.  Returns (batch, sampled slots)."""
+        return self._producer(self.store.buffer)
 
 
 class RLVRMinibatch(NamedTuple):

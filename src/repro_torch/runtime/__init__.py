@@ -1,7 +1,8 @@
 """Asynchronous actor-learner runtime (port of ``repro.runtime`` for the
-forward-lag RLVR learner): the versioned ``PolicyStore``, the
-staleness-tagged ``TrajectoryQueue`` with its lag controllers, and the
-``forward_n`` regime."""
+RLVR and classic-RL learners): the versioned ``PolicyStore``, the
+staleness-tagged ``TrajectoryQueue`` with its lag controllers, the
+``backward_mixture`` and ``forward_n`` regimes and the env-rollout
+producers."""
 from repro_torch.runtime.admission import (
     AdmissionDecision,
     AdmissionPolicy,
@@ -28,8 +29,10 @@ from repro_torch.runtime.policy_store import (
 )
 from repro_torch.runtime.queue import (QueueClosed, TrajectoryItem,
                                        TrajectoryQueue)
-from repro_torch.runtime.regimes import (REGIMES, ForwardNRegime, LagRegime,
-                                         make_regime)
+from repro_torch.runtime.regimes import (REGIMES, BackwardMixtureRegime,
+                                         ForwardNRegime,
+                                         FrozenRolloutProducer, LagRegime,
+                                         MixtureRolloutProducer, make_regime)
 
 __all__ = [
     "AdmissionDecision", "AdmissionPolicy", "LagController",
@@ -38,6 +41,7 @@ __all__ = [
     "make_controller", "parse_controller_spec", "register_controller",
     "spec_from_legacy", "PolicyStore", "QuarantinedVersionError",
     "SnapshotMeta", "StaleVersionError", "QueueClosed", "TrajectoryItem",
-    "TrajectoryQueue", "REGIMES", "ForwardNRegime", "LagRegime",
+    "TrajectoryQueue", "REGIMES", "BackwardMixtureRegime", "ForwardNRegime",
+    "FrozenRolloutProducer", "LagRegime", "MixtureRolloutProducer",
     "make_regime",
 ]

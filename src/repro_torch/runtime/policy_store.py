@@ -8,9 +8,11 @@ a published version.  Reads hand back views into the ring: a view stays
 valid until ``capacity`` further publishes overwrite its slot.
 
 Ported: publish (with the finiteness quarantine), quarantine, latest,
-get, retained versions and metadata.  Pinning and lagged resolution
-(speculative drafts, the serve producer) and sharded placement come with
-a later slice.
+get, retained versions, metadata, and the mixture reads of the
+backward-mixture regime (``snapshot_state``, ``sample``,
+``versions_of_slots``).  Pinning and lagged resolution (speculative
+drafts, the serve producer) and sharded placement come with a later
+slice.
 """
 from __future__ import annotations
 
@@ -20,10 +22,11 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.policy_lag import (PolicyBuffer, buffer_init,
                                          buffer_latest, buffer_push,
-                                         buffer_slot)
+                                         buffer_sample, buffer_slot)
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.resilience import (NULL_INJECTOR, FaultInjector,
                                     tree_all_finite)
@@ -156,6 +159,11 @@ class PolicyStore:
     def buffer(self) -> PolicyBuffer:
         return self._buffer
 
+    def snapshot_state(self) -> Tuple[PolicyBuffer, np.ndarray, int]:
+        """Consistent (buffer, slot_versions, latest_version) triple."""
+        with self._lock:
+            return self._buffer, self._slot_versions.copy(), self._version
+
     def latest(self) -> Tuple[Any, int]:
         """Newest serveable snapshot: when the newest published version
         is quarantined, the newest good one."""
@@ -207,3 +215,19 @@ class PolicyStore:
 
     def meta(self, version: int) -> SnapshotMeta:
         return self._history[version]
+
+    def sample(self, draws: Any, n: int) -> Tuple[Any, np.ndarray]:
+        """Uniformly sample ``n`` resident snapshots; returns
+        ``(params_batched, versions)``.  ``draws`` supplies the slot
+        indices (``rollout.env_rollout.Draws``)."""
+        buffer, slot_versions, _ = self.snapshot_state()
+        params_b, slots = buffer_sample(buffer, draws, n)
+        return params_b, slot_versions[slots.cpu().numpy()]
+
+    def versions_of_slots(self, slots: Any) -> np.ndarray:
+        """Map ring slots (as ``buffer_sample`` returns them) to policy
+        versions."""
+        if isinstance(slots, torch.Tensor):
+            slots = slots.cpu().numpy()
+        with self._lock:
+            return self._slot_versions[np.asarray(slots)]

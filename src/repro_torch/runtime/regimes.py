@@ -1,9 +1,18 @@
-"""Lag regimes (port of ``repro.runtime.regimes`` for the RLVR learner).
+"""Lag regimes (port of ``repro.runtime.regimes``): schedules of one
+``PolicyStore``/``TrajectoryQueue`` runtime.
 
-``forward_n`` (§5.2): each ``fill()`` freezes ``store.latest()`` and
-produces N items from it; the learner then takes N updates, so item k is
-consumed with forward lag k (generate-N/train-N).  The threaded,
-backward-mixture and engine regimes are not ported yet.
+* ``backward_mixture`` (§5.1 / Fig. 1 left): each ``fill()`` samples one
+  stale snapshot per actor from the store's ring and produces a single
+  mixture rollout (the episodic mixture behavior policy of Eq. 1).
+* ``forward_n`` (§5.2): each ``fill()`` freezes ``store.latest()`` and
+  produces N items from it; the learner then takes N updates, so item k
+  is consumed with forward lag k (generate-N/train-N).
+
+Producers are plain callables, so the same regimes drive classic-RL env
+rollouts and RLVR generation.  ``MixtureRolloutProducer`` is the legacy
+``SimulatedAsyncActors``'s collect; ``FrozenRolloutProducer`` is its
+single-policy counterpart for ``forward_n``.  The threaded and engine
+regimes are not ported yet.
 """
 from __future__ import annotations
 
@@ -12,8 +21,94 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from repro_torch.core.policy_lag import PolicyBuffer, buffer_sample
+from repro_torch.envs.base import Env
+from repro_torch.rollout.env_rollout import (Draws, collect_rollout,
+                                             default_draws, init_env_states)
 from repro_torch.runtime.policy_store import PolicyStore
 from repro_torch.runtime.queue import TrajectoryQueue
+from repro_torch.utils.tree import tree_map
+
+
+# ---------------------------------------------------------------------------
+# Producers (classic RL).  The RLVR producer is ForwardLagGenerator.
+# ---------------------------------------------------------------------------
+
+
+class _RolloutProducer:
+    """Shared scaffolding for env-rollout producers: one chain of draws
+    (whose first split seeds the env states, as the JAX producer's first
+    key does) and persistent env states.
+
+    ``draws`` replaces the default ``torch.Generator`` chain seeded with
+    ``seed`` on ``device`` (tests replay the JAX key chain through it).
+    Subclasses define ``_collect(policy_source, env_states, draws) ->
+    (env_states, *outputs)``."""
+
+    def __init__(
+        self,
+        env: Env,
+        policy_apply: Callable,
+        *,
+        n_actors: int,
+        rollout_steps: int,
+        seed: int = 0,
+        device: Any = "cpu",
+        draws: Optional[Draws] = None,
+    ) -> None:
+        self.env = env
+        self.policy_apply = policy_apply
+        self.n_actors = n_actors
+        self.rollout_steps = rollout_steps
+        self._draws = draws if draws is not None else default_draws(
+            seed, device)
+        self._env_states = init_env_states(env, self._next_draws(), n_actors)
+
+    def _collect(self, policy_source: Any, env_states: Any, draws: Draws):
+        raise NotImplementedError
+
+    def _next_draws(self) -> Draws:
+        self._draws, d = self._draws.split(2)
+        return d
+
+    def __call__(self, policy_source: Any):
+        self._env_states, *outputs = self._collect(
+            policy_source, self._env_states, self._next_draws())
+        return outputs[0] if len(outputs) == 1 else tuple(outputs)
+
+
+class MixtureRolloutProducer(_RolloutProducer):
+    """Vectorized env rollout with per-actor policies from a snapshot ring.
+
+    ``producer(buffer) -> (RolloutBatch, slots)``.  The per-actor params
+    are gathered (a copy) before the rollout starts, so a publish after
+    it cannot reach them."""
+
+    def _collect(self, buffer: PolicyBuffer, env_states, draws):
+        d_sample, d_roll = draws.split(2)
+        actor_params, slots = buffer_sample(buffer, d_sample, self.n_actors)
+        env_states, batch = collect_rollout(
+            self.env, self.policy_apply, actor_params, env_states, d_roll,
+            self.rollout_steps)
+        return env_states, batch, slots
+
+
+class FrozenRolloutProducer(_RolloutProducer):
+    """Env rollout where every actor runs one frozen policy.
+
+    ``producer(params) -> RolloutBatch``, for the forward_n regime, where
+    lag comes from the schedule rather than a snapshot mixture."""
+
+    def _collect(self, params, env_states, draws):
+        n = self.n_actors
+        stacked = tree_map(lambda x: x[None].expand(n, *x.shape), params)
+        return collect_rollout(self.env, self.policy_apply, stacked,
+                               env_states, draws, self.rollout_steps)
+
+
+# ---------------------------------------------------------------------------
+# Regimes
+# ---------------------------------------------------------------------------
 
 
 def _stamp_versions(payload: Any, version: int) -> Any:
@@ -79,6 +174,32 @@ class LagRegime:
         return None
 
 
+class BackwardMixtureRegime(LagRegime):
+    name = "backward_mixture"
+
+    def __init__(self, store: PolicyStore, queue: TrajectoryQueue,
+                 producer: Callable[[PolicyBuffer], Any]) -> None:
+        super().__init__(store, queue)
+        self.producer = producer
+
+    def fill(self) -> None:
+        buffer, slot_versions, learner_version = self.store.snapshot_state()
+        with self.tracer.span("produce", pid="runtime", tid="producer"):
+            payload, slots = self.producer(buffer)
+            # The host read waits for the rollout on the device.
+            versions = slot_versions[slots.cpu().numpy()]
+        # A mixture item's representative version is its *oldest* policy
+        # (conservative for max-lag admission); the full per-actor version
+        # vector rides along for lag diagnostics.
+        self.queue.put(
+            payload,
+            behavior_version=int(versions.min()),
+            learner_version=learner_version,
+            behavior_version_newest=int(versions.max()),
+            behavior_versions=versions.tolist(),
+        )
+
+
 class ForwardNRegime(LagRegime):
     name = "forward_n"
 
@@ -100,7 +221,9 @@ class ForwardNRegime(LagRegime):
 
 def make_regime(name: str, store: PolicyStore, queue: TrajectoryQueue,
                 producer: Callable, *, forward_n: int = 4) -> LagRegime:
-    """Factory used by the trainer (``--runtime``)."""
+    """Factory used by the trainers and runners (``--runtime``)."""
+    if name == "backward_mixture":
+        return BackwardMixtureRegime(store, queue, producer)
     if name == "forward_n":
         return ForwardNRegime(store, queue, producer, n_items=forward_n)
     if name in REGIMES:

@@ -49,7 +49,7 @@ from repro_torch.runtime import (PolicyStore, TrajectoryQueue,
                                  make_controller, make_regime,
                                  parse_controller_spec, spec_from_legacy)
 from repro_torch.serve.engine import resolve_device
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_to
+from repro_torch.utils.tree import tree_grads, tree_to, tree_trainable
 
 
 @dataclass(frozen=True)
@@ -92,21 +92,6 @@ class RLVRTrainState(NamedTuple):
     updates: int
 
 
-def _grads(loss: torch.Tensor, params: Any) -> Any:
-    """``d loss / d params`` as a tree; leaves the loss does not reach
-    (the value head) get zeros, as ``jax.grad`` gives them."""
-    leaves = tree_leaves(params)
-    flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter(g if g is not None else torch.zeros_like(p)
-              for g, p in zip(flat, leaves))
-    return tree_map(lambda _: next(it), params)
-
-
-def _trainable(params: Any) -> Any:
-    """Leaves that share the params' storage and track gradients."""
-    return tree_map(lambda p: p.detach().requires_grad_(True), params)
-
-
 def make_update_step(bundle, hp: RLVRHyperparams, prompt_len: int):
     """``update(state, tokens, log_beta, mask, advantages) -> (state,
     aux)``: one GRPO/VACO learner step (score, loss, gradient, clip,
@@ -118,14 +103,14 @@ def make_update_step(bundle, hp: RLVRHyperparams, prompt_len: int):
     opt_cfg = AdamWConfig(lr=hp.lr, weight_decay=hp.weight_decay, eps=1e-8)
 
     def update(state: RLVRTrainState, tokens, log_beta, mask, advantages):
-        params = _trainable(state.params)
+        params = tree_trainable(state.params)
         with torch.enable_grad():
             log_pi, entropy, _ = score_tokens(bundle, params, tokens,
                                               prompt_len)
             loss, aux = grpo_token_loss(
                 log_pi=log_pi, log_beta=log_beta, advantages=advantages,
                 token_mask=mask, cfg=grpo_cfg)
-            grads = _grads(loss, params)
+            grads = tree_grads(loss, params)
         aux["token_entropy"] = torch.sum(entropy * mask) / torch.clamp(
             torch.sum(mask), min=1.0)
         grads, gnorm = clip_by_global_norm(grads, hp.max_grad_norm)
@@ -143,7 +128,7 @@ def make_warmup_step(bundle, hp: RLVRHyperparams):
     opt_cfg = AdamWConfig(lr=hp.warmup_lr, eps=1e-8)
 
     def step(state: RLVRTrainState, tokens, mask):
-        params = _trainable(state.params)
+        params = tree_trainable(state.params)
         with torch.enable_grad():
             logits = bundle.forward(params, tokens).logits[:, :-1]
             lp = torch.log_softmax(logits.float(), dim=-1)
@@ -151,7 +136,7 @@ def make_warmup_step(bundle, hp: RLVRHyperparams):
             nll = -torch.gather(lp, -1, targets)[..., 0]
             m = mask[:, 1:]
             loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
-            grads = _grads(loss, params)
+            grads = tree_grads(loss, params)
         grads, _ = clip_by_global_norm(grads, hp.max_grad_norm)
         new_params, opt_state = adamw_update(grads, state.opt_state,
                                              state.params, opt_cfg)

@@ -27,6 +27,21 @@ def tree_to(tree: Any, device: Any) -> Any:
     return tree_map(lambda t: t.to(device), tree)
 
 
+def tree_trainable(params: Any) -> Any:
+    """Leaves that share the params' storage and track gradients."""
+    return tree_map(lambda p: p.detach().requires_grad_(True), params)
+
+
+def tree_grads(loss: torch.Tensor, params: Any) -> Any:
+    """``d loss / d params`` as a tree; leaves the loss does not reach get
+    zeros, as ``jax.grad`` gives them."""
+    leaves = tree_leaves(params)
+    flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(g if g is not None else torch.zeros_like(p)
+              for g, p in zip(flat, leaves))
+    return tree_map(lambda _: next(it), params)
+
+
 def tree_global_norm(tree: Any) -> torch.Tensor:
     """Global L2 norm across all leaves (float32 accumulation)."""
     leaves = tree_leaves(tree)
@@ -36,4 +51,5 @@ def tree_global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-__all__ = ["tree_global_norm", "tree_leaves", "tree_map", "tree_to"]
+__all__ = ["tree_global_norm", "tree_grads", "tree_leaves", "tree_map",
+           "tree_to", "tree_trainable"]

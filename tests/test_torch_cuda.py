@@ -178,3 +178,56 @@ def test_logprob_wrappers_refuse_bad_inputs(dev):
         fused_logprob_cuda(logits[:, ::2], targets)
     with pytest.raises(ValueError):
         fused_logprob_cuda(logits, targets[:3])
+
+
+def _vtrace_case(dev, dtype, b, t, seed=0):
+    """V-trace inputs with both clips biting (log-ratios of +-3) and
+    episode ends (zero discounts)."""
+    g = torch.Generator().manual_seed(seed)
+    lr = 0.5 * torch.randn(b, t, generator=g)
+    lr[torch.rand(b, t, generator=g) < 0.1] = 3.0
+    lr[torch.rand(b, t, generator=g) < 0.1] = -3.0
+    d = 0.99 * (torch.rand(b, t, generator=g) > 0.1).float()
+    args = (lr, torch.randn(b, t, generator=g), torch.randn(b, generator=g),
+            torch.randn(b, t, generator=g), d)
+    return tuple(a.to(dtype).to(dev) for a in args)
+
+
+@pytest.mark.parametrize("clips", [(1.0, 1.0, 1.0), (2.0, 0.5, 0.95)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,t", [(1, 5), (4, 13), (8, 64), (13, 100),
+                                 (33, 1), (500, 1000)])
+def test_vtrace_kernel_matches_plain(dev, dtype, tol, b, t, clips):
+    from repro_torch.kernels.vtrace import vtrace_cuda
+
+    args = _vtrace_case(dev, dtype, b, t, seed=b + t)
+    kw = dict(zip(("rho_bar", "c_bar", "lam"), clips))
+    kernels.reset_launch_counts()
+    vs, adv = vtrace_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["vtrace"] == 1
+    want_vs, want_adv = ref.ref_vtrace(*args, **kw)
+    for got, want in ((vs, want_vs), (adv, want_adv)):
+        assert got.dtype == torch.float32 and got.shape == (b, t)
+        assert (got - want).abs().max().item() <= tol * max(
+            1.0, want.abs().max().item())
+
+
+def test_vtrace_dispatch_and_refusals(dev):
+    from repro_torch.kernels.vtrace import vtrace_cuda
+
+    args = _vtrace_case(dev, torch.float32, 4, 13)
+    mixed = (args[0].bfloat16(),) + args[1:]
+    kernels.reset_launch_counts()
+    vs, _ = ops.vtrace(*mixed)                   # cast to float32, then run
+    assert kernels.launch_counts()["vtrace"] == 1
+    want, _ = ref.ref_vtrace(*(a.float() for a in mixed))
+    assert (vs - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+    with pytest.raises(ValueError, match="no backward"):
+        vtrace_cuda(args[0].clone().requires_grad_(True), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        vtrace_cuda(*(a.t() if a.dim() == 2 else a for a in args))
+    with pytest.raises(TypeError):
+        vtrace_cuda(*(a.half() for a in args))

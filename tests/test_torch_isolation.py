@@ -34,6 +34,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.serve.engine" in mods
     assert "repro_torch.train.trainer_rlvr" in mods
     assert "repro_torch.launch.train" in mods
+    assert "repro_torch.train.trainer_rl" in mods
+    assert "repro_torch.train.runner_rl" in mods
+    assert "repro_torch.envs.classic" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -103,6 +106,26 @@ def test_trainer_and_train_launcher_raise_when_cuda_is_absent(monkeypatch):
                     RLVRHyperparams())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["rlvr", "--warmup-steps", "0"])
+
+
+def test_rl_runner_and_launcher_raise_when_cuda_is_absent(monkeypatch):
+    from repro_torch.launch import train
+    from repro_torch.train import AsyncRLRunConfig, run_async_rl
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_async_rl(AsyncRLRunConfig(n_actors=2, rollout_steps=4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["rl", "--n-actors", "2", "--rollout-steps", "4"])
+
+
+@pytest.mark.parametrize("flag", [["--runtime", "threaded"],
+                                  ["--checkpoint-dir", "out"]])
+def test_rl_launcher_refuses_unported_flags(flag):
+    from repro_torch.launch import train
+
+    with pytest.raises(SystemExit, match="not ported"):
+        train.main(["rl", "--device", "cpu", *flag])
 
 
 def test_cuda_only_tests_skip_cleanly_without_a_card():
