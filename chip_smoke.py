@@ -64,6 +64,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
     filter active): losses, tv, frac_filtered and grad norm within 1e-4
     relative, the param update within 1e-2 in L2 norm.
 
+13. WKV6 kernel: ``wkv6`` against ``ref_wkv6`` at the rwkv6 serve
+    path's shapes (B 8, H 32, K = V = 64: the S = 32 prefill from a zero
+    state, one S = 1 decode step from a carried state) and B 8 x S 512,
+    the JAX sweep shapes (K = V in 16, 32, 64, 8), a ragged S = 50 and
+    near-total forgetting (w = 1e-6); float32 within 3e-4 and bfloat16
+    within 2e-2, of max(1, |ref|).  Timed beside the plain version and
+    the bound; no single PyTorch call computes the recurrence, so no
+    library time.
+14. rwkv6 serve: ``repro_torch.launch.serve --engine static --arch
+    rwkv6-1.6b --full-width --batch 8 --max-new-tokens 16`` in-process
+    (24 layers, d 2048, vocab 65536, seeded random init, float32): one
+    warm ``generate``, then the timed one, in which ``wkv6`` must launch
+    24 x (1 prefill + 16 decode steps) = 408 times; every row gets its
+    tokens and finite ``log_beta``.  Prefill ms, tokens/s, peak memory
+    and the device idle share over a profiled ``generate``.
+15. rwkv6 parity: the same width at 2 layers, dense weights scaled x3,
+    on ``cpu`` (plain path) and ``cuda`` (kernel): forward logits within
+    1e-4 and the returned cache within 1e-4 of max(1, |cpu|); greedy
+    generation token-exact; sampled generation with the same Gumbel
+    noise gives equal streams and log_beta within 1e-4.
+
 Then one JSON line of every kernel's numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -91,6 +112,10 @@ SERVE_KERNELS = ("paged_kv_write", "paged_attention", "paged_attention_varlen")
 # The paper's classic-RL scale (Table 1): 500 envs x 1000 steps.
 RL_ACTORS, RL_STEPS, RL_PHASES = 500, 1000, 2
 VTRACE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# rwkv6-1.6b's static serve: 8 prompts of 32 tokens, 16 new tokens, 32
+# WKV heads of 64 over 24 layers.
+RWKV_B, RWKV_P, RWKV_NEW, RWKV_H, RWKV_L = 8, 32, 16, 32, 24
+WKV6_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
 
 
 def emit(**fields) -> None:
@@ -1170,6 +1195,225 @@ def rl_parity_phase(torch):
     check(not failures, "rl parity: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: the rwkv6 static serve path
+# ---------------------------------------------------------------------------
+
+
+def _wkv6_inputs(torch, dtype, b, s, h, kd, state, decay=None, seed=0):
+    """r, k, v ~ N(0, 1), decays in (0.1, 0.9) (or all ``decay``), u ~
+    0.3 N(0, 1) and a N(0, 1) float32 state (or None), on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    w = torch.sigmoid(n(b, s, h, kd)) * 0.8 + 0.1
+    if decay is not None:
+        w = torch.full_like(w, decay)
+    args = [n(b, s, h, kd), n(b, s, h, kd), n(b, s, h, kd), w, 0.3 * n(h, kd)]
+    return [a.to(dtype) for a in args] + [n(b, h, kd, kd) if state else None]
+
+
+def wkv6_kernel_phase(torch):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    b, h = RWKV_B, RWKV_H
+    cases = (   # (case, B, S, H, K, carried state, decay); timed first
+        ("prefill", b, RWKV_P, h, 64, False, None),
+        ("decode", b, 1, h, 64, True, None),
+        ("long", b, 512, h, 64, True, None),
+        ("sweep_16", 2, 32, 2, 16, True, None),
+        ("sweep_32", 2, 50, 3, 32, True, None),
+        ("sweep_64", 2, 64, 2, 64, True, None),
+        ("sweep_8", 2, 17, 1, 8, True, None),
+        ("ragged", 3, 50, 5, 64, True, None),
+        ("extreme_decay", 1, 32, 1, 64, False, 1e-6))
+    headline, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for case, bb, s, hh, kd, state, decay in cases:
+            args = _wkv6_inputs(torch, dtype, bb, s, hh, kd, state, decay,
+                                seed=s * hh + kd)
+            y, sf = wkv6_cuda(*args)
+            want_y, want_sf = ref.ref_wkv6(*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            for got, want, what in ((y, want_y, "y"), (sf, want_sf, "state")):
+                check(bool(torch.isfinite(got).all())
+                      and got.shape == want.shape,
+                      f"wkv6/{case}/{dname}: bad {what}")
+                e = (got.float() - want.float()).abs().max().item()
+                check(e <= WKV6_TOL[dname] * max(
+                    1.0, want.float().abs().max().item()),
+                    f"wkv6/{case}/{dname}: {what} err {e}")
+                err = max(err, e)
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            if case not in ("prefill", "decode", "long"):
+                continue
+            kern = lambda: wkv6_cuda(*args)
+            plain = lambda: ref.ref_wkv6(*args)
+            # r, k, v, w and y once each, u once, the state read where
+            # the call carries one and written once; 5 operations per
+            # state element and step (r.S, then w*S + k*v; the bonus
+            # term is per key, not per element).
+            n_tok = bb * s * hh * kd
+            st_bytes = bb * hh * kd * kd * 4
+            nbytes = (5 * n_tok + hh * kd) * esize + st_bytes * (
+                2 if state else 1)
+            b_ms, b_by = bound(nbytes, 5 * n_tok * kd, "float32")
+            rec = dict(phase="kernel", kernel="wkv6", case=case,
+                       dtype=dname, B=bb, S=s, H=hh, K=kd, max_abs_err=err,
+                       tol=WKV6_TOL[dname],
+                       kernel_ms=time_ms(kern, iters=100),
+                       plain_ms=time_ms(plain, iters=5, warmup=1),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       kernel_device_ms=device_ms(kern, "wkv6_kernel"),
+                       plain_device_ms=device_ms(plain, iters=2))
+            emit(**rec)
+            if case == "decode":         # 384 of the path's 408 launches
+                headline[("wkv6", dname)] = rec
+    for dname, err in worst.items():
+        headline[("wkv6", dname)] = dict(headline[("wkv6", dname)],
+                                         max_abs_err=err)
+    return headline
+
+
+def rwkv_serve_phase(torch):
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+    from repro_torch.utils.tree import tree_leaves
+
+    args = launcher.build_parser().parse_args([
+        "--engine", "static", "--arch", "rwkv6-1.6b", "--full-width",
+        "--device", "cuda", "--batch", str(RWKV_B), "--max-new-tokens",
+        str(RWKV_NEW)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    static = launcher.prepare_static(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = static.bundle.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+           cfg.vocab_size) == (RWKV_L, 2048, RWKV_H, 7168, 65536)
+          and cfg.attn_free, f"rwkv serve phase is not full width: {cfg}")
+    check(tuple(static.prompts.shape) == (RWKV_B, RWKV_P),
+          f"prompts {tuple(static.prompts.shape)}")
+    static.generate()                                   # warm
+    kernels.reset_launch_counts()
+    res, seconds = launcher.run_static(static)
+    launches = kernels.launch_counts()
+    launcher.report_static(static, res, seconds)
+    want = RWKV_L * (1 + RWKV_NEW)
+    check(launches["wkv6"] == want,
+          f"wkv6 launched {launches['wkv6']} times, want {want}")
+    check(all(n == 0 for k, n in launches.items() if k != "wkv6"),
+          f"the rwkv path launched other kernels: {launches}")
+    comp, lb, mask = res.completion, res.log_beta, res.mask
+    check(tuple(comp.shape) == (RWKV_B, RWKV_NEW) and
+          bool((comp >= 0).all() and (comp < cfg.vocab_size).all()),
+          f"bad completion {comp}")
+    check(bool((mask[:, 0] == 1).all()), "a row got no token")
+    live = mask > 0
+    check(bool(torch.isfinite(lb).all() and (lb[live] <= 1e-6).all()),
+          f"bad log_beta {lb}")
+    # Prefill alone (the forward that fills the cache), then one
+    # profiled generate against the unprofiled wall above.
+    prefill = lambda: static.bundle.forward(static.params, static.prompts,
+                                            return_cache=True)
+    prefill()
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t1) * 1e3)
+    busy_ms, rows = profile_kernels(static.generate)
+    wall_ms = seconds * 1e3
+    n_tok = RWKV_B * RWKV_NEW
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(static.params))
+    emit(phase="rwkv_serve", config=cfg.name, layers=cfg.n_layers,
+         batch=RWKV_B, prompt_len=RWKV_P, new_tokens=RWKV_NEW,
+         init_s=init_s, seconds=seconds, tokens_per_s=n_tok / seconds,
+         prefill_ms=sorted(prefill_ms)[1],
+         decode_tokens_per_s=n_tok / (seconds - sorted(prefill_ms)[1] / 1e3),
+         decode_step_ms=(wall_ms - sorted(prefill_ms)[1]) / RWKV_NEW,
+         weights_gb=weight_bytes / 1e9,
+         decode_step_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+         device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
+         kernel_launches=sum(n for _, _, n in rows),
+         wkv6_ms=sum(ms for k, ms, _ in rows if "wkv6" in k),
+         top_kernels=rows[:8],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         min_log_beta=lb[live].min().item(), launches=launches)
+    del static, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rwkv_parity_phase(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.data.mathgen import MathTaskDataset
+    from repro_torch.models.registry import build
+    from repro_torch.rollout.sampler import generate, gumbel_noise
+    from repro_torch.utils.tree import tree_to
+
+    cfg = get_config("rwkv6-1.6b").replace(n_layers=2)
+    bundle = build(cfg)
+    params = _scale_dense(bundle.init(torch.Generator().manual_seed(0)))
+    toks, _, _ = MathTaskDataset(prompt_len=RWKV_P, seed=1).sample_batch(
+        RWKV_B)
+    prompts = torch.from_numpy(toks)
+    noise_gen = torch.Generator().manual_seed(5)
+    noises = [gumbel_noise((RWKV_B, cfg.vocab_size), noise_gen, "cpu")
+              for _ in range(RWKV_NEW)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, x = tree_to(params, dev), prompts.to(dev)
+        fwd = bundle.forward(p, x, return_cache=True)
+        gens = {mode: generate(bundle, p, x, max_new_tokens=RWKV_NEW,
+                               temperature=temp,
+                               noise=lambda t, shape: noises[t])
+                for mode, temp in (("greedy", 0.0), ("sampled", 1.0))}
+        out[dev] = (tree_to({"logits": fwd.logits, **fwd.cache}, "cpu"),
+                    {m: tree_to(g._asdict(), "cpu") for m, g in gens.items()})
+        del p, fwd, gens
+    (cpu_f, cpu_g), (card_f, card_g) = out["cpu"], out["cuda"]
+    g, w = card_f["logits"], cpu_f["logits"]
+    check(bool(torch.isfinite(g).all()), "rwkv parity: non-finite logits")
+    rec = dict(phase="rwkv_parity", config=cfg.name, layers=cfg.n_layers,
+               logits_max_abs_err=(g - w).abs().max().item(),
+               logits_max_abs=w.abs().max().item(), tol=1e-4)
+    check(torch.allclose(g, w, rtol=1e-4, atol=1e-4),
+          f"rwkv parity: logits differ by {rec['logits_max_abs_err']}")
+    rec["cache_max_abs_err"] = {
+        k: _scaled_err(card_f[k], cpu_f[k], 1e-4, f"rwkv cache {k}")
+        for k in ("wkv", "shift_tm", "shift_cm")}
+    rec["cache_max_abs"] = {k: cpu_f[k].abs().max().item()
+                            for k in ("wkv", "shift_tm", "shift_cm")}
+    check(torch.equal(card_f["pos"], cpu_f["pos"]), "rwkv parity: pos")
+    for mode in ("greedy", "sampled"):
+        want, got = cpu_g[mode], card_g[mode]
+        check(torch.equal(got["tokens"], want["tokens"]),
+              f"rwkv parity/{mode}: tokens differ: cuda {got['completion']} "
+              f"cpu {want['completion']}")
+        err = (got["log_beta"] - want["log_beta"]).abs().max().item()
+        check(err <= 1e-4, f"rwkv parity/{mode}: log_beta differs by {err}")
+        distinct = len(torch.unique(want["completion"]))
+        min_lb = want["log_beta"][want["mask"] > 0].min().item()
+        if mode == "greedy":
+            check(distinct > 5, f"rwkv parity/greedy: only {distinct} "
+                  "distinct tokens")
+        else:
+            check(min_lb < -0.1, "rwkv parity/sampled: every draw was the "
+                  f"argmax (min log_beta {min_lb})")
+        rec[mode] = dict(tokens=int(want["mask"].sum().item()),
+                         distinct_tokens=distinct, min_log_beta=min_lb,
+                         log_beta_max_abs_err=err, tol=1e-4)
+    emit(**rec)
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -1186,6 +1430,8 @@ KERNELS = (
      "src/repro/kernels/ref.py:284"),
     ("vtrace", "src/repro_torch/kernels/csrc/vtrace.cu",
      "src/repro/kernels/vtrace_pallas.py:81"),
+    ("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
+     "src/repro/kernels/wkv6_pallas.py:97"),
 )
 
 
@@ -1237,6 +1483,9 @@ def main() -> int:
     launches["vtrace"] = rl_phase(torch)["vtrace"]
     rl_profile_phase(torch)
     rl_parity_phase(torch)
+    headline.update(wkv6_kernel_phase(torch))
+    launches["wkv6"] = rwkv_serve_phase(torch)["wkv6"]
+    rwkv_parity_phase(torch)
 
     rows = []
     for name, source, replaces in KERNELS:

@@ -1,4 +1,5 @@
-"""Architecture configs of the port: qwen2.5-0.5b, the paper's RLVR model.
+"""Architecture configs of the port: qwen2.5-0.5b, the paper's RLVR model,
+and rwkv6-1.6b, the attention-free arch.
 
 ``get_config(name)`` returns the full config; ``reduced_config(name)``
 the CPU-smoke variant of the same family.  Both follow
@@ -10,8 +11,9 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.qwen2_5_0_5b import CONFIG as _qwen05b
+from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
 
-ARCHS: Dict[str, ModelConfig] = {_qwen05b.name: _qwen05b}
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_qwen05b, _rwkv6)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -21,15 +23,21 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced_config(name: str, vocab: int = 512) -> ModelConfig:
-    """Family-preserving reduction: 2 layers, d_model 256 (dense GQA
-    branch of the reference's ``reduced_config``)."""
+    """Family-preserving reduction: 2 layers, d_ff 256; d_model 256 for
+    the dense GQA branch, 128 (two 64-wide WKV heads) for attention-free
+    configs, as the reference's ``reduced_config`` does."""
     cfg = get_config(name)
     group = max(1, cfg.n_heads // max(cfg.n_kv_heads, 1))
-    heads = min(group, 8) if group > 1 else 2
-    kv = max(1, heads // min(group, heads))
+    if cfg.attn_free:
+        heads, kv = 2, 2
+        d_model = 128  # rwkv requires d_model % 64 == 0
+    else:
+        heads = min(group, 8) if group > 1 else 2
+        kv = max(1, heads // min(group, heads))
+        d_model = 256
     return cfg.replace(
-        name=f"{cfg.name}-reduced", n_layers=2, d_model=256, n_heads=heads,
-        n_kv_heads=kv, d_head=64, d_ff=256, vocab_size=vocab)
+        name=f"{cfg.name}-reduced", n_layers=2, d_model=d_model,
+        n_heads=heads, n_kv_heads=kv, d_head=64, d_ff=256, vocab_size=vocab)
 
 
 __all__ = ["ARCHS", "ModelConfig", "get_config", "reduced_config"]

@@ -7,11 +7,11 @@ from typing import Dict
 
 from repro_torch.kernels import (logprobs, paged_attention,
                                  paged_attention_varlen, paged_kv_write,
-                                 vtrace)
+                                 vtrace, wkv6)
 
 _KERNELS = (paged_kv_write.KERNEL, paged_attention.KERNEL,
             paged_attention_varlen.KERNEL, logprobs.FWD_KERNEL,
-            logprobs.BWD_KERNEL, vtrace.KERNEL)
+            logprobs.BWD_KERNEL, vtrace.KERNEL, wkv6.KERNEL)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -22,6 +22,7 @@ from repro_torch.kernels.paged_attention_varlen import \
     paged_attention_varlen_cuda
 from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
 from repro_torch.kernels.vtrace import vtrace_cuda
+from repro_torch.kernels.wkv6 import wkv6_cuda
 
 
 def _route(t: torch.Tensor) -> str:
@@ -124,3 +125,15 @@ def vtrace(
         args = tuple(t.float() for t in args)
     return vtrace_cuda(*(t.contiguous() for t in args), rho_bar=rho_bar,
                        c_bar=c_bar, lam=lam)
+
+
+def wkv6(r, k, v, w, u, state=None):
+    """The RWKV-6 recurrence over ``[B, S, H, K]`` heads: ``(y [B, S, H,
+    V]`` in ``r``'s dtype, ``final_state [B, H, K, V]`` float32)``;
+    ``state=None`` starts from zeros.  No gradient on the card (the
+    kernel raises on inputs that require grad).  On the card every input
+    is made contiguous."""
+    if _route(r) == "cpu":
+        return ref.ref_wkv6(r, k, v, w, u, state)
+    return wkv6_cuda(*(t.contiguous() for t in (r, k, v, w, u)),
+                     None if state is None else state.contiguous())

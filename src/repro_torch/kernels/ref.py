@@ -240,3 +240,37 @@ def ref_vtrace(
                  discounts=f32(discounts), rho_bar=rho_bar, c_bar=c_bar,
                  lam=lam)
     return out.vs, out.advantages
+
+
+# ---------------------------------------------------------------------------
+# WKV6 linear-attention recurrence (rwkv6 time-mix)
+# ---------------------------------------------------------------------------
+
+
+def ref_wkv6(
+    r: torch.Tensor,   # [B, S, H, K]
+    k: torch.Tensor,   # [B, S, H, K]
+    v: torch.Tensor,   # [B, S, H, V]
+    w: torch.Tensor,   # [B, S, H, K]   decay in (0, 1)
+    u: torch.Tensor,   # [H, K]         bonus
+    state: Optional[torch.Tensor] = None,  # [B, H, K, V]
+):
+    """The WKV6 recurrence step by step (``repro.models.rwkv6.wkv6_scan``):
+    ``y_t = (S + diag(u) k_t v_t^T)^T r_t`` then
+    ``S <- diag(w_t) S + k_t v_t^T``, in float32 from a float32 state
+    (zeros when ``state`` is None).  Returns ``(y [B, S, H, V]`` in
+    ``r``'s dtype, ``final_state [B, H, K, V]`` float32)``."""
+    bsz, s, h, kd = r.shape
+    vd = v.shape[-1]
+    if state is None:
+        state = torch.zeros((bsz, h, kd, vd), dtype=torch.float32,
+                            device=r.device)
+    big_s = state.float()
+    u32 = u.float()[None, :, :, None]
+    ys = []
+    for t in range(s):
+        r_t, k_t, v_t, w_t = (a[:, t].float() for a in (r, k, v, w))
+        kv = k_t[..., :, None] * v_t[..., None, :]              # [B,H,K,V]
+        ys.append(torch.einsum("bhkv,bhk->bhv", big_s + u32 * kv, r_t))
+        big_s = w_t[..., :, None] * big_s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), big_s

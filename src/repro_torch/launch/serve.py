@@ -1,30 +1,39 @@
-"""Serving launcher of the port: continuous batching over the paged KV
-cache, on the GPU by default.
+"""Serving launcher of the port, on the GPU by default.
 
+  # static: one batch of prompts, prefill + one-token decode steps
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine static \\
+      --arch rwkv6-1.6b --batch 8 --max-new-tokens 16 [--full-width] \\
+      [--device cpu]
+
+  # continuous batching over the paged KV cache (dense archs)
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
       --requests 12 --mixed-lengths 4,8,16,32 [--full-width] [--device cpu]
 
 Same flags and printout as ``repro.launch.serve`` for the parts ported:
-the ``continuous`` engine with chunked prefill and multi-step decode.
-``--full-width`` serves ``get_config("qwen2.5-0.5b")`` (24 layers, vocab
-151936) instead of ``reduced_config``; the math tokenizer's ids fit in
-either vocab.  Weights are a random init from ``--seed``.
+the ``static`` engine (``rollout.sampler.generate`` over the decode
+cache: one untimed warm call, then one call timed between device
+synchronisations) for every arch the port has, and the ``continuous``
+engine with chunked prefill and multi-step decode, which refuses
+attention-free archs as the reference's engine does.  ``--full-width``
+serves ``get_config(--arch)`` (qwen2.5-0.5b: 24 layers, vocab 151936;
+rwkv6-1.6b: 24 layers, d 2048, vocab 65536) instead of
+``reduced_config``; the math tokenizer's ids fit in every vocab.
+Weights are a random init from ``--seed``.
 
-Not ported yet (each exits with a message): ``--engine static``,
-``--controller``, ``--speculate``, ``--prefix-cache``, ``--mesh``,
-``--runtime versioned``, ``--checkpoint`` and ``--no-chunked-prefill``.
+Not ported yet (each exits with a message): ``--controller``,
+``--speculate``, ``--prefix-cache``, ``--mesh``, ``--runtime
+versioned``, ``--checkpoint`` and ``--no-chunked-prefill``.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 _NOT_PORTED = (
-    ("--engine static", lambda a: a.engine == "static"),
     ("--controller", lambda a: a.controller),
     ("--speculate", lambda a: a.speculate),
     ("--prefix-cache", lambda a: a.prefix_cache),
@@ -40,8 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="qwen2.5-0.5b")
     ap.add_argument("--engine", default="static",
                     choices=["static", "continuous"],
-                    help="continuous: paged-KV continuous batching "
-                         "(static is not ported yet)")
+                    help="static: phase-locked batch generate(); "
+                         "continuous: paged-KV continuous batching")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--full-width", action="store_true",
                     help="serve the full config (get_config) instead of "
@@ -98,24 +107,108 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def prepare(args: argparse.Namespace, tracer: Any = None
-            ) -> Tuple[Any, Dict[int, Tuple[str, str]]]:
-    """Build the model and engine from ``args`` and submit the math
-    prompts; returns ``(engine, {request_id: (prompt, answer)})``."""
+def _where(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "this host's CPU")
+
+
+def _model(args: argparse.Namespace):
+    """``(device, bundle, params, dataset)`` from ``args``: the config,
+    its random init from ``--seed`` on the device, the math prompts."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.mathgen import MathTaskDataset
     from repro_torch.data.tokenizer import get_tokenizer
     from repro_torch.models.registry import build
-    from repro_torch.serve import ServeEngine, resolve_device
+    from repro_torch.serve import resolve_device
 
     device = resolve_device(args.device)
-    tok = get_tokenizer()
     cfg = (get_config(args.arch) if args.full_width
-           else reduced_config(args.arch, vocab=tok.vocab_size))
+           else reduced_config(args.arch, vocab=get_tokenizer().vocab_size))
     bundle = build(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = bundle.init(gen, device=device)
     ds = MathTaskDataset(prompt_len=32, level=args.level, seed=args.seed + 1)
+    return device, bundle, params, ds
+
+
+class StaticServe(NamedTuple):
+    """One static batch: the model, the left-padded prompts ``[B, 32]``
+    on the device, their answers, and ``generate`` bound to them."""
+    device: torch.device
+    bundle: Any
+    params: Any
+    prompts: torch.Tensor
+    answers: List[str]
+    generate: Callable[[], Any]
+
+
+def prepare_static(args: argparse.Namespace) -> StaticServe:
+    """Build the model and draw ``--batch`` math prompts.  Each call of
+    ``generate`` samples with a generator seeded from ``--seed``, so
+    every call draws the same tokens, as the JAX launcher's fixed key
+    does."""
+    from repro_torch.rollout.sampler import generate
+
+    device, bundle, params, ds = _model(args)
+    toks_np, _, answers = ds.sample_batch(args.batch)
+    prompts = torch.from_numpy(toks_np).to(device)
+
+    def gen_fn():
+        gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+        return generate(bundle, params, prompts, gen,
+                        max_new_tokens=args.max_new_tokens,
+                        temperature=args.temperature, top_p=args.top_p)
+
+    return StaticServe(device, bundle, params, prompts, answers, gen_fn)
+
+
+def run_static(static: StaticServe) -> Tuple[Any, float]:
+    """One ``generate`` timed between device synchronisations; returns
+    ``(GenerationResult, seconds)``."""
+    sync = (torch.cuda.synchronize if static.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.time()
+    res = static.generate()
+    sync()
+    return res, time.time() - t0
+
+
+def report_static(static: StaticServe, res: Any, dt: float) -> None:
+    """The run's summary, in the JAX launcher's format."""
+    from repro_torch.data.mathgen import verify
+    from repro_torch.data.tokenizer import get_tokenizer
+
+    tok = get_tokenizer()
+    n_tok = res.completion.numel()
+    print(f"decode: {n_tok} tokens in {dt*1e3:.1f} ms "
+          f"({n_tok/dt:.0f} tok/s on {_where(static.device)})")
+    comp = res.completion.cpu().numpy()
+    for i in range(min(len(static.answers), 8)):
+        text = tok.decode(comp[i])
+        r = verify(text, static.answers[i])
+        print(f"  [{i}] -> {text!r} (gold {static.answers[i]}, reward {r})")
+
+
+def serve_static(args: argparse.Namespace) -> Tuple[StaticServe, Any, float]:
+    """Build, warm (one untimed ``generate``), serve timed and report;
+    returns ``(static, result, seconds)``."""
+    static = prepare_static(args)
+    static.generate()
+    res, dt = run_static(static)
+    report_static(static, res, dt)
+    return static, res, dt
+
+
+def prepare(args: argparse.Namespace, tracer: Any = None
+            ) -> Tuple[Any, Dict[int, Tuple[str, str]]]:
+    """Build the model and continuous engine from ``args`` and submit the
+    math prompts; returns ``(engine, {request_id: (prompt, answer)})``."""
+    from repro_torch.data.tokenizer import get_tokenizer
+    from repro_torch.serve import ServeEngine
+
+    tok = get_tokenizer()
+    device, bundle, params, ds = _model(args)
 
     lengths = [int(x) for x in args.mixed_lengths.split(",")] \
         if args.mixed_lengths else [args.max_new_tokens]
@@ -160,10 +253,8 @@ def report(args: argparse.Namespace, engine: Any, trajs: List[Any],
     tok = get_tokenizer()
     stats = collect_serve_stats(engine)
     n_tok = stats["tokens_out"]
-    where = (torch.cuda.get_device_name(engine.device)
-             if engine.device.type == "cuda" else "this host's CPU")
     print(f"continuous decode: {n_tok} tokens / {len(trajs)} requests in "
-          f"{dt*1e3:.1f} ms ({n_tok/dt:.0f} tok/s on {where})")
+          f"{dt*1e3:.1f} ms ({n_tok/dt:.0f} tok/s on {_where(engine.device)})")
     lat_tag = "latency n/a (nothing retired; raise --max-steps)"
     if stats["request_latency_count"]:
         lat_tag = (f"latency p50 {stats['request_latency_p50_ms']:.1f} ms "
@@ -209,7 +300,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     from repro_torch.obs.tracer import make_tracer
 
     tracer = make_tracer(args.trace_detail if args.trace else "off")
-    engine, _, _ = serve(args, tracer=tracer)
+    engine = None
+    if args.engine == "static":
+        serve_static(args)
+    else:
+        engine, _, _ = serve(args, tracer=tracer)
     if args.trace:
         from repro_torch.obs.perfetto import (export_perfetto,
                                               export_trace_jsonl)
@@ -221,7 +316,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"trace: {n} events -> {args.trace} "
               f"(detail={args.trace_detail}, "
               f"ring-dropped={tracer.dropped})")
-    if args.metrics_out:
+    if args.metrics_out and engine is not None:   # as in JAX: continuous
         engine.metrics.export_jsonl(args.metrics_out)
         print(f"metrics: snapshot -> {args.metrics_out}")
     return 0

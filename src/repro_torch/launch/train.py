@@ -25,8 +25,9 @@ Not ported yet (each exits with a message): ``--runtime threaded``, the
 controllers ``gac``, ``stable_async`` and ``asympo``, and
 ``--checkpoint-dir``; for ``rlvr`` also ``--producer serve``,
 ``--forced-lag``, ``--fault-plan``, ``--watchdog-restarts``,
-``--request-deadline`` and ``--guard-checkpoint-dir``.  As in the JAX
-launcher, ``--metrics-out`` writes nothing for ``rl``.
+``--request-deadline`` and ``--guard-checkpoint-dir``, and attention-free
+archs (``--arch rwkv6-1.6b``: the ``wkv6`` kernel has no backward yet).
+As in the JAX launcher, ``--metrics-out`` writes nothing for ``rl``.
 """
 from __future__ import annotations
 
@@ -166,6 +167,15 @@ def _refuse_unported(args) -> None:
         if on(args):
             raise SystemExit(f"{flag} is not ported to the PyTorch trainer "
                              "yet; use repro.launch.train for it")
+    if args.mode == "rlvr":
+        from repro_torch.configs import get_config
+
+        if get_config(args.arch).attn_free:
+            raise SystemExit(
+                f"train rlvr --arch {args.arch}: training an attention-free "
+                "(rwkv) arch needs a backward of the wkv6 kernel, which is "
+                "not ported yet; the port serves it (repro_torch.launch."
+                "serve --engine static), repro.launch.train trains it")
     name = (args.controller or "").split(":")[0].strip()
     if name in _CONTROLLERS_NOT_PORTED:
         raise SystemExit(f"--controller {name} is not ported to the "

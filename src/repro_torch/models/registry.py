@@ -1,4 +1,5 @@
-"""Model registry (port of ``repro.models.registry`` for dense archs).
+"""Model registry (port of ``repro.models.registry`` for dense and
+attention-free archs).
 
 ``build(cfg)`` returns a ``ModelBundle`` of plain functions over the
 config, so the serve engine and the learner never special-case
@@ -11,6 +12,10 @@ architectures:
     bundle.init_paged_cache(num_blocks, block_size, ...) -> pages
     bundle.decode_step_paged(params, token, pages, ...)  -> (out, pages)
     bundle.decode_step_paged_multi(...) / decode_step_paged_varlen(...)
+
+The paged functions are None where ``paged_arch_unsupported`` gives a
+reason (attention-free rwkv6 keeps recurrent state, not K/V rows), as in
+the reference.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ class ModelBundle:
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
-    if cfg.arch_type != "dense":
+    if cfg.arch_type != "dense" and not cfg.attn_free:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet")
 
@@ -73,6 +78,9 @@ def build(cfg: ModelConfig) -> ModelBundle:
         return tf_mod.init_paged_cache(cfg, num_blocks, block_size, dtype,
                                        device)
 
+    if tf_mod.paged_arch_unsupported(cfg) is not None:
+        return ModelBundle(cfg, init, forward=forward, init_cache=init_cache,
+                           decode_step=decode_step)
     return ModelBundle(cfg, init, forward=forward, init_cache=init_cache,
                        decode_step=decode_step,
                        decode_step_paged=decode_step_paged,

@@ -1,10 +1,12 @@
-"""Dense decoder (port of ``repro.models.transformer``).
+"""Decoder-only policy backbone (port of ``repro.models.transformer``)
+for the dense qwen family and attention-free rwkv6.
 
 Ported here: ``init_params``; the training/prefill ``forward`` with the
-value head, the dense KV cache (``init_cache``) and its one-token
-``decode_step``, which the learner and the static ``generate`` run; and
-``init_paged_cache`` with the three paged steps the serve engine
-dispatches — ``decode_step_paged`` (one token per slot, through the
+value head, the decode cache (``init_cache``: dense K/V rows, or for
+rwkv6 the per-layer WKV state and token shifts) and its one-token
+``decode_step``, which the learner and the static ``generate`` run; and,
+for the dense decoder, ``init_paged_cache`` with the three paged steps
+the serve engine dispatches — ``decode_step_paged`` (one token per slot, through the
 decode kernel), ``decode_step_paged_varlen`` (ragged rows per slot,
 through the varlen kernel) and ``decode_step_paged_multi`` (the
 fixed-``T`` verify shape, a thin wrapper over the varlen step).  The
@@ -12,7 +14,8 @@ prefill writers come with a later slice.  The layer loop is a Python
 loop (JAX scans over the stacked layers).
 
 Parameters keep the JAX layout and names: nested dicts, layer leaves
-stacked ``[L, ...]``, dense weights ``[d_in, d_out]``.  The paged pool is
+stacked ``[L, ...]``, dense weights ``[d_in, d_out]``, an ``lm_head``
+where embeddings are untied.  The paged pool is
 ``{"k_pages", "v_pages"}`` of ``[L, KV, NB, BS, Dh]``.
 
 **In place.**  JAX returns new pools and caches (donated buffers that XLA
@@ -31,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.utils.tree import tree_map, tree_to  # noqa: F401 (re-export)
 from repro_torch.models.layers import (
     apply_rope,
@@ -53,8 +57,21 @@ class ModelOutput(NamedTuple):
     aux_loss: torch.Tensor
 
 
+def arch_unsupported(cfg: ModelConfig) -> Optional[str]:
+    """Why the port cannot run this config at all (None = it can)."""
+    if cfg.attn_free:
+        return None
+    if (cfg.hybrid_attn_ssm or cfg.encoder_layers > 0 or cfg.moe is not None
+            or cfg.vision_prefix_len > 0 or cfg.activation != "swiglu"
+            or cfg.logit_softcap is not None):
+        return ("only attention-free rwkv6 and the dense qwen family "
+                "(SwiGLU, no MoE, no logit softcap) are ported yet")
+    return None
+
+
 def paged_arch_unsupported(cfg: ModelConfig) -> Optional[str]:
-    """Why this config cannot run the port's paged path (None = it can)."""
+    """Why this config cannot run the port's paged path (None = it
+    can): the reference's reasons, then what the port lacks."""
     if cfg.attn_free:
         return "attn-free (rwkv) archs keep recurrent state, not KV rows"
     if cfg.hybrid_attn_ssm:
@@ -63,17 +80,11 @@ def paged_arch_unsupported(cfg: ModelConfig) -> Optional[str]:
         return "encoder-decoder cross-attention cache is not paged"
     if cfg.vision_prefix_len > 0:
         return "vision prefix rows are not paged"
-    if cfg.moe is not None:
-        return "MoE layers are not ported yet"
-    if cfg.activation != "swiglu" or not cfg.tie_embeddings or \
-            cfg.logit_softcap is not None:
-        return ("only the dense qwen family (SwiGLU, tied readout, no "
-                "logit softcap) is ported yet")
-    return None
+    return arch_unsupported(cfg)
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    reason = paged_arch_unsupported(cfg)
+    reason = arch_unsupported(cfg)
     if reason is not None:
         raise NotImplementedError(f"{cfg.name}: {reason}")
 
@@ -87,18 +98,27 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     _check_arch(cfg)
     lead = (cfg.n_layers,)
     dev = gen.device
+    embed = embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype)
+    layers: Dict[str, Any] = {
+        "norm1": rmsnorm_init(cfg.d_model, dtype, lead, dev),
+        "norm2": rmsnorm_init(cfg.d_model, dtype, lead, dev),
+    }
+    if cfg.attn_free:
+        layers["rwkv"] = rwkv_mod.rwkv6_init(gen, cfg.d_model, cfg.d_ff,
+                                             dtype, lead=lead)
+    else:
+        layers["attn"] = attn.attn_init(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, dtype=dtype, lead=lead)
+        layers["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                 lead=lead)
     p: Dict[str, Any] = {
-        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype),
-        "layers": {
-            "norm1": rmsnorm_init(cfg.d_model, dtype, lead, dev),
-            "norm2": rmsnorm_init(cfg.d_model, dtype, lead, dev),
-            "attn": attn.attn_init(
-                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                qkv_bias=cfg.qkv_bias, dtype=dtype, lead=lead),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead),
-        },
+        "embed": embed,
+        "layers": layers,
         "final_norm": rmsnorm_init(cfg.d_model, dtype, device=dev),
     }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
     if cfg.value_head:
         p["value_head"] = dense_init(gen, cfg.d_model, 1, dtype, bias=True)
     return tree_to(p, device) if device is not None else p
@@ -144,9 +164,13 @@ def _paged_qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
 
 def _paged_head_full(params: Dict, cfg: ModelConfig, x: torch.Tensor
                      ) -> ModelOutput:
-    """Final norm + tied readout over every query position ([B, S, V])."""
+    """Final norm + readout (tied, or the ``lm_head``) over every query
+    position ([B, S, V])."""
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    logits = embedding_attend(params["embed"], x)
+    if cfg.tie_embeddings:
+        logits = embedding_attend(params["embed"], x)
+    else:
+        logits = dense_apply(params["lm_head"], x)
     value = None
     if cfg.value_head:
         value = dense_apply(params["value_head"], x)[..., 0]
@@ -285,13 +309,45 @@ def _layers(params: Dict, n_layers: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> Dict:
-    """The dense decode cache for ``batch`` streams of up to
-    ``max_len`` tokens: ``k``/``v`` ``[L, B, max_len, KV, Dh]``, ``pos``."""
+    """The decode cache for ``batch`` streams of up to ``max_len``
+    tokens, with ``pos``: dense ``k``/``v`` ``[L, B, max_len, KV, Dh]``;
+    for attention-free configs (any length) the float32 WKV state
+    ``wkv`` ``[L, B, H, 64, 64]`` and the token shifts ``shift_tm`` /
+    ``shift_cm`` ``[L, B, 1, D]``."""
     _check_arch(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+    L = cfg.n_layers
+    if cfg.attn_free:
+        hd = rwkv_mod.HEAD_DIM
+        c["wkv"] = torch.zeros((L, batch, cfg.d_model // hd, hd, hd),
+                               dtype=torch.float32, device=device)
+        for k in ("shift_tm", "shift_cm"):
+            c[k] = torch.zeros((L, batch, 1, cfg.d_model), dtype=dtype,
+                               device=device)
+        return c
+    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+    c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
+
+
+def _rwkv_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
+                state: Optional[Tuple[torch.Tensor, ...]] = None):
+    """One attention-free layer over ``x`` [B, S, D]; ``state`` is
+    ``(wkv, shift_tm, shift_cm)`` (None: zeros).  Returns ``(x, new
+    state)``.  Left-padded prompts run through the recurrence as in the
+    reference (no padding mask)."""
+    h = rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+    out, (wkv, shift_tm) = rwkv_mod.rwkv6_time_mix(
+        lp["rwkv"], h, None if state is None else state[:2])
+    x = x + out
+    h = rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
+    out, shift_cm = rwkv_mod.rwkv6_channel_mix(
+        lp["rwkv"], h, None if state is None else state[2])
+    return x + out, (wkv, shift_tm, shift_cm)
+
+
+_RWKV_STATE = ("wkv", "shift_tm", "shift_cm")
 
 
 def forward(
@@ -303,11 +359,23 @@ def forward(
     cache_len: Optional[int] = None,           # cache capacity for prefill
 ) -> ModelOutput:
     """Logits ``[B, S, V]`` and values ``[B, S]`` of every position;
-    with ``return_cache`` also the dense cache holding the sequence's K/V
-    rows, sized for ``cache_len`` tokens."""
+    with ``return_cache`` also the decode cache after the sequence: its
+    K/V rows in a dense cache sized for ``cache_len`` tokens, or for
+    attention-free configs each layer's final WKV state and shifts."""
     _check_arch(cfg)
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
+    if cfg.attn_free:
+        cache = None
+        if return_cache:
+            cache = init_cache(cfg, b, s, x.dtype, tokens.device)
+            cache["pos"].fill_(s)
+        for layer, lp in enumerate(_layers(params, cfg.n_layers)):
+            x, state = _rwkv_layer(cfg, lp, x)
+            if cache is not None:
+                for k, t in zip(_RWKV_STATE, state):
+                    cache[k][layer] = t.detach()
+        return _paged_head_full(params, cfg, x)._replace(cache=cache)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None, :].expand(b, s)
     cache = None
@@ -332,12 +400,19 @@ def forward(
 
 def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict) -> Tuple[ModelOutput, Dict]:
-    """One autoregressive step of ``token`` [B] against the dense cache
+    """One autoregressive step of ``token`` [B] against the cache
     (written in place); returns logits ``[B, V]`` and the cache with
     ``pos + 1``."""
     _check_arch(cfg)
     x = _embed(params, cfg, token[:, None])
     pos = cache["pos"]
+    if cfg.attn_free:
+        for layer, lp in enumerate(_layers(params, cfg.n_layers)):
+            x, state = _rwkv_layer(
+                cfg, lp, x, tuple(cache[k][layer] for k in _RWKV_STATE))
+            for k, t in zip(_RWKV_STATE, state):
+                cache[k][layer] = t
+        return _paged_head(params, cfg, x), dict(cache, pos=pos + 1)
     for layer, lp in enumerate(_layers(params, cfg.n_layers)):
         h = rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
         x = x + attn.attn_decode(

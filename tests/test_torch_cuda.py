@@ -231,3 +231,96 @@ def test_vtrace_dispatch_and_refusals(dev):
         vtrace_cuda(*(a.t() if a.dim() == 2 else a for a in args))
     with pytest.raises(TypeError):
         vtrace_cuda(*(a.half() for a in args))
+
+
+def _wkv6_case(dev, dtype, b, s, h, kd, state=True, decay=None, seed=0):
+    """The JAX kernel sweep's draws: r, k, v ~ N(0, 1), decays in
+    (0.1, 0.9) (or all ``decay``), u ~ 0.3 N(0, 1), state ~ N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=g)
+    w = torch.sigmoid(n(b, s, h, kd)) * 0.8 + 0.1
+    if decay is not None:
+        w = torch.full_like(w, decay)
+    args = [n(b, s, h, kd), n(b, s, h, kd), n(b, s, h, kd), w, 0.3 * n(h, kd)]
+    s0 = n(b, h, kd, kd).to(dev) if state else None
+    return [a.to(dtype).to(dev) for a in args] + [s0]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kd,state", [
+    (8, 32, 32, 64, False), (8, 1, 32, 64, True), (2, 50, 3, 64, True),
+    (2, 32, 2, 16, True), (2, 50, 3, 32, True), (2, 64, 2, 64, True),
+    (2, 17, 1, 8, True)])
+def test_wkv6_kernel_matches_plain(dev, dtype, tol, b, s, h, kd, state):
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    args = _wkv6_case(dev, dtype, b, s, h, kd, state, seed=s * h + kd)
+    kernels.reset_launch_counts()
+    y, sf = wkv6_cuda(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wkv6"] == 1
+    want_y, want_sf = ref.ref_wkv6(*args)
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    for got, want in ((y, want_y), (sf, want_sf)):
+        assert got.shape == want.shape
+        assert (got.float() - want.float()).abs().max().item() <= tol * max(
+            1.0, want.float().abs().max().item())
+
+
+def test_wkv6_kernel_extreme_decay_stays_finite(dev):
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    args = _wkv6_case(dev, torch.float32, 1, 32, 1, 64, state=False,
+                      decay=1e-6)
+    y, sf = wkv6_cuda(*args)
+    want_y, want_sf = ref.ref_wkv6(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all() and torch.isfinite(sf).all())
+    assert (y - want_y).abs().max().item() <= 1e-4
+    assert (sf - want_sf).abs().max().item() <= 1e-4
+
+
+def test_wkv6_dispatch_and_refusals(dev):
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    r, k, v, w, u, s0 = _wkv6_case(dev, torch.float32, 2, 9, 3, 64)
+    kernels.reset_launch_counts()
+    y, sf = ops.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                     w, u, s0)                   # made contiguous, then run
+    assert kernels.launch_counts()["wkv6"] == 1
+    want_y, want_sf = ref.ref_wkv6(r, k, v, w, u, s0)
+    assert (y - want_y).abs().max().item() <= 3e-4 * max(
+        1.0, want_y.abs().max().item())
+    with pytest.raises(ValueError, match="no backward"):
+        wkv6_cuda(r.clone().requires_grad_(True), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_cuda(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  w.transpose(1, 2), u, None)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wkv6_cuda(r, k, v, w, u, s0.cpu())
+    with pytest.raises(TypeError):
+        wkv6_cuda(r.half(), k.half(), v.half(), w.half(), u.half(), s0)
+    with pytest.raises(ValueError, match="bad shapes"):
+        wkv6_cuda(r, k, v, w, u[:2], s0)
+
+
+def test_rwkv_decode_step_on_card_launches_wkv6_and_matches_cpu(dev):
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced_config("rwkv6-1.6b", vocab=64)
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, 64, (3, 7),
+                           generator=torch.Generator().manual_seed(1))
+    want = bundle.forward(params, tokens, return_cache=True)
+    want_step, _ = bundle.decode_step(params, tokens[:, 0], want.cache)
+    kernels.reset_launch_counts()
+    card = tf.tree_to(params, dev)
+    got = bundle.forward(card, tokens.to(dev), return_cache=True)
+    got_step, _ = bundle.decode_step(card, tokens[:, 0].to(dev), got.cache)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wkv6"] == 2 * cfg.n_layers
+    for g, w in ((got.logits, want.logits), (got_step.logits,
+                                             want_step.logits)):
+        assert torch.allclose(g.cpu(), w, rtol=1e-4, atol=1e-4)

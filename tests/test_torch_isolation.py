@@ -37,6 +37,8 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.train.trainer_rl" in mods
     assert "repro_torch.train.runner_rl" in mods
     assert "repro_torch.envs.classic" in mods
+    assert "repro_torch.models.rwkv6" in mods
+    assert "repro_torch.kernels.wkv6" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -88,8 +90,10 @@ def test_launcher_without_cpu_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--engine", "continuous", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--engine", "static", "--arch", "rwkv6-1.6b"])
     with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--engine", "static"])
+        serve.main(["--engine", "static", "--speculate", "2"])
 
 
 def test_trainer_and_train_launcher_raise_when_cuda_is_absent(monkeypatch):
