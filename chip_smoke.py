@@ -85,6 +85,41 @@ Phases, each printing one JSON line (any failure exits non-zero):
     generation token-exact; sampled generation with the same Gumbel
     noise gives equal streams and log_beta within 1e-4.
 
+16. flash attention and selective-scan kernels: ``flash_attention``
+    against ``ref_attention`` at hymba's prefill (B 8, S 32, 25 q / 5 kv
+    heads of 64, window 1024 and global), at B 1 x S 2048 (window 1024
+    and global), past the window (S 1100), at qwen's widths (14 / 2
+    heads: the RLVR generation prefill, B 64 x S 32, and a windowed
+    ragged S 300) and on the JAX sweep's shapes (D 8 to 64, ragged S);
+    float32 within 2e-5 and bfloat16 within 3e-2.  ``ssm_scan`` against
+    ``ref_ssm_scan`` at hymba's prefill (B 8, S 32, I 3200, N 16, zero
+    state), one decode step (S 1, carried state), B 8 x S 512, the JAX
+    sweep's shapes and a ragged I 300; within 2e-4 (bfloat16 2e-2) of
+    max(1, |ref|).  Each timed beside its plain version and bound, flash
+    also beside ``F.scaled_dot_product_attention`` (timed only); no
+    single PyTorch call computes the scan, so no library time for it.
+    (Phases 7-9 run qwen's generation prefill through ``flash_attention``
+    too: phase 7 checks 24 launches per ``generate``, exactly.)
+17. hymba serve: ``repro_torch.launch.serve --engine static --arch
+    hymba-1.5b --full-width --batch 8 --max-new-tokens 16`` in-process
+    (32 layers, d 1600, vocab 32001, seeded random init, float32): one
+    warm ``generate``, then the timed one, in which ``flash_attention``
+    must launch 32 times (the prefill) and ``ssm_scan`` 32 x (1 + 16) =
+    544 times; every row gets its tokens, finite ``log_beta`` and
+    values.  Tokens/s, prefill ms, decode step ms, peak memory and the
+    device idle share over a profiled ``generate``; then one forward at
+    B 1 x S 2048, timed and profiled (flash's device time per windowed
+    and per global layer).
+18. hymba parity: the same width at 2 layers, dense weights scaled x3,
+    on ``cpu`` (plain path) and ``cuda`` (kernels): forward logits
+    within 2e-4 + 1e-4 |cpu| elementwise and the returned caches (K/V
+    rows, SSM state, conv window) within 1e-4 of max(1, |cpu|), at S 32
+    and at B 1 x S 1100 (past the 1024 window); greedy generation
+    token-exact; sampled generation with the same Gumbel noise gives
+    equal streams and log_beta within 1e-4.  (The card with the plain
+    attention in the kernel's place is as far from the CPU at S 1100:
+    ``tests/test_torch_cuda.py``'s hymba logits-gap test.)
+
 Then one JSON line of every kernel's numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -116,6 +151,19 @@ VTRACE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # WKV heads of 64 over 24 layers.
 RWKV_B, RWKV_P, RWKV_NEW, RWKV_H, RWKV_L = 8, 32, 16, 32, 24
 WKV6_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
+# hymba-1.5b's static serve: 8 prompts of 32 tokens, 16 new tokens, 32
+# layers of 25 query / 5 kv heads of 64 (window 1024, layers 15 and 31
+# global) beside an SSM of 3200 channels x state 16; one long forward of
+# B 1 x S 2048.
+HYMBA_B, HYMBA_P, HYMBA_NEW, HYMBA_L = 8, 32, 16, 32
+HYMBA_H, HYMBA_KV, HYMBA_I, HYMBA_N, HYMBA_WINDOW = 25, 5, 3200, 16, 1024
+HYMBA_LONG = 2048
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# Phase 18's logits, card against CPU: the card's float32 matmuls and
+# the SSM branch put S 1100 1.3e-4 from the CPU with the plain
+# attention as with the kernel; dropping the window moves it far more.
+HYMBA_LOGITS_ATOL = 2e-4
+SSM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
 def emit(**fields) -> None:
@@ -486,7 +534,7 @@ def logprob_kernel_phase(torch):
                 nbytes=2 * n * v * esize + 3 * n * 4, flops=5 * n * v)
             for name, k in (("fused_logprob", fwd),
                             ("fused_logprob_bwd", bwd)):
-                b_ms, b_by = bound(k["nbytes"], k["flops"], "float32")
+                b_ms, b_by = bound(k["nbytes"], k["flops"], dname)
                 rec = dict(phase="kernel", kernel=name, case=case,
                            dtype=dname, N=n, V=v, max_abs_err=k["err"],
                            kernel_ms=time_ms(k["kern"], iters=50),
@@ -725,9 +773,19 @@ def train_phase(torch):
         check(launches[name] == steps,
               f"{name} launched {launches[name]} times in {steps} "
               "learner steps")
+    produce = _span_seconds(tracer, "produce")
+    # Every generate's prefill runs flash_attention once a layer (24):
+    # one generate per produced minibatch, one for the launcher's eval
+    # after warmup and one per eval of the train loop.  The learner's
+    # forward, which needs a gradient, never does; pass_through scores
+    # no minibatch without one.
+    generates = len(produce) + 1 + len(res.eval_accuracy)
+    check(len(produce) > 0
+          and launches["flash_attention"] == cfg.n_layers * generates,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"for {generates} generates of {cfg.n_layers} layers")
     check(all(math.isfinite(l.tv) for l in res.phase_logs) and
           math.isfinite(warm_loss), "non-finite warmup loss or tv")
-    produce = _span_seconds(tracer, "produce")
     batch = hp.prompts_per_minibatch * hp.completions_per_prompt
     step = trainer.metrics.histogram("train_step_s").summary()
     gnorm = trainer.metrics.histogram("train_grad_norm").summary()
@@ -995,7 +1053,7 @@ def vtrace_kernel_phase(torch):
                 # element (exp, two mins, the delta, the carry, the
                 # advantage).
                 b_ms, b_by = bound(4 * b * t * esize + b * esize
-                                   + 2 * b * t * 4, 12 * b * t, "float32")
+                                   + 2 * b * t * 4, 12 * b * t, dname)
                 rec = dict(phase="kernel", kernel="vtrace", case="paper",
                            dtype=dname, B=b, T=t, max_abs_err=err,
                            tol=VTRACE_TOL[dname],
@@ -1260,7 +1318,7 @@ def wkv6_kernel_phase(torch):
             st_bytes = bb * hh * kd * kd * 4
             nbytes = (5 * n_tok + hh * kd) * esize + st_bytes * (
                 2 if state else 1)
-            b_ms, b_by = bound(nbytes, 5 * n_tok * kd, "float32")
+            b_ms, b_by = bound(nbytes, 5 * n_tok * kd, dname)
             rec = dict(phase="kernel", kernel="wkv6", case=case,
                        dtype=dname, B=bb, S=s, H=hh, K=kd, max_abs_err=err,
                        tol=WKV6_TOL[dname],
@@ -1414,6 +1472,368 @@ def rwkv_parity_phase(torch):
     emit(**rec)
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-18: the hymba static serve path
+# ---------------------------------------------------------------------------
+
+
+def _attended_pairs(s, window):
+    """(query, key) pairs a causal row set of length ``s`` attends."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_kernel_phase(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    h, kv, w = HYMBA_H, HYMBA_KV, HYMBA_WINDOW
+    cases = (   # (case, B, S, H, KV, D, window); the first four timed
+        ("prefill_local", HYMBA_B, HYMBA_P, h, kv, 64, w),
+        ("prefill_global", HYMBA_B, HYMBA_P, h, kv, 64, None),
+        ("long_local", 1, HYMBA_LONG, h, kv, 64, w),
+        ("long_global", 1, HYMBA_LONG, h, kv, 64, None),
+        ("past_window", 1, 1100, h, kv, 64, w),
+        ("qwen_prefill", 64, 32, 14, 2, 64, None),
+        ("qwen_window", 4, 300, 14, 2, 64, 100),
+        ("sweep_32", 2, 64, 4, 2, 32, None),
+        ("sweep_16", 2, 100, 4, 1, 16, None),
+        ("sweep_64", 2, 128, 8, 8, 64, 32),
+        ("sweep_32w", 2, 96, 4, 2, 32, 16),
+        ("sweep_8", 2, 65, 2, 2, 8, 7))
+    timed = ("prefill_local", "prefill_global", "long_local", "long_global")
+    headline, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for case, b, s, hh, kk, d, window in cases:
+            gen = torch.Generator(device="cuda").manual_seed(s + hh + d)
+            q, k, v = (torch.randn(b, s, n, d, generator=gen,
+                                   device="cuda").to(dtype)
+                       for n in (hh, kk, kk))
+            got = flash_attention_cuda(q, k, v, window=window)
+            want = ref.ref_attention(q, k, v, window=window)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+                  and got.dtype == dtype, f"flash/{case}/{dname}: bad output")
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= FLASH_TOL[dname],
+                  f"flash/{case}/{dname}: max_abs_err {err}")
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            if case not in timed:
+                continue
+            kern = lambda: flash_attention_cuda(q, k, v, window=window)
+            plain = lambda: ref.ref_attention(q, k, v, window=window)
+            # Library yardstick, timed only: SDPA on [B, H, S, D] with the
+            # kv heads repeated (not timed), causal or with the band mask.
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
+                      .contiguous() for x in (k, v))
+            if window is None:
+                lib = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+            else:
+                i = torch.arange(s, device="cuda")
+                band = (i[:, None] >= i[None, :]) & (
+                    i[:, None] - i[None, :] < window)
+                lib = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band)
+            # q, k, v read once and out written once; 4 D operations
+            # (the two products) per attended (query, key) pair and head.
+            nbytes = (2 * b * s * hh * d + 2 * b * s * kk * d) * esize
+            flops = 4 * d * hh * b * _attended_pairs(s, window)
+            b_ms, b_by = bound(nbytes, flops, dname)
+            rec = dict(phase="kernel", kernel="flash_attention", case=case,
+                       dtype=dname, B=b, S=s, H=hh, KV=kk, D=d, window=window,
+                       max_abs_err=err, tol=FLASH_TOL[dname],
+                       kernel_ms=time_ms(kern, iters=50),
+                       plain_ms=time_ms(plain, iters=5, warmup=1),
+                       library_ms=time_ms(lib, iters=50),
+                       bound_ms=b_ms, bound_by=b_by,
+                       kernel_device_ms=device_ms(kern, "flash_kernel"),
+                       plain_device_ms=device_ms(plain, iters=3),
+                       library_device_ms=device_ms(lib, iters=5))
+            emit(**rec)
+            if case == "prefill_local":      # 30 of a generate's 32 launches
+                headline[("flash_attention", dname)] = rec
+            del qt, kt, vt
+    for dname, err in worst.items():
+        headline[("flash_attention", dname)] = dict(
+            headline[("flash_attention", dname)], max_abs_err=err)
+    return headline
+
+
+def ssm_kernel_phase(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    b, i, n = HYMBA_B, HYMBA_I, HYMBA_N
+    cases = (   # (case, B, S, I, N, carried state); the first three timed
+        ("prefill", b, HYMBA_P, i, n, False),
+        ("decode", b, 1, i, n, True),
+        ("long", b, 512, i, n, True),
+        ("sweep_8", 2, 16, 32, 8, True),
+        ("sweep_16", 2, 33, 100, 16, True),
+        ("sweep_64", 2, 64, 128, 16, True),
+        ("sweep_4", 2, 7, 8, 4, True),
+        ("ragged", 3, 50, 300, 16, False))
+    headline, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for case, bb, s, ii, nn, state in cases:
+            gen = torch.Generator(device="cuda").manual_seed(s * ii)
+            r = lambda *shape: torch.randn(*shape, generator=gen,
+                                           device="cuda")
+            args = [r(bb, s, ii), F.softplus(r(bb, s, ii)),
+                    r(bb, s, nn), r(bb, s, nn)]
+            args = [x.to(dtype) for x in args] + [
+                -torch.exp(r(ii, nn)), r(bb, ii, nn) if state else None]
+            y, hf = ssm_scan_cuda(*args)
+            want_y, want_h = ref.ref_ssm_scan(*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            for got, want, what in ((y, want_y, "y"), (hf, want_h, "state")):
+                check(bool(torch.isfinite(got).all())
+                      and got.shape == want.shape,
+                      f"ssm_scan/{case}/{dname}: bad {what}")
+                e = (got.float() - want.float()).abs().max().item()
+                check(e <= SSM_TOL[dname] * max(
+                    1.0, want.float().abs().max().item()),
+                    f"ssm_scan/{case}/{dname}: {what} err {e}")
+                err = max(err, e)
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            if case not in ("prefill", "decode", "long"):
+                continue
+            kern = lambda: ssm_scan_cuda(*args)
+            plain = lambda: ref.ref_ssm_scan(*args)
+            # u, dt, b, c and y once each, a once, the state read where
+            # the call carries one and written once; about 7 operations
+            # per state element and step (exp, the update, the y term).
+            st_bytes = bb * ii * nn * 4
+            nbytes = ((3 * bb * s * ii + 2 * bb * s * nn) * esize
+                      + ii * nn * 4 + st_bytes * (2 if state else 1))
+            b_ms, b_by = bound(nbytes, 7 * bb * s * ii * nn, dname)
+            rec = dict(phase="kernel", kernel="ssm_scan", case=case,
+                       dtype=dname, B=bb, S=s, I=ii, N=nn, max_abs_err=err,
+                       tol=SSM_TOL[dname],
+                       kernel_ms=time_ms(kern, iters=100),
+                       plain_ms=time_ms(plain, iters=5, warmup=1),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       kernel_device_ms=device_ms(kern, "ssm_scan_kernel"),
+                       plain_device_ms=device_ms(plain, iters=2))
+            emit(**rec)
+            if case == "decode":         # 512 of a generate's 544 launches
+                headline[("ssm_scan", dname)] = rec
+    for dname, err in worst.items():
+        headline[("ssm_scan", dname)] = dict(headline[("ssm_scan", dname)],
+                                             max_abs_err=err)
+    return headline
+
+
+def hymba_serve_phase(torch):
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+    from repro_torch.utils.tree import tree_leaves
+
+    args = launcher.build_parser().parse_args([
+        "--engine", "static", "--arch", "hymba-1.5b", "--full-width",
+        "--device", "cuda", "--batch", str(HYMBA_B), "--max-new-tokens",
+        str(HYMBA_NEW)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    static = launcher.prepare_static(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = static.bundle.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.ssm.state_dim) ==
+          (HYMBA_L, 1600, HYMBA_H, HYMBA_KV, 5504, 32001, HYMBA_N)
+          and cfg.hybrid_attn_ssm, f"hymba serve phase is not full width: "
+          f"{cfg}")
+    check(tuple(static.prompts.shape) == (HYMBA_B, HYMBA_P),
+          f"prompts {tuple(static.prompts.shape)}")
+    n_params = sum(t.numel() for t in tree_leaves(static.params))
+    static.generate()                                   # warm
+    kernels.reset_launch_counts()
+    res, seconds = launcher.run_static(static)
+    launches = kernels.launch_counts()
+    launcher.report_static(static, res, seconds)
+    want = {"flash_attention": HYMBA_L,                  # the prefill
+            "ssm_scan": HYMBA_L * (1 + HYMBA_NEW)}       # + every step
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{name} launched {launches[name]} times, want {n}")
+    check(all(n == 0 for k, n in launches.items() if k not in want),
+          f"the hymba path launched other kernels: {launches}")
+    comp, lb, mask = res.completion, res.log_beta, res.mask
+    check(tuple(comp.shape) == (HYMBA_B, HYMBA_NEW) and
+          bool((comp >= 0).all() and (comp < cfg.vocab_size).all()),
+          f"bad completion {comp}")
+    check(bool((mask[:, 0] == 1).all()), "a row got no token")
+    live = mask > 0
+    check(bool(torch.isfinite(lb).all() and (lb[live] <= 1e-6).all()),
+          f"bad log_beta {lb}")
+    check(bool(torch.isfinite(res.values).all()), "non-finite values")
+    prefill = lambda: static.bundle.forward(
+        static.params, static.prompts, return_cache=True,
+        cache_len=HYMBA_P + HYMBA_NEW)
+    prefill()
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t1) * 1e3)
+    busy_ms, rows = profile_kernels(static.generate)
+    wall_ms = seconds * 1e3
+    n_tok = HYMBA_B * HYMBA_NEW
+    pre = sorted(prefill_ms)[1]
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(static.params))
+    emit(phase="hymba_serve", config=cfg.name, layers=cfg.n_layers,
+         params=n_params, batch=HYMBA_B, prompt_len=HYMBA_P,
+         new_tokens=HYMBA_NEW, init_s=init_s, seconds=seconds,
+         tokens_per_s=n_tok / seconds, prefill_ms=pre,
+         decode_tokens_per_s=n_tok / (seconds - pre / 1e3),
+         decode_step_ms=(wall_ms - pre) / HYMBA_NEW,
+         weights_gb=weight_bytes / 1e9,
+         decode_step_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+         device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
+         kernel_launches=sum(c for _, _, c in rows),
+         flash_ms=sum(ms for k, ms, _ in rows if "flash_kernel" in k),
+         ssm_scan_ms=sum(ms for k, ms, _ in rows if "ssm_scan_kernel" in k),
+         top_kernels=rows[:8],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         min_log_beta=lb[live].min().item(), launches=launches)
+    # One long forward (B 1 x S 2048): 30 windowed layers skip the key
+    # tiles wholly before their window, the 2 global ones do not.
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(3, cfg.vocab_size, (1, HYMBA_LONG), generator=gen,
+                           device="cuda")
+    long_fwd = lambda: static.bundle.forward(static.params, tokens)
+    out = long_fwd()
+    check(bool(torch.isfinite(out.logits).all()), "long forward: non-finite")
+    del out
+    long_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        long_fwd()
+        torch.cuda.synchronize()
+        long_ms.append((time.perf_counter() - t1) * 1e3)
+    kernels.reset_launch_counts()
+    long_busy, long_rows = profile_kernels(long_fwd)
+    check(kernels.launch_counts()["flash_attention"] == HYMBA_L,
+          f"long forward launched {kernels.launch_counts()}")
+    flash = {kind: [(ms, c) for k, ms, c in long_rows
+                    if "flash_kernel" in k and tag in k]
+             for kind, tag in (("local", "true>"), ("global", "false>"))}
+    per_layer = {kind: (sum(ms for ms, _ in r) / max(1, sum(c for _, c in r)))
+                 for kind, r in flash.items()}
+    check(sum(c for r in flash.values() for _, c in r) == HYMBA_L,
+          f"long forward: flash rows {flash}")
+    emit(phase="hymba_long_forward", batch=1, seq=HYMBA_LONG,
+         wall_ms=sorted(long_ms)[1], device_busy_ms=long_busy,
+         flash_local_ms_per_layer=per_layer["local"],
+         flash_global_ms_per_layer=per_layer["global"],
+         flash_ms=sum(ms for r in flash.values() for ms, _ in r),
+         ssm_scan_ms=sum(ms for k, ms, _ in long_rows
+                         if "ssm_scan_kernel" in k),
+         top_kernels=long_rows[:8],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del static, res, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hymba_parity_phase(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.data.mathgen import MathTaskDataset
+    from repro_torch.models.registry import build
+    from repro_torch.rollout.sampler import generate, gumbel_noise
+    from repro_torch.utils.tree import tree_to
+
+    cfg = get_config("hymba-1.5b").replace(n_layers=2)
+    bundle = build(cfg)
+    params = _scale_dense(bundle.init(torch.Generator().manual_seed(0)))
+    toks, _, _ = MathTaskDataset(prompt_len=HYMBA_P, seed=1).sample_batch(
+        HYMBA_B)
+    prompts = torch.from_numpy(toks)
+    long_tokens = torch.randint(3, cfg.vocab_size, (1, 1100),
+                                generator=torch.Generator().manual_seed(9))
+    noise_gen = torch.Generator().manual_seed(5)
+    noises = [gumbel_noise((HYMBA_B, cfg.vocab_size), noise_gen, "cpu")
+              for _ in range(HYMBA_NEW)]
+    inputs = (("prompts", prompts), ("past_window", long_tokens))
+
+    def forwards(p, dev):
+        fwds = {}
+        for name, x in inputs:
+            f = bundle.forward(p, x.to(dev), return_cache=True)
+            fwds[name] = tree_to({"logits": f.logits, **f.cache}, "cpu")
+            del f
+        return fwds
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        fwds = forwards(p, dev)
+        gens = {mode: generate(bundle, p, prompts.to(dev),
+                               max_new_tokens=HYMBA_NEW, temperature=temp,
+                               noise=lambda t, shape: noises[t])
+                for mode, temp in (("greedy", 0.0), ("sampled", 1.0))}
+        out[dev] = (fwds,
+                    {m: tree_to(g._asdict(), "cpu") for m, g in gens.items()})
+        del p, gens
+    (cpu_f, cpu_g), (card_f, card_g) = out["cpu"], out["cuda"]
+    rec = dict(phase="hymba_parity", config=cfg.name, layers=cfg.n_layers,
+               logits_rtol=1e-4, logits_atol=HYMBA_LOGITS_ATOL, tol=1e-4)
+    for name, _ in inputs:
+        g, w = card_f[name]["logits"], cpu_f[name]["logits"]
+        check(bool(torch.isfinite(g).all()),
+              f"hymba parity/{name}: non-finite logits")
+        err = (g - w).abs().max().item()
+        check(torch.allclose(g, w, rtol=1e-4, atol=HYMBA_LOGITS_ATOL),
+              f"hymba parity/{name}: logits differ by {err}")
+        keys = ("k", "v", "ssm", "conv")
+        rec[name] = dict(
+            seq=int(g.shape[1]), logits_max_abs_err=err,
+            logits_max_abs=w.abs().max().item(),
+            cache_max_abs_err={k: _scaled_err(
+                card_f[name][k], cpu_f[name][k], 1e-4,
+                f"hymba {name} cache {k}") for k in keys},
+            cache_max_abs={k: cpu_f[name][k].abs().max().item()
+                           for k in keys})
+        check(torch.equal(card_f[name]["pos"], cpu_f[name]["pos"]),
+              f"hymba parity/{name}: pos")
+    for mode in ("greedy", "sampled"):
+        want, got = cpu_g[mode], card_g[mode]
+        check(torch.equal(got["tokens"], want["tokens"]),
+              f"hymba parity/{mode}: tokens differ: cuda "
+              f"{got['completion']} cpu {want['completion']}")
+        err = (got["log_beta"] - want["log_beta"]).abs().max().item()
+        check(err <= 1e-4, f"hymba parity/{mode}: log_beta differs by {err}")
+        distinct = len(torch.unique(want["completion"]))
+        min_lb = want["log_beta"][want["mask"] > 0].min().item()
+        if mode == "greedy":
+            check(distinct > 5, f"hymba parity/greedy: only {distinct} "
+                  "distinct tokens")
+        else:
+            check(min_lb < -0.1, "hymba parity/sampled: every draw was the "
+                  f"argmax (min log_beta {min_lb})")
+        rec[mode] = dict(tokens=int(want["mask"].sum().item()),
+                         distinct_tokens=distinct, min_log_beta=min_lb,
+                         log_beta_max_abs_err=err, tol=1e-4)
+    emit(**rec)
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -1432,6 +1852,10 @@ KERNELS = (
      "src/repro/kernels/vtrace_pallas.py:81"),
     ("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
      "src/repro/kernels/wkv6_pallas.py:97"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention_pallas.py:109"),
+    ("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+     "src/repro/kernels/ssm_scan_pallas.py:73"),
 )
 
 
@@ -1486,6 +1910,11 @@ def main() -> int:
     headline.update(wkv6_kernel_phase(torch))
     launches["wkv6"] = rwkv_serve_phase(torch)["wkv6"]
     rwkv_parity_phase(torch)
+    headline.update(flash_kernel_phase(torch))
+    headline.update(ssm_kernel_phase(torch))
+    hymba = hymba_serve_phase(torch)
+    launches.update({k: hymba[k] for k in ("flash_attention", "ssm_scan")})
+    hymba_parity_phase(torch)
 
     rows = []
     for name, source, replaces in KERNELS:

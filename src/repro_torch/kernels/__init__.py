@@ -5,13 +5,14 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import (logprobs, paged_attention,
+from repro_torch.kernels import (flash_attention, logprobs, paged_attention,
                                  paged_attention_varlen, paged_kv_write,
-                                 vtrace, wkv6)
+                                 ssm_scan, vtrace, wkv6)
 
 _KERNELS = (paged_kv_write.KERNEL, paged_attention.KERNEL,
             paged_attention_varlen.KERNEL, logprobs.FWD_KERNEL,
-            logprobs.BWD_KERNEL, vtrace.KERNEL, wkv6.KERNEL)
+            logprobs.BWD_KERNEL, vtrace.KERNEL, wkv6.KERNEL,
+            flash_attention.KERNEL, ssm_scan.KERNEL)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -16,11 +16,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.logprobs import LogprobsFn
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.paged_attention_varlen import \
     paged_attention_varlen_cuda
 from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 from repro_torch.kernels.vtrace import vtrace_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
 
@@ -137,3 +139,33 @@ def wkv6(r, k, v, w, u, state=None):
         return ref.ref_wkv6(r, k, v, w, u, state)
     return wkv6_cuda(*(t.contiguous() for t in (r, k, v, w, u)),
                      None if state is None else state.contiguous())
+
+
+def attention(q, k, v, *, window: Optional[int] = None,
+              causal: bool = True):
+    """Attention of every position of ``q`` [B, S, H, D] over the same
+    sequence of ``k``, ``v`` [B, S, KV, D] (causal, within ``window``
+    when given): ``[B, S, H, D]`` in q's dtype.  On the card the kernel
+    is causal only (``causal=False`` raises: no path of the port asks
+    for it) and has no gradient (inputs that require grad raise); every
+    input is made contiguous."""
+    if _route(q) == "cpu":
+        return ref.ref_attention(q, k, v, causal=causal, window=window)
+    if not causal:
+        raise ValueError("flash_attention: the kernel is causal only")
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), window=window)
+
+
+def ssm_scan(u, dt, b_t, c_t, a, h0=None):
+    """The selective scan over ``[B, S, I]`` channels with an ``[I, N]``
+    diagonal ``a``: ``(y [B, S, I]`` in u's dtype, ``h_final [B, I, N]``
+    float32)``; ``h0=None`` starts from zeros.  No gradient on the card
+    (the kernel raises on inputs that require grad).  On the card every
+    input is made contiguous, and ``a`` and ``h0`` float32."""
+    if _route(u) == "cpu":
+        return ref.ref_ssm_scan(u, dt, b_t, c_t, a, h0)
+    return ssm_scan_cuda(
+        *(t.contiguous() for t in (u, dt, b_t, c_t)),
+        a.float().contiguous(),
+        None if h0 is None else h0.float().contiguous())

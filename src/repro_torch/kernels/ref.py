@@ -274,3 +274,83 @@ def ref_wkv6(
         ys.append(torch.einsum("bhkv,bhk->bhv", big_s + u32 * kv, r_t))
         big_s = w_t[..., :, None] * big_s + kv
     return torch.stack(ys, dim=1).to(r.dtype), big_s
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (causal / sliding-window, GQA): full-sequence prefill
+# ---------------------------------------------------------------------------
+
+
+def masked_attention(
+    q: torch.Tensor,      # [B, Sq, H, D]
+    k: torch.Tensor,      # [B, Sk, KV, D]
+    v: torch.Tensor,      # [B, Sk, KV, D]
+    mask: torch.Tensor,   # bool, broadcast to [B, 1, Sq, Sk]; True = attend
+) -> torch.Tensor:
+    """GQA attention under a boolean mask: scores in float32 from
+    ``q * d**-0.5``, -1e30 where the mask is False, softmax,
+    probabilities cast to q's dtype before the value product.  Returns
+    ``[B, Sq, H, D]`` in q's dtype."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", (qg * d ** -0.5).float(),
+                          k.float())                 # [B, KV, G, Sq, Sk]
+    scores = torch.where(mask[:, :, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h, d)
+
+
+def ref_attention(
+    q: torch.Tensor,   # [B, S, H, D]
+    k: torch.Tensor,   # [B, S, KV, D]
+    v: torch.Tensor,   # [B, S, KV, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,  # None = global
+) -> torch.Tensor:
+    """Attention of every position over the same sequence
+    (``repro.kernels.ref.ref_attention``): ``masked_attention`` inside
+    the causal band and the window.  Returns ``[B, S, H, D]`` in q's
+    dtype."""
+    s = q.shape[1]
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = qi >= ki if causal else torch.ones((s, s), dtype=torch.bool,
+                                              device=q.device)
+    if window is not None:
+        mask = mask & ((qi - ki) < window)
+    return masked_attention(q, k, v, mask[None, None])
+
+
+# ---------------------------------------------------------------------------
+# Selective-SSM (Mamba/S6) scan: hymba's SSM branch
+# ---------------------------------------------------------------------------
+
+
+def ref_ssm_scan(
+    u: torch.Tensor,     # [B, S, I] post-conv activations
+    dt: torch.Tensor,    # [B, S, I]
+    b_t: torch.Tensor,   # [B, S, N]
+    c_t: torch.Tensor,   # [B, S, N]
+    a: torch.Tensor,     # [I, N] (negative)
+    h0: Optional[torch.Tensor] = None,  # [B, I, N]
+):
+    """The selective scan step by step (``repro.models.ssm._ssm_scan``):
+    ``h = exp(dt * a) * h + dt * u * b``, ``y = h . c``, every input cast
+    to float32, from ``h0`` (zeros when None).  Returns ``(y [B, S, I]``
+    in u's dtype, ``h_final [B, I, N]`` float32)``."""
+    bsz, s, inner = u.shape
+    h = (torch.zeros((bsz, inner, a.shape[1]), dtype=torch.float32,
+                     device=u.device) if h0 is None else h0.float())
+    u32, dt32, b32, c32 = (x.float() for x in (u, dt, b_t, c_t))
+    a32 = a.float()[None]
+    ys = []
+    for t in range(s):
+        dt_t = dt32[:, t, :, None]                              # [B, I, 1]
+        h = torch.exp(dt_t * a32) * h + (dt_t * u32[:, t, :, None]
+                                         * b32[:, t, None, :])
+        ys.append(torch.einsum("bin,bn->bi", h, c32[:, t]))
+    return torch.stack(ys, dim=1).to(u.dtype), h

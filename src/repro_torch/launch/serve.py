@@ -2,7 +2,7 @@
 
   # static: one batch of prompts, prefill + one-token decode steps
   PYTHONPATH=src python -m repro_torch.launch.serve --engine static \\
-      --arch rwkv6-1.6b --batch 8 --max-new-tokens 16 [--full-width] \\
+      --arch hymba-1.5b --batch 8 --max-new-tokens 16 [--full-width] \\
       [--device cpu]
 
   # continuous batching over the paged KV cache (dense archs)
@@ -14,10 +14,11 @@ the ``static`` engine (``rollout.sampler.generate`` over the decode
 cache: one untimed warm call, then one call timed between device
 synchronisations) for every arch the port has, and the ``continuous``
 engine with chunked prefill and multi-step decode, which refuses
-attention-free archs as the reference's engine does.  ``--full-width``
-serves ``get_config(--arch)`` (qwen2.5-0.5b: 24 layers, vocab 151936;
-rwkv6-1.6b: 24 layers, d 2048, vocab 65536) instead of
-``reduced_config``; the math tokenizer's ids fit in every vocab.
+attention-free and hybrid archs as the reference's engine does.
+``--full-width`` serves ``get_config(--arch)`` (qwen2.5-0.5b: 24 layers,
+vocab 151936; rwkv6-1.6b: 24 layers, d 2048, vocab 65536; hymba-1.5b:
+32 layers, d 1600, vocab 32001) instead of ``reduced_config``; the math
+tokenizer's ids fit in every vocab.
 Weights are a random init from ``--seed``.
 
 Not ported yet (each exits with a message): ``--controller``,

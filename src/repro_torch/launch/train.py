@@ -25,8 +25,9 @@ Not ported yet (each exits with a message): ``--runtime threaded``, the
 controllers ``gac``, ``stable_async`` and ``asympo``, and
 ``--checkpoint-dir``; for ``rlvr`` also ``--producer serve``,
 ``--forced-lag``, ``--fault-plan``, ``--watchdog-restarts``,
-``--request-deadline`` and ``--guard-checkpoint-dir``, and attention-free
-archs (``--arch rwkv6-1.6b``: the ``wkv6`` kernel has no backward yet).
+``--request-deadline`` and ``--guard-checkpoint-dir``, attention-free
+archs (``--arch rwkv6-1.6b``: the ``wkv6`` kernel has no backward yet)
+and hybrid ones (``--arch hymba-1.5b``: nor has ``ssm_scan``).
 As in the JAX launcher, ``--metrics-out`` writes nothing for ``rl``.
 """
 from __future__ import annotations
@@ -170,12 +171,21 @@ def _refuse_unported(args) -> None:
     if args.mode == "rlvr":
         from repro_torch.configs import get_config
 
-        if get_config(args.arch).attn_free:
+        cfg = get_config(args.arch)
+        if cfg.attn_free:
             raise SystemExit(
                 f"train rlvr --arch {args.arch}: training an attention-free "
                 "(rwkv) arch needs a backward of the wkv6 kernel, which is "
                 "not ported yet; the port serves it (repro_torch.launch."
                 "serve --engine static), repro.launch.train trains it")
+        if cfg.hybrid_attn_ssm:
+            raise SystemExit(
+                f"train rlvr --arch {args.arch}: training a hybrid "
+                "attention+SSM arch needs a backward of the ssm_scan kernel "
+                "(and of flash_attention for the attention to leave the "
+                "einsum), which are not ported yet; the port serves it "
+                "(repro_torch.launch.serve --engine static), "
+                "repro.launch.train trains it")
     name = (args.controller or "").split(":")[0].strip()
     if name in _CONTROLLERS_NOT_PORTED:
         raise SystemExit(f"--controller {name} is not ported to the "

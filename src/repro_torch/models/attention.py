@@ -1,11 +1,18 @@
 """Grouped-query attention with RoPE, sliding windows and dense KV-cache
 decode (port of ``repro.models.attention``).
 
-The attention products stay ``torch.einsum``, as the JAX package leaves
-them to XLA.  A window is a static ``Optional[int]`` per layer (None =
-global), where JAX traces a per-layer float (``jnp.inf`` = global).  The
-q-chunked path the JAX package takes above ``CHUNKED_ATTN_THRESHOLD``
-query rows is not ported yet: longer sequences raise.
+The full-sequence forward (``attn_forward``) picks its attention by
+need: when q, k and v need no gradient (generation's prefill, no-grad
+scoring) it goes through ``kernels.ops.attention``, the flash-attention
+kernel on the card (the Pallas kernel's "serve/prefill path"); when a
+gradient is needed (the learner) the einsum ``kernels.ref.ref_attention``
+stays, as JAX trains through the XLA reference.  Both compute the same
+function.  The one-token ``attn_decode`` stays einsum over the dense
+cache (``kernels.ref.masked_attention``): JAX has no kernel there.  A
+window is a static ``Optional[int]`` per layer (None = global), where
+JAX traces a per-layer float (``jnp.inf`` = global).  The q-chunked
+path the JAX package takes above ``CHUNKED_ATTN_THRESHOLD`` query rows
+is not ported yet: longer sequences raise.
 """
 from __future__ import annotations
 
@@ -13,9 +20,10 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.models.layers import apply_rope, dense_apply, dense_init
 
-NEG_INF = -1e30
 CHUNKED_ATTN_THRESHOLD = 2048
 
 
@@ -58,27 +66,6 @@ def make_attention_mask(
     return mask[:, None, :, :]
 
 
-def _sdpa(q: torch.Tensor,      # [B, Sq, H, Dh]
-          k: torch.Tensor,      # [B, Sk, KV, Dh]
-          v: torch.Tensor,      # [B, Sk, KV, Dh]
-          mask: torch.Tensor,   # [B, 1, Sq, Sk]
-          ) -> torch.Tensor:
-    """Scores in float32, softmax, probabilities cast back to q's dtype
-    before the value product, as the reference does."""
-    b, sq, h, dh = q.shape
-    kv = k.shape[2]
-    g = h // kv
-    scale = dh ** -0.5
-    qg = q.reshape(b, sq, kv, g, dh)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", (qg * scale).float(),
-                          k.float())                  # [B, KV, G, Sq, Sk]
-    scores = torch.where(mask[:, :, None, :, :], scores,
-                         torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b, sq, h * dh)
-
-
 def attn_forward(
     p: Dict,
     x: torch.Tensor,              # [B, S, D]
@@ -89,8 +76,12 @@ def attn_forward(
     rope_theta: float,
     window: Optional[int],
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal attention (train / prefill).  Returns
-    ``(out [B, S, D], (k, v) [B, S, KV, Dh])``, k after RoPE."""
+    """Full-sequence causal attention (train / prefill) over the
+    positions ``0 .. S-1`` that ``positions`` holds in every row.
+    Returns ``(out [B, S, D], (k, v) [B, S, KV, Dh])``, k after RoPE.
+    Without a gradient the attention runs through ``kops.attention``
+    (the kernel on the card), with one through the einsum
+    ``ref.ref_attention``."""
     if x.shape[1] > CHUNKED_ATTN_THRESHOLD:
         raise NotImplementedError(
             f"sequences over {CHUNKED_ATTN_THRESHOLD} tokens take the "
@@ -100,8 +91,9 @@ def attn_forward(
     v = _split_heads(dense_apply(p["wv"], x), n_kv_heads)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    mask = make_attention_mask(positions, positions, window=window)
-    out = _sdpa(q, k, v, mask)
+    needs_grad = q.requires_grad or k.requires_grad or v.requires_grad
+    attend = ref.ref_attention if needs_grad else kops.attention
+    out = attend(q, k, v, window=window).flatten(2)
     return dense_apply(p["wo"], out), (k, v)
 
 
@@ -135,4 +127,5 @@ def attn_decode(
                           device=x.device)[None, :].expand(b, smax)
     mask = make_attention_mask(position[:, None], kv_pos, window=window,
                                kv_valid=kv_pos <= position[:, None])
-    return dense_apply(p["wo"], _sdpa(q, cache_k, cache_v, mask))
+    out = ref.masked_attention(q, cache_k, cache_v, mask).flatten(2)
+    return dense_apply(p["wo"], out)

@@ -1,5 +1,5 @@
-"""Model registry (port of ``repro.models.registry`` for dense and
-attention-free archs).
+"""Model registry (port of ``repro.models.registry`` for dense,
+attention-free and hybrid attention+SSM archs).
 
 ``build(cfg)`` returns a ``ModelBundle`` of plain functions over the
 config, so the serve engine and the learner never special-case
@@ -14,8 +14,8 @@ architectures:
     bundle.decode_step_paged_multi(...) / decode_step_paged_varlen(...)
 
 The paged functions are None where ``paged_arch_unsupported`` gives a
-reason (attention-free rwkv6 keeps recurrent state, not K/V rows), as in
-the reference.
+reason (attention-free rwkv6 and hybrid hymba keep recurrent state, not
+only K/V rows), as in the reference.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ class ModelBundle:
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
-    if cfg.arch_type != "dense" and not cfg.attn_free:
+    if cfg.arch_type not in ("dense", "hybrid") and not cfg.attn_free:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet")
 

@@ -1,10 +1,12 @@
 """Decoder-only policy backbone (port of ``repro.models.transformer``)
-for the dense qwen family and attention-free rwkv6.
+for the dense qwen family, attention-free rwkv6 and hybrid hymba
+(attention and SSM heads side by side in every layer).
 
 Ported here: ``init_params``; the training/prefill ``forward`` with the
 value head, the decode cache (``init_cache``: dense K/V rows, or for
 rwkv6 the per-layer WKV state and token shifts) and its one-token
-``decode_step``, which the learner and the static ``generate`` run; and,
+``decode_step``, which the learner and the static ``generate`` run (for
+hymba the cache adds each layer's SSM state and conv window); and,
 for the dense decoder, ``init_paged_cache`` with the three paged steps
 the serve engine dispatches — ``decode_step_paged`` (one token per slot, through the
 decode kernel), ``decode_step_paged_varlen`` (ragged rows per slot,
@@ -35,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.utils.tree import tree_map, tree_to  # noqa: F401 (re-export)
 from repro_torch.models.layers import (
     apply_rope,
@@ -61,11 +64,12 @@ def arch_unsupported(cfg: ModelConfig) -> Optional[str]:
     """Why the port cannot run this config at all (None = it can)."""
     if cfg.attn_free:
         return None
-    if (cfg.hybrid_attn_ssm or cfg.encoder_layers > 0 or cfg.moe is not None
+    if (cfg.encoder_layers > 0 or cfg.moe is not None
             or cfg.vision_prefix_len > 0 or cfg.activation != "swiglu"
             or cfg.logit_softcap is not None):
-        return ("only attention-free rwkv6 and the dense qwen family "
-                "(SwiGLU, no MoE, no logit softcap) are ported yet")
+        return ("only attention-free rwkv6, hybrid attention+SSM hymba and "
+                "the dense qwen family (SwiGLU, no MoE, no logit softcap) "
+                "are ported yet")
     return None
 
 
@@ -110,6 +114,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         layers["attn"] = attn.attn_init(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             qkv_bias=cfg.qkv_bias, dtype=dtype, lead=lead)
+        if cfg.hybrid_attn_ssm:
+            layers["ssm"] = ssm_mod.ssm_init(gen, cfg.d_model, cfg.ssm,
+                                             dtype, lead=lead)
         layers["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
                                  lead=lead)
     p: Dict[str, Any] = {
@@ -310,9 +317,11 @@ def _layers(params: Dict, n_layers: int):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> Dict:
     """The decode cache for ``batch`` streams of up to ``max_len``
-    tokens, with ``pos``: dense ``k``/``v`` ``[L, B, max_len, KV, Dh]``;
-    for attention-free configs (any length) the float32 WKV state
-    ``wkv`` ``[L, B, H, 64, 64]`` and the token shifts ``shift_tm`` /
+    tokens, with ``pos``: dense ``k``/``v`` ``[L, B, max_len, KV, Dh]``,
+    for hybrid configs also the float32 SSM state ``ssm`` ``[L, B, I,
+    N]`` and the conv window ``conv`` ``[L, B, W-1, I]``; for
+    attention-free configs (any length) the float32 WKV state ``wkv``
+    ``[L, B, H, 64, 64]`` and the token shifts ``shift_tm`` /
     ``shift_cm`` ``[L, B, 1, D]``."""
     _check_arch(cfg)
     c = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
@@ -328,6 +337,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     c["k"] = torch.zeros(shape, dtype=dtype, device=device)
     c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.hybrid_attn_ssm:
+        inner = cfg.ssm.expand * cfg.d_model
+        c["ssm"] = torch.zeros((L, batch, inner, cfg.ssm.state_dim),
+                               dtype=torch.float32, device=device)
+        c["conv"] = torch.zeros((L, batch, cfg.ssm.conv_width - 1, inner),
+                                dtype=dtype, device=device)
     return c
 
 
@@ -360,8 +375,11 @@ def forward(
 ) -> ModelOutput:
     """Logits ``[B, S, V]`` and values ``[B, S]`` of every position;
     with ``return_cache`` also the decode cache after the sequence: its
-    K/V rows in a dense cache sized for ``cache_len`` tokens, or for
-    attention-free configs each layer's final WKV state and shifts."""
+    K/V rows in a dense cache sized for ``cache_len`` tokens (hybrid
+    configs: and each layer's final SSM state and conv window), or for
+    attention-free configs each layer's final WKV state and shifts.
+    Hybrid layers add the mean of the attention and SSM heads, both fed
+    the same normed input."""
     _check_arch(cfg)
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
@@ -389,7 +407,15 @@ def forward(
             lp["attn"], h, positions, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
             window=cfg.window_for_layer(layer))
-        x = x + attn_out
+        if cfg.hybrid_attn_ssm:
+            ssm_out, (ssm_state, conv_state) = ssm_mod.ssm_forward(
+                lp["ssm"], h, cfg.ssm)
+            x = x + 0.5 * (attn_out + ssm_out)     # hymba: mean-fused heads
+            if cache is not None:
+                cache["ssm"][layer] = ssm_state.detach()
+                cache["conv"][layer] = conv_state.detach()
+        else:
+            x = x + attn_out
         if cache is not None:
             cache["k"][layer, :, :s] = k.detach()
             cache["v"][layer, :, :s] = v.detach()
@@ -415,10 +441,19 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
         return _paged_head(params, cfg, x), dict(cache, pos=pos + 1)
     for layer, lp in enumerate(_layers(params, cfg.n_layers)):
         h = rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
-        x = x + attn.attn_decode(
+        attn_out = attn.attn_decode(
             lp["attn"], h, pos, cache["k"][layer], cache["v"][layer],
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             rope_theta=cfg.rope_theta, window=cfg.window_for_layer(layer))
+        if cfg.hybrid_attn_ssm:
+            ssm_out, (ssm_state, conv_state) = ssm_mod.ssm_forward(
+                lp["ssm"], h, cfg.ssm,
+                state=(cache["ssm"][layer], cache["conv"][layer]))
+            cache["ssm"][layer] = ssm_state
+            cache["conv"][layer] = conv_state
+            x = x + 0.5 * (attn_out + ssm_out)
+        else:
+            x = x + attn_out
         h = rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
         x = x + mlp_apply(lp["mlp"], h)
     return _paged_head(params, cfg, x), dict(cache, pos=pos + 1)

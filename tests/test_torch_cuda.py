@@ -324,3 +324,221 @@ def test_rwkv_decode_step_on_card_launches_wkv6_and_matches_cpu(dev):
     for g, w in ((got.logits, want.logits), (got_step.logits,
                                              want_step.logits)):
         assert torch.allclose(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def _flash_case(dev, dtype, b, s, h, kv, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, s, n, d, generator=g).to(dtype).to(dev)
+            for n in (h, kv, kv)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,s,h,kv,d,window", [
+    (8, 32, 25, 5, 64, 16), (8, 32, 25, 5, 64, None), (2, 100, 14, 2, 64, 7),
+    (2, 64, 4, 2, 32, None), (2, 100, 4, 1, 16, None),
+    (2, 128, 8, 8, 64, 32), (2, 96, 4, 2, 32, 16), (2, 65, 2, 2, 8, 7),
+    (1, 300, 25, 5, 64, 100)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, tol, b, s, h, kv,
+                                              d, window):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _flash_case(dev, dtype, b, s, h, kv, d, seed=s + h + d)
+    kernels.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    want = ref.ref_attention(q, k, v, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_flash_attention_dispatch_and_refusals(dev):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _flash_case(dev, torch.float32, 2, 40, 6, 2, 64)
+    kernels.reset_launch_counts()
+    got = ops.attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                        window=9)                # made contiguous, then run
+    assert kernels.launch_counts()["flash_attention"] == 1
+    want = ref.ref_attention(q, k, v, window=9)
+    assert (got - want).abs().max().item() <= 2e-5
+    with pytest.raises(ValueError, match="causal only"):
+        ops.attention(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.attention(q.clone().requires_grad_(True), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="bad shapes"):
+        flash_attention_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                             v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="bad shapes"):
+        flash_attention_cuda(q[:, :, :5].contiguous(), k, v)
+    assert kernels.launch_counts()["flash_attention"] == 1
+
+
+def _ssm_case(dev, dtype, b, s, i, n, state=True, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g)
+    args = [r(b, s, i), torch.nn.functional.softplus(r(b, s, i)), r(b, s, n),
+            r(b, s, n)]
+    a = -torch.exp(r(i, n)).to(dev)
+    h0 = r(b, i, n).to(dev) if state else None
+    return [x.to(dtype).to(dev) for x in args] + [a, h0]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,i,n,state", [
+    (8, 32, 3200, 16, False), (8, 1, 3200, 16, True), (2, 16, 32, 8, True),
+    (2, 33, 100, 16, True), (2, 64, 128, 16, True), (2, 7, 8, 4, True),
+    (3, 50, 300, 16, False)])
+def test_ssm_scan_kernel_matches_plain(dev, dtype, tol, b, s, i, n, state):
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    args = _ssm_case(dev, dtype, b, s, i, n, state, seed=s * i)
+    kernels.reset_launch_counts()
+    y, h = ssm_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssm_scan"] == 1
+    want_y, want_h = ref.ref_ssm_scan(*args)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    for got, want in ((y, want_y), (h, want_h)):
+        assert got.shape == want.shape
+        assert (got.float() - want.float()).abs().max().item() <= tol * max(
+            1.0, want.float().abs().max().item())
+
+
+def test_ssm_scan_dispatch_and_refusals(dev):
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    u, dt, b_t, c_t, a, h0 = _ssm_case(dev, torch.float32, 2, 9, 64, 16)
+    kernels.reset_launch_counts()
+    y, h = ops.ssm_scan(u, dt, b_t.transpose(0, 1).contiguous().transpose(
+        0, 1), c_t, a.double(), h0)          # made contiguous and float32
+    assert kernels.launch_counts()["ssm_scan"] == 1
+    want_y, want_h = ref.ref_ssm_scan(u, dt, b_t, c_t, a, h0)
+    assert (y - want_y).abs().max().item() <= 2e-4 * max(
+        1.0, want_y.abs().max().item())
+    with pytest.raises(ValueError, match="no backward"):
+        ops.ssm_scan(u.clone().requires_grad_(True), dt, b_t, c_t, a, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan_cuda(u.transpose(0, 1), dt.transpose(0, 1),
+                      b_t.transpose(0, 1), c_t.transpose(0, 1), a, None)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssm_scan_cuda(u, dt, b_t, c_t, a, h0.cpu())
+    with pytest.raises(TypeError):
+        ssm_scan_cuda(u.half(), dt.half(), b_t.half(), c_t.half(), a, h0)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ssm_scan_cuda(u, dt, b_t, c_t, a[:5], h0)
+    big = _ssm_case(dev, torch.float32, 1, 2, 8, 17)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ssm_scan_cuda(*big)
+
+
+def test_attn_forward_launches_flash_only_without_grad(dev):
+    from repro_torch.models import attention as attn
+
+    cfg = reduced_config("hymba-1.5b", vocab=64)
+    params = build(cfg).init(torch.Generator().manual_seed(0))
+    lp = {k: {kk: vv[0].to(dev) for kk, vv in v.items()}
+          for k, v in params["layers"]["attn"].items()}
+    x = torch.randn(2, 24, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    pos = torch.arange(24, device=dev)[None].expand(2, 24)
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              rope_theta=cfg.rope_theta, window=cfg.window_for_layer(0))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        fast, _ = attn.attn_forward(lp, x, pos, **kw)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    grad_lp = {k: {kk: vv.clone().requires_grad_(True) for kk, vv in v.items()}
+               for k, v in lp.items()}
+    slow, _ = attn.attn_forward(grad_lp, x, pos, **kw)
+    slow.sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert grad_lp["wq"]["w"].grad is not None
+    assert torch.allclose(fast, slow.detach(), rtol=1e-4, atol=1e-5)
+
+
+def test_hymba_decode_step_on_card_launches_kernels_and_matches_cpu(dev):
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced_config("hymba-1.5b", vocab=64)
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, 64, (3, 20),
+                           generator=torch.Generator().manual_seed(1))
+    want = bundle.forward(params, tokens, return_cache=True, cache_len=22)
+    want_step, want_cache = bundle.decode_step(params, tokens[:, 0],
+                                               want.cache)
+    kernels.reset_launch_counts()
+    card = tf.tree_to(params, dev)
+    got = bundle.forward(card, tokens.to(dev), return_cache=True,
+                         cache_len=22)
+    got_step, got_cache = bundle.decode_step(card, tokens[:, 0].to(dev),
+                                             got.cache)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["ssm_scan"] == 2 * cfg.n_layers
+    for g, w in ((got.logits, want.logits), (got_step.logits,
+                                             want_step.logits)):
+        assert torch.allclose(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    for k in ("ssm", "conv", "k", "v"):
+        assert torch.allclose(got_cache[k].cpu(), want_cache[k], rtol=1e-4,
+                              atol=1e-4)
+
+
+def test_hymba_full_width_logits_gap_is_the_models_not_flash(dev,
+                                                             monkeypatch):
+    """2 full-width hymba layers (both windowed, 1024), dense weights x3,
+    one forward of B 1 x S 1100: the card's logits with the kernel and
+    with the plain attention in its place sit equally far from the CPU,
+    within chip_smoke phase 18's limit (2e-4 + 1e-4 |cpu|); the two card
+    runs agree within 1e-4; and the card with the window dropped (the
+    control) does not meet that limit.  Prints the readings."""
+    import json
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("hymba-1.5b").replace(n_layers=2)
+    assert cfg.window_for_layer(0) == cfg.window_for_layer(1) == 1024
+    bundle = build(cfg)
+    params = _scale_dense(bundle.init(torch.Generator().manual_seed(0)))
+    tokens = torch.randint(3, cfg.vocab_size, (1, 1100),
+                           generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        cpu = bundle.forward(params, tokens).logits
+        card = tf.tree_to(params, dev)
+        run = lambda: bundle.forward(card, tokens.to(dev)).logits.cpu()
+        kernel = run()
+        monkeypatch.setattr(ops, "attention", lambda q, k, v, *, window=None:
+                            ref.ref_attention(q, k, v, window=window))
+        plain = run()
+        monkeypatch.setattr(ops, "attention", lambda q, k, v, *, window=None:
+                            ref.ref_attention(q, k, v))
+        no_window = run()
+    gap = lambda a, b: (a - b).abs().max().item()
+    print(json.dumps({"hymba_logits_gap": {
+        "kernel_vs_cpu": gap(kernel, cpu), "plain_vs_cpu": gap(plain, cpu),
+        "kernel_vs_plain": gap(kernel, plain),
+        "no_window_vs_cpu": gap(no_window, cpu),
+        "cpu_max_abs": cpu.abs().max().item()}}))
+    close = lambda a, b, atol: torch.allclose(a, b, rtol=1e-4, atol=atol)
+    assert close(kernel, cpu, 2e-4) and close(plain, cpu, 2e-4)
+    assert close(kernel, plain, 1e-4)
+    assert not close(no_window, cpu, 2e-4)
+
+
+def _scale_dense(tree, by: float = 3.0):
+    """The dense weights (``"w"`` leaves) scaled by ``by``."""
+    return {k: _scale_dense(v, by) if isinstance(v, dict)
+            else v * by if k == "w" else v for k, v in tree.items()}

@@ -39,6 +39,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.envs.classic" in mods
     assert "repro_torch.models.rwkv6" in mods
     assert "repro_torch.kernels.wkv6" in mods
+    assert "repro_torch.models.ssm" in mods
+    assert "repro_torch.kernels.flash_attention" in mods
+    assert "repro_torch.kernels.ssm_scan" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -92,6 +95,8 @@ def test_launcher_without_cpu_raises_when_cuda_is_absent(monkeypatch):
         serve.main(["--engine", "continuous", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--engine", "static", "--arch", "rwkv6-1.6b"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--engine", "static", "--arch", "hymba-1.5b"])
     with pytest.raises(SystemExit, match="not ported"):
         serve.main(["--engine", "static", "--speculate", "2"])
 
