@@ -11,9 +11,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version at the serve
    path's full-width shapes (H=14, KV=2, Dh=64, BS=8, M=32, B=4,
-   T in {1, 16, 32}) plus ragged edge cases; float32 within 2e-5,
-   bfloat16 within 2e-2, the K/V row write bit-exact.  Times each with
-   CUDA events beside the plain version, a library call and its bound.
+   T in {1, 16, 32}) plus ragged edge cases and contexts of up to 239
+   keys (four 64-key tiles, global and windowed), in float32 and
+   bfloat16; float32 within 2e-5, bfloat16 within 2e-2, the K/V row
+   write bit-exact.  Times each with CUDA events beside the plain
+   version, a library call and its bound.
 4. serve: full-width qwen2.5-0.5b (24 layers, seeded random init) through
    the launcher's ``serve`` with its defaults; every request must retire
    and every kernel must have launched.
@@ -88,10 +90,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
 16. flash attention and selective-scan kernels: ``flash_attention``
     against ``ref_attention`` at hymba's prefill (B 8, S 32, 25 q / 5 kv
     heads of 64, window 1024 and global), at B 1 x S 2048 (window 1024
-    and global), past the window (S 1100), at qwen's widths (14 / 2
-    heads: the RLVR generation prefill, B 64 x S 32, and a windowed
-    ragged S 300) and on the JAX sweep's shapes (D 8 to 64, ragged S);
-    float32 within 2e-5 and bfloat16 within 3e-2.  ``ssm_scan`` against
+    and global; qwen's 14 / 2 heads global), past the window (S 1100),
+    at qwen's widths (the RLVR generation prefill, B 64 x S 32, and a
+    windowed ragged S 300), at S 1, 63 and 65, and on the JAX sweep's
+    shapes (D 8 to 64, ragged S); float32 within 2e-5 and bfloat16
+    within 3e-2.  Each timed record names the instantiation that ran
+    (``impl``: ``wgmma`` for bfloat16 at D 64, ``fma`` otherwise) and
+    takes its device time from that kernel's profiled name.  ``ssm_scan`` against
     ``ref_ssm_scan`` at hymba's prefill (B 8, S 32, I 3200, N 16, zero
     state), one decode step (S 1, carried state), B 8 x S 512, the JAX
     sweep's shapes and a ragged I 300; within 2e-4 (bfloat16 2e-2) of
@@ -191,24 +196,29 @@ def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match=None, iters: int = 20):
+def device_ms(fn, match=None, iters: int = 20, attempts: int = 3):
     """Device time per call from a ``torch.profiler`` capture: the CUDA
     kernels whose name contains ``match`` (None: every kernel the call
-    runs).  None when the capture holds no device time."""
+    runs).  A short capture now and then comes back without the card's
+    kernel records, so up to ``attempts`` captures are taken; None when
+    none of them holds the device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and (match is None or match in e.key))
-    return total / iters / 1e3 if total else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and (match is None or match in e.key))
+        if total:
+            return total / iters / 1e3
+    return None
 
 
 def profile_kernels(fn):
@@ -275,6 +285,9 @@ def _attention_cases():
     yield "varlen_t16", 16, [40, 16, 0, 9], [1, 16, 7, 0], None
     yield "varlen_t32", 32, [0, 24, 70, 5], [32, 32, 1, 19], None
     yield "varlen_window", 16, [40, 16, 0, 9], [1, 16, 7, 0], 12
+    # Contexts of up to 239 keys: four 64-key tiles of M 32 x BS 8.
+    yield "varlen_long", 16, [200, 180, 0, 230], [16, 16, 3, 9], None
+    yield "varlen_long_window", 16, [200, 180, 0, 230], [16, 16, 3, 9], 100
 
 
 def _attention_bound(q, rows, lens, window, n_scalars, esize, dtype):
@@ -1488,23 +1501,29 @@ def flash_kernel_phase(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_impl)
 
     h, kv, w = HYMBA_H, HYMBA_KV, HYMBA_WINDOW
-    cases = (   # (case, B, S, H, KV, D, window); the first four timed
+    cases = (   # (case, B, S, H, KV, D, window); the first five timed
         ("prefill_local", HYMBA_B, HYMBA_P, h, kv, 64, w),
         ("prefill_global", HYMBA_B, HYMBA_P, h, kv, 64, None),
         ("long_local", 1, HYMBA_LONG, h, kv, 64, w),
         ("long_global", 1, HYMBA_LONG, h, kv, 64, None),
+        ("qwen_long", 1, HYMBA_LONG, 14, 2, 64, None),
         ("past_window", 1, 1100, h, kv, 64, w),
         ("qwen_prefill", 64, 32, 14, 2, 64, None),
         ("qwen_window", 4, 300, 14, 2, 64, 100),
+        ("edge_s1", 2, 1, h, kv, 64, None),
+        ("edge_s63", 2, 63, 14, 2, 64, None),
+        ("edge_s65", 2, 65, 14, 2, 64, 16),
         ("sweep_32", 2, 64, 4, 2, 32, None),
         ("sweep_16", 2, 100, 4, 1, 16, None),
         ("sweep_64", 2, 128, 8, 8, 64, 32),
         ("sweep_32w", 2, 96, 4, 2, 32, 16),
         ("sweep_8", 2, 65, 2, 2, 8, 7))
-    timed = ("prefill_local", "prefill_global", "long_local", "long_global")
+    timed = ("prefill_local", "prefill_global", "long_local", "long_global",
+             "qwen_long")
     headline, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -1546,17 +1565,23 @@ def flash_kernel_phase(torch):
             nbytes = (2 * b * s * hh * d + 2 * b * s * kk * d) * esize
             flops = 4 * d * hh * b * _attended_pairs(s, window)
             b_ms, b_by = bound(nbytes, flops, dname)
+            # The instantiation that ran, by its profiled name.
+            impl = flash_impl(dtype, d)
+            symbol = ("flash_kernel_wgmma" if impl == "wgmma"
+                      else "flash_kernel<")
             rec = dict(phase="kernel", kernel="flash_attention", case=case,
-                       dtype=dname, B=b, S=s, H=hh, KV=kk, D=d, window=window,
-                       max_abs_err=err, tol=FLASH_TOL[dname],
+                       dtype=dname, impl=impl, B=b, S=s, H=hh, KV=kk, D=d,
+                       window=window, max_abs_err=err, tol=FLASH_TOL[dname],
                        kernel_ms=time_ms(kern, iters=50),
                        plain_ms=time_ms(plain, iters=5, warmup=1),
                        library_ms=time_ms(lib, iters=50),
                        bound_ms=b_ms, bound_by=b_by,
-                       kernel_device_ms=device_ms(kern, "flash_kernel"),
+                       kernel_device_ms=device_ms(kern, symbol),
                        plain_device_ms=device_ms(plain, iters=3),
                        library_device_ms=device_ms(lib, iters=5))
             emit(**rec)
+            check(rec["kernel_device_ms"] is not None,
+                  f"flash/{case}/{dname}: no {symbol} in the profile")
             if case == "prefill_local":      # 30 of a generate's 32 launches
                 headline[("flash_attention", dname)] = rec
             del qt, kt, vt

@@ -20,8 +20,13 @@
 // 0.20 ms at the float32 peak of 67 TFLOP/s), bytes at the serve prefill
 // (B 8, S 32: 3.9 MB, 1.2 us at 3.35 TB/s).  This design runs the
 // products on the FMA pipes from shared memory (one shared load per two
-// FMAs), so at best about half the float32 peak; tensor cores (wgmma)
-// and TMA are a later design.
+// FMAs), so at best about half the float32 peak.
+//
+// Two instantiations, chosen by the launcher from dtype and head dim
+// alone: bfloat16 at D = 64 takes flash_kernel_wgmma
+// (flash_attention_wgmma.cuh: tensor cores fed by TMA); float32, and
+// bfloat16 at D 8, 16 and 32, take flash_kernel below, which is never
+// instantiated for bfloat16 at D 64.
 //
 // Design: GQA packing.  The G = H / KV query heads of a kv head are
 // adjacent in memory at each position, so the rows (position, head) of
@@ -43,6 +48,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -252,9 +261,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float scale, cudaStream_t stream) {
   auto kernel = flash_kernel<T, D, kWindow>;
   const size_t bytes = Layout<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(   // once
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   const int rows = seq * (n_heads / n_kv);
   dim3 grid((rows + kRows - 1) / kRows, n_kv, batch);
   kernel<<<grid, kThreads, bytes, stream>>>(
@@ -290,8 +299,12 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
       return launch_w<T, 32>(q, k, v, out, batch, seq, n_heads, n_kv,
                              window, scale, stream);
     case 64:
-      return launch_w<T, 64>(q, k, v, out, batch, seq, n_heads, n_kv,
-                             window, scale, stream);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return wg::launch_w(q, k, v, out, batch, seq, n_heads, n_kv, window,
+                            scale, stream);
+      else
+        return launch_w<T, 64>(q, k, v, out, batch, seq, n_heads, n_kv,
+                               window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -300,10 +313,11 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B, S, H, D], k and v [B, S, KV, D]: contiguous, one dtype (0 =
-// float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64}.
-// window > 0 limits each query to the keys p - window < j <= p; 0 is
-// global causal attention.  out [B, S, H, D] in the inputs' dtype is
-// written.  Returns the cudaError_t of the launch.
+// float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64};
+// bfloat16 at D 64 (flash_kernel_wgmma) also needs q, k, v 16-byte aligned
+// and H / KV <= 64.  window > 0 limits each query to the keys
+// p - window < j <= p; 0 is global causal attention.  out [B, S, H, D] in
+// the inputs' dtype is written.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int seq, int n_heads, int n_kv,

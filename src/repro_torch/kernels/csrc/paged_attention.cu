@@ -12,13 +12,15 @@
 // microsecond at 3.35 TB/s, so a launch (a few microseconds) is what a
 // call costs: the kernel is launch-bound there, not bandwidth-bound.
 //
-// Design: one block per (slot, kv head), grid (B, KV).  Each live page is
-// loaded into shared memory once and used by all H / KV group heads of
-// that kv head (the Pallas grid (B, H, M) streams every page once per
-// query head).  Only live pages are visited: j < ceil(ctx / BS), minus
-// pages wholly left of a sliding window; pad ids in the table past the
-// context are never read.  ctx == 0 gives exact zeros.  Known limit: at
-// B = 4, KV = 2 the grid has 8 blocks for 132 SMs.
+// Design: the ragged kernel's block routine (paged_attention_common.cuh,
+// attend_tile) with one live row per slot at position ctx - 1: grid
+// (row tiles, KV, B), one block per 16 of the G = H / KV group heads of a
+// (slot, kv head), so each staged key tile serves every group head (the
+// Pallas grid (B, H, M) streams every page once per query head).  Keys
+// are staged 64 at a time by cp.async, double-buffered; pages wholly left
+// of a sliding window and table entries past the context are never read.
+// ctx == 0 gives exact zeros.  Known limit: at B = 4, KV = 2 the grid has
+// 8 blocks for 132 SMs; a context split would fill it.
 #include "paged_attention_common.cuh"
 
 namespace {
@@ -30,20 +32,26 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const int* __restrict__ tables,
                        const int* __restrict__ context_lens,
                        T* __restrict__ out, paged::Geometry g) {
-  const int b = blockIdx.x, kvh = blockIdx.y;
+  const int b = blockIdx.z, kvh = blockIdx.y;
   const int ctx = context_lens[b];
   // The decode query is the newest row: position ctx - 1, one live row.
-  paged::attend_rows<T>(q, k_pages, v_pages, tables, out, b, kvh, ctx - 1,
-                        ctx > 0 ? 1 : 0, g);
+  paged::attend_tile<T>(q, k_pages, v_pages, tables, out, b, kvh, ctx - 1,
+                        ctx > 0 ? 1 : 0, blockIdx.x * paged::kRowTile, g);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* tables, const int* context_lens, void* out,
                    int batch, const paged::Geometry& g, cudaStream_t stream) {
-  const size_t smem = paged::smem_bytes(g.BS, g.D);
-  paged_attention_kernel<T><<<dim3(batch, g.KV), paged::kThreads, smem,
-                              stream>>>(
+  auto kernel = paged_attention_kernel<T>;
+  // Raised once to what the widest head dim needs (above 48 KB).
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)paged::smem_bytes<T>(paged::kMaxHeadDim));
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (g.H / g.KV + paged::kRowTile - 1) / paged::kRowTile;
+  kernel<<<dim3(tiles, g.KV, batch), paged::kThreads,
+           paged::smem_bytes<T>(g.D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), tables, context_lens,
       static_cast<T*>(out), g);

@@ -1,7 +1,7 @@
 // Shared block routine of the two paged-attention kernels
 // (paged_attention.cu: one query per slot; paged_attention_varlen.cu:
-// ragged rows per slot).  Both launch one block per (slot, kv head) and
-// call attend_rows; they differ only in how a slot's rows are described.
+// ragged rows per slot).  Both launch a grid of (row tiles, KV, B) and
+// call attend_tile; they differ only in how a slot's rows are described.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,10 +15,14 @@ namespace paged {
 constexpr float kNegInf = -1e30f;
 constexpr float kMinDenom = 1e-30f;
 
-constexpr int kThreads = 128;      // threads per block
-constexpr int kRowTile = 16;       // query rows (token x group head) per pass
+constexpr int kThreads = 128;                   // 4 warps per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowTile = 16;                    // query rows per block
+constexpr int kRowsPerWarp = kRowTile / kWarps; // a warp owns 4 rows
+constexpr int kKeys = 64;                       // keys staged per sync
+constexpr int kKeysPerLane = kKeys / 32;
 constexpr int kMaxHeadDim = 128;
-constexpr int kAccPerThread = kRowTile * kMaxHeadDim / kThreads;
+constexpr int kDimsPerLane = kMaxHeadDim / 32;
 
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
 
@@ -35,158 +39,278 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as astype does
 }
 
-// Dynamic shared memory of one block, in floats:
-// q[kRowTile*D] | k[BS*(D+1)] | v[BS*D] | p[kRowTile*BS] | m, l, alpha[kRowTile]
-// (k rows are padded by one float so the score loop reads distinct banks).
-inline size_t smem_bytes(int block_size, int head_dim) {
-  size_t floats = (size_t)kRowTile * head_dim +
-                  (size_t)block_size * (head_dim + 1) +
-                  (size_t)block_size * head_dim +
-                  (size_t)kRowTile * block_size + 3 * kRowTile;
-  return floats * sizeof(float);
+// Four consecutive elements of a staged K row as float32.
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
+}
+
+// 16 bytes global -> shared without a register round trip; src_bytes 0
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A staged K or V row: D elements padded by 16 bytes, so that the
+// 16-byte loads of 8 consecutive lanes (8 rows) hit distinct banks.
+template <typename T>
+__host__ __device__ constexpr int row_bytes(int d) {
+  return d * (int)sizeof(T) + 16;
+}
+
+// Dynamic shared memory of one block, in bytes:
+// q[kRowTile][D] f32 | k, v[2 stages][kKeys][row] T | p[kRowTile][kKeys]
+// f32 | ok[2 stages][kKeys] int.
+template <typename T>
+inline size_t smem_bytes(int head_dim) {
+  return sizeof(float) * kRowTile * head_dim +
+         (size_t)4 * kKeys * row_bytes<T>(head_dim) +
+         sizeof(float) * kRowTile * kKeys + sizeof(int) * 2 * kKeys;
 }
 
 struct Geometry {
   int T;        // query rows per slot in q/out ([B, T, H, D]; 1 for decode)
   int H, KV;    // query heads, kv heads (H % KV == 0)
   int NB, BS;   // pool pages, rows per page
-  int D;        // head dim (<= kMaxHeadDim)
+  int D;        // head dim (a multiple of 8, <= kMaxHeadDim)
   int M;        // block-table width
   int window;   // sliding window, < 0 = global
   float scale;  // D ** -0.5, applied to q
 };
 
-// One block = one (slot b, kv head kvh).  The slot's live query rows are
-// tokens t < n at absolute positions base + t; each token has G = H / KV
-// group heads, so the block owns n * G score rows, row r -> token r / G,
-// head kvh * G + r % G.  A K/V page is loaded into shared memory once per
-// pass of up to kRowTile rows and used by all of them (the Pallas grid
-// re-streams every page once per query head).  Pages are visited as the
-// Pallas kernels visit them: j < ceil((base + n) / BS), skipping pages
-// entirely left of the OLDEST row's window.  Online softmax per row,
-// in float32, with the same update order as the Pallas body.
+// Stage keys k0 .. k0 + kKeys - 1 of slot b, kv head kvh into one buffer
+// (cp.async, 16 bytes a thread per step).  Each key's row comes through
+// its own table entry; a key past `last`, past the table, or whose entry
+// is < 0 or >= NB is never read: its rows are zero and ok[key] is 0.
 template <typename T>
-__device__ void attend_rows(const T* __restrict__ q,
+__device__ __forceinline__ void stage_keys(
+    const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+    const int* __restrict__ tables, uint8_t* k_s, uint8_t* v_s, int* ok_s,
+    int b, int kvh, int k0, int last, const Geometry& g) {
+  const int chunks = g.D * (int)sizeof(T) / 16;   // per row
+  const int rb = row_bytes<T>(g.D);
+  for (int e = threadIdx.x; e < 2 * kKeys * chunks; e += kThreads) {
+    const bool is_v = e >= kKeys * chunks;
+    const int rem = is_v ? e - kKeys * chunks : e;
+    const int kk = rem / chunks, c = rem % chunks, j = k0 + kk;
+    const int jp = j / g.BS;
+    int page = -1;
+    if (j <= last && jp < g.M) page = tables[(size_t)b * g.M + jp];
+    const bool valid = page >= 0 && page < g.NB;
+    const T* pages = is_v ? v_pages : k_pages;
+    const T* src = valid ? pages + (((size_t)kvh * g.NB + page) * g.BS +
+                                    j % g.BS) * g.D + c * (16 / sizeof(T))
+                         : pages;
+    cp_async16((is_v ? v_s : k_s) + kk * rb + c * 16, src, valid ? 16 : 0);
+    if (!is_v && c == 0) ok_s[kk] = valid;
+  }
+}
+
+// One block = rows r0 .. r0 + kRowTile - 1 of (slot b, kv head kvh).  The
+// slot's live query rows are tokens t < n at absolute positions base + t;
+// each token has G = H / KV group heads, so the slot has n * G live rows,
+// row r -> token r / G, head kvh * G + r % G (of T * G rows in q/out).
+// Rows of the tile at tokens >= n are written as exact zeros.  Keys run
+// from the oldest row's first visible key to the newest row's position,
+// kKeys at a time, double-buffered: the next tile's cp.async is in flight
+// while this one is used.  Warp w owns rows 4w .. 4w + 3: lane l scores
+// keys l and l + 32 of each, row max and sum by warp shuffles, then
+// accumulates dims l + 32c of each row's output.  Online softmax in
+// float32, with the update order of the Pallas body.
+template <typename T>
+__device__ void attend_tile(const T* __restrict__ q,
                             const T* __restrict__ k_pages,
                             const T* __restrict__ v_pages,
                             const int* __restrict__ tables,
                             T* __restrict__ out, int b, int kvh, int base,
-                            int n, const Geometry& g) {
-  extern __shared__ float smem[];
-  const int D = g.D, BS = g.BS, G = g.H / g.KV;
-  float* q_s = smem;
-  float* k_s = q_s + kRowTile * D;
-  float* v_s = k_s + BS * (D + 1);
-  float* p_s = v_s + BS * D;
-  float* m_s = p_s + kRowTile * BS;
-  float* l_s = m_s + kRowTile;
-  float* a_s = l_s + kRowTile;
-  const int tid = threadIdx.x;
+                            int n, int r0, const Geometry& g) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int D = g.D, G = g.H / g.KV, rb = row_bytes<T>(D);
+  float* q_s = reinterpret_cast<float*>(smem);
+  uint8_t* kv_s = smem + sizeof(float) * kRowTile * D;
+  auto k_buf = [&](int st) { return kv_s + st * kKeys * rb; };
+  auto v_buf = [&](int st) { return kv_s + (2 + st) * kKeys * rb; };
+  float* p_s = reinterpret_cast<float*>(kv_s + 4 * kKeys * rb);
+  int* ok_s = reinterpret_cast<int*>(p_s + kRowTile * kKeys);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bool has_window = g.window >= 0;
   if (n < 0) n = 0;
   if (n > g.T) n = g.T;
+  const int live_rows = n * G;
 
-  // Padding rows (t >= n) and idle slots (n == 0) are exact zeros.
-  for (int e = tid; e < (g.T - n) * G * D; e += kThreads) {
-    const int t = n + e / (G * D), rem = e % (G * D);
-    out[(((size_t)b * g.T + t) * g.H + kvh * G + rem / D) * D + rem % D] =
-        from_float<T>(0.f);
+  float acc[kRowsPerWarp][kDimsPerLane], l[kRowsPerWarp], m[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    l[i] = 0.f;
+    m[i] = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kDimsPerLane; ++c) acc[i][c] = 0.f;
   }
-  if (n == 0) return;
-
-  // Live pages: from the page holding the oldest row's first visible key
-  // (base - window + 1) to the page holding the newest row (ctx - 1).
-  const int ctx = base + n;
-  const int first_key = has_window ? base - g.window + 1 : 0;
-  const int j_begin = first_key > 0 ? first_key / BS : 0;
-  int j_end = (ctx + BS - 1) / BS;
-  if (j_end > g.M) j_end = g.M;
-  const int rows = n * G;
-  for (int r0 = 0; r0 < rows; r0 += kRowTile) {
-    const int R = min(kRowTile, rows - r0);
-    __syncthreads();   // the previous pass is done with q_s, m_s, l_s
-    for (int e = tid; e < R * D; e += kThreads) {
-      const int r = e / D, d = e % D, rr = r0 + r;
-      const int t = rr / G, h = kvh * G + rr % G;
-      q_s[e] = to_float(q[(((size_t)b * g.T + t) * g.H + h) * D + d]) *
-               g.scale;
-    }
-    if (tid < R) {
-      m_s[tid] = kNegInf;
-      l_s[tid] = 0.f;
-    }
-    float acc[kAccPerThread];
+  // The output rows this warp writes: live rows from acc, the rest zeros.
+  auto write_rows = [&]() {
 #pragma unroll
-    for (int k = 0; k < kAccPerThread; ++k) acc[k] = 0.f;
-
-    for (int j = j_begin; j < j_end; ++j) {
-      const int page = tables[(size_t)b * g.M + j];
-      if (page < 0 || page >= g.NB) continue;   // never read out of the pool
-      __syncthreads();   // q_s written; the previous page fully consumed
-      const size_t page_off = ((size_t)kvh * g.NB + page) * BS * D;
-      for (int e = tid; e < BS * D; e += kThreads) {
-        k_s[(e / D) * (D + 1) + e % D] = to_float(k_pages[page_off + e]);
-        v_s[e] = to_float(v_pages[page_off + e]);
-      }
-      __syncthreads();
-      for (int e = tid; e < R * BS; e += kThreads) {
-        const int r = e / BS, s = e % BS;
-        const int qpos = base + (r0 + r) / G, kpos = j * BS + s;
-        const bool valid =
-            kpos <= qpos && (!has_window || qpos - kpos < g.window);
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot += q_s[r * D + d] * k_s[s * (D + 1) + d];
-        p_s[e] = valid ? dot : kNegInf;
-      }
-      __syncthreads();
-      if (tid < R) {
-        float* p = p_s + tid * BS;
-        float mx = kNegInf;
-        for (int s = 0; s < BS; ++s) mx = fmaxf(mx, p[s]);
-        const float m_prev = m_s[tid];
-        const float m_new = fmaxf(m_prev, mx);
-        const float alpha = expf(m_prev - m_new);
-        float sum = 0.f;
-        for (int s = 0; s < BS; ++s) {
-          p[s] = expf(p[s] - m_new);
-          sum += p[s];
-        }
-        l_s[tid] = alpha * l_s[tid] + sum;
-        m_s[tid] = m_new;
-        a_s[tid] = alpha;
-      }
-      __syncthreads();
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = r0 + warp * kRowsPerWarp + i;
+      if (r >= g.T * G) break;
+      const int t = r / G, h = kvh * G + r % G;
+      T* row = out + (((size_t)b * g.T + t) * g.H + h) * D;
+      const float inv = r < live_rows ? 1.f / fmaxf(l[i], kMinDenom) : 0.f;
 #pragma unroll
-      for (int k = 0; k < kAccPerThread; ++k) {
-        const int idx = tid + k * kThreads;
-        if (idx < R * D) {
-          const int r = idx / D, d = idx % D;
-          float pv = 0.f;
-          for (int s = 0; s < BS; ++s) pv += p_s[r * BS + s] * v_s[s * D + d];
-          acc[k] = acc[k] * a_s[r] + pv;
-        }
+      for (int c = 0; c < kDimsPerLane; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) row[d] = from_float<T>(r < live_rows ? acc[i][c] * inv
+                                                        : 0.f);
       }
     }
-    __syncthreads();   // l_s is final for this pass
-#pragma unroll
-    for (int k = 0; k < kAccPerThread; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < R * D) {
-        const int r = idx / D, d = idx % D, rr = r0 + r;
-        const int t = rr / G, h = kvh * G + rr % G;
-        out[(((size_t)b * g.T + t) * g.H + h) * D + d] =
-            from_float<T>(acc[k] / fmaxf(l_s[r], kMinDenom));
-      }
-    }
+  };
+  if (r0 >= live_rows) {   // only padding rows: zeros, nothing read
+    write_rows();
+    return;
   }
+
+  // Keys any live row of the tile can see: [first, last].
+  const int t_lo = r0 / G, t_hi = (min(r0 + kRowTile, live_rows) - 1) / G;
+  const int last = base + t_hi;
+  const int first = has_window ? max(0, base + t_lo - g.window + 1) : 0;
+  const int n_tiles = (last - first) / kKeys + 1;
+
+  stage_keys<T>(k_pages, v_pages, tables, k_buf(0), v_buf(0), ok_s, b, kvh,
+                first, last, g);
+  cp_async_commit();
+  for (int e = tid; e < kRowTile * D; e += kThreads) {
+    const int rr = r0 + e / D, d = e % D;
+    float x = 0.f;
+    if (rr < live_rows)
+      x = to_float(q[(((size_t)b * g.T + rr / G) * g.H + kvh * G + rr % G) *
+                         D + d]) * g.scale;
+    q_s[e] = x;
+  }
+  int pos[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = r0 + warp * kRowsPerWarp + i;
+    pos[i] = r < live_rows ? base + r / G : -1;   // -1: attends nothing
+  }
+  float* p_w = p_s + warp * kRowsPerWarp * kKeys;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, k0 = first + it * kKeys;
+    if (it + 1 < n_tiles) {
+      stage_keys<T>(k_pages, v_pages, tables, k_buf(st ^ 1), v_buf(st ^ 1),
+                    ok_s + (st ^ 1) * kKeys, b, kvh, k0 + kKeys, last, g);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile `it` (and q_s) visible to every warp
+    const T* ks = reinterpret_cast<const T*>(k_buf(st));
+    const T* vs = reinterpret_cast<const T*>(v_buf(st));
+    const int* ok = ok_s + st * kKeys;
+
+    float s[kRowsPerWarp][kKeysPerLane];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+      for (int c = 0; c < kKeysPerLane; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float kx[kKeysPerLane][4];
+#pragma unroll
+      for (int c = 0; c < kKeysPerLane; ++c)
+        load4(ks + (lane + 32 * c) * (rb / (int)sizeof(T)) + d, kx[c]);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            q_s + (warp * kRowsPerWarp + i) * D + d);
+#pragma unroll
+        for (int c = 0; c < kKeysPerLane; ++c)
+          s[i][c] += qv.x * kx[c][0] + qv.y * kx[c][1] + qv.z * kx[c][2] +
+                     qv.w * kx[c][3];
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      bool valid[kKeysPerLane];
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < kKeysPerLane; ++c) {
+        const int kk = lane + 32 * c, key = k0 + kk;
+        valid[c] = ok[kk] && key <= pos[i] &&
+                   (!has_window || pos[i] - key < g.window);
+        if (valid[c]) mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kKeysPerLane; ++c) {
+        const float p = valid[c] ? expf(s[i][c] - m_new) : 0.f;
+        sum += p;
+        p_w[i * kKeys + lane + 32 * c] = p;
+      }
+      l[i] = l[i] * alpha + sum;   // this lane's share; summed at the end
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kDimsPerLane; ++c) acc[i][c] *= alpha;
+    }
+    __syncwarp();   // p_w complete
+
+    const int n_keys = min(kKeys, last + 1 - k0);
+    const int v_row = rb / (int)sizeof(T);
+    for (int kk = 0; kk < n_keys; ++kk) {
+      float pv[kRowsPerWarp];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) pv[i] = p_w[i * kKeys + kk];
+#pragma unroll
+      for (int c = 0; c < kDimsPerLane; ++c) {
+        const int d = lane + 32 * c;
+        const float vv = d < D ? to_float(vs[kk * v_row + d]) : 0.f;
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i)
+          acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+      }
+    }
+    __syncthreads();   // buffer `st` and p_s are free for the next tile
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  write_rows();
 }
 
 // Host-side shape check shared by both launchers.
 inline cudaError_t check_geometry(const Geometry& g, int batch) {
-  if (batch <= 0 || g.KV <= 0 || g.H % g.KV != 0 || g.D <= 0 ||
-      g.D > kMaxHeadDim || g.BS <= 0 || g.T <= 0 || g.M <= 0 || g.NB <= 0)
+  if (batch <= 0 || batch > 65535 || g.KV <= 0 || g.KV > 65535 ||
+      g.H % g.KV != 0 || g.D <= 0 || g.D > kMaxHeadDim || g.D % 8 != 0 ||
+      g.BS <= 0 || g.T <= 0 || g.M <= 0 || g.NB <= 0)
     return cudaErrorInvalidValue;
-  if (smem_bytes(g.BS, g.D) > 48 * 1024) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 

@@ -13,15 +13,21 @@
 // far below the bytes' time at these sizes.  At the serve path's shapes
 // (B = 4, T <= 16, KV = 2, D = 64, float32, contexts under 100 rows) the
 // bytes take well under a microsecond at 3.35 TB/s: the call is
-// launch-bound.
+// launch-bound, and what a design can win is latency.
 //
-// Design: one block per (slot, kv head), grid (B, KV), looping over the
-// slot's row_len[b] tokens x H / KV group heads in passes of up to 16 rows.
-// Each live page is loaded into shared memory once per pass and serves
-// every row of the pass (the Pallas grid (B, H, M) re-streams it per query
-// head).  Page skipping is keyed to the oldest row's window, as in the
-// Pallas kernel.  Padding rows (t >= row_len[b]) and idle slots come back
-// as exact zeros without computing anything.
+// Design: the rows are split over blocks.  Grid (row tiles, KV, B): one
+// block of 4 warps per 16 packed rows (token x group head) of one (slot,
+// kv head), so the serve round's 112 rows of a slot take 7 blocks and the
+// call 56, not the 8 blocks (one per slot and kv head, walking its rows
+// in serial passes) of the first design.  A tile whose rows are all
+// padding writes its zeros and returns.  Keys are staged 64 at a time
+// (8 pages of 8 rows) by cp.async, 16 bytes a thread, each row through
+// its own table entry, double-buffered; each warp owns 4 rows and spreads
+// the keys over its lanes for the scores and the dims for the value
+// product, with the row max and sum from warp shuffles
+// (paged_attention_common.cuh, attend_tile).  Float32 stays on the FMA
+// pipes (no TF32).  Padding rows (t >= row_len[b]) and idle slots come
+// back as exact zeros.
 #include "paged_attention_common.cuh"
 
 namespace {
@@ -35,9 +41,10 @@ paged_attention_varlen_kernel(const T* __restrict__ q,
                               const int* __restrict__ row_start,
                               const int* __restrict__ row_len,
                               T* __restrict__ out, paged::Geometry g) {
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  paged::attend_rows<T>(q, k_pages, v_pages, tables, out, b, kvh,
-                        row_start[b], row_len[b], g);
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  paged::attend_tile<T>(q, k_pages, v_pages, tables, out, b, kvh,
+                        row_start[b], row_len[b],
+                        blockIdx.x * paged::kRowTile, g);
 }
 
 template <typename T>
@@ -45,9 +52,16 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* tables, const int* row_start,
                    const int* row_len, void* out, int batch,
                    const paged::Geometry& g, cudaStream_t stream) {
-  const size_t smem = paged::smem_bytes(g.BS, g.D);
-  paged_attention_varlen_kernel<T><<<dim3(batch, g.KV), paged::kThreads, smem,
-                                     stream>>>(
+  auto kernel = paged_attention_varlen_kernel<T>;
+  // Raised once to what the widest head dim needs (above 48 KB).
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)paged::smem_bytes<T>(paged::kMaxHeadDim));
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (g.T * (g.H / g.KV) + paged::kRowTile - 1) /
+                    paged::kRowTile;
+  kernel<<<dim3(tiles, g.KV, batch), paged::kThreads,
+           paged::smem_bytes<T>(g.D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), tables, row_start, row_len,
       static_cast<T*>(out), g);

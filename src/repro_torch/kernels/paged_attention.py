@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels.build import Kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128   # paged::kMaxHeadDim
 
 # q, k, v, tables, context_lens, out | B H KV NB BS D M window | scale
 # dtype stream
@@ -23,8 +24,10 @@ KERNEL = Kernel("paged_attention",
 def check_inputs(name: str, q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, block_tables: torch.Tensor,
                  lens: Sequence[torch.Tensor]) -> None:
-    """Device, dtype, contiguity and shape checks shared by the two
-    paged-attention wrappers (q is [B, H, D] or [B, T, H, D])."""
+    """Device, dtype, contiguity, shape and alignment checks shared by
+    the two paged-attention wrappers (q is [B, H, D] or [B, T, H, D]).
+    The kernels stage K/V rows by 16-byte ``cp.async``: the pools must
+    start on a 16-byte boundary and the head dim be a multiple of 8."""
     tensors = (q, k_pages, v_pages, block_tables) + tuple(lens)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError(f"{name}: every tensor must be on one CUDA device")
@@ -44,6 +47,13 @@ def check_inputs(name: str, q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} pages "
                          f"{tuple(k_pages.shape)} tables "
                          f"{tuple(block_tables.shape)}")
+    d = k_pages.shape[3]
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim must be a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{name}: k_pages and v_pages must start on a "
+                         "16-byte boundary")
 
 
 def paged_attention_cuda(

@@ -23,29 +23,58 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, dtype, b=4, t=5, h=14, kv=2, d=64, bs=8, nb=40, m=6):
+def _case(dev, dtype, b=4, t=5, h=14, kv=2, d=64, bs=8, nb=40, m=6,
+          row_start=(20, 8, 0, 30), row_len=(1, 5, 0, 3), pad=None):
+    """Pools, tables and ragged rows.  ``pad=None``: the last table column
+    is page 0 (a real page past every context); otherwise every entry
+    past a slot's context is ``pad``."""
     g = torch.Generator().manual_seed(0)
     q = torch.randn(b, t, h, d, generator=g).to(dtype).to(dev)
     kp = torch.randn(kv, nb, bs, d, generator=g).to(dtype).to(dev)
     vp = torch.randn(kv, nb, bs, d, generator=g).to(dtype).to(dev)
     tables = (torch.randperm(nb - 1, generator=g)[:b * m] + 1).reshape(b, m)
-    tables[:, m - 1] = 0                              # pad entries
-    row_len = torch.tensor([1, t, 0, 3])
-    row_start = torch.tensor([20, 8, 0, 30])
+    if pad is None:
+        tables[:, m - 1] = 0                          # pad entries
+    else:
+        for i, (s0, n) in enumerate(zip(row_start, row_len)):
+            tables[i, -(-(s0 + n) // bs):] = pad
+    row_len = torch.tensor(row_len)
+    row_start = torch.tensor(row_start)
     return (q, kp, vp, tables.to(torch.int32).to(dev),
             row_start.to(torch.int32).to(dev), row_len.to(torch.int32).to(dev))
 
 
+# Ragged rounds at G = 7: row tiles of 16 split a slot's T x 7 rows.
+# "t16" is the serve path's chunked round (slots of 1, 16, 7 and 0 rows);
+# "t32_long" has contexts of up to 232 keys (four 64-key tiles), an idle
+# slot and -1 table entries past every context.  Other geometries: D 128
+# with G 1 and 16-row pages; D 32 with G 20 (a token's rows span two row
+# tiles) and 4-row pages.
+_VARLEN = {
+    "t5": dict(),
+    "t16": dict(t=16, nb=129, m=32, row_start=(40, 16, 0, 9),
+                row_len=(1, 16, 7, 0), pad=-1),
+    "t32_long": dict(t=32, nb=129, m=32, row_start=(200, 0, 130, 150),
+                     row_len=(32, 32, 0, 19), pad=-1),
+    "d128_g1": dict(t=4, h=8, kv=8, d=128, bs=16, nb=33, m=8,
+                    row_start=(20, 3, 0, 100), row_len=(4, 1, 0, 2), pad=-1),
+    "d32_g20": dict(t=3, h=40, kv=2, d=32, bs=4, nb=65, m=16,
+                    row_start=(10, 0, 40, 7), row_len=(3, 2, 1, 0), pad=-1),
+}
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("window", [None, 7])
-def test_varlen_kernel_matches_plain(dev, dtype, tol, window):
-    args = _case(dev, dtype)
+@pytest.mark.parametrize("window", [None, 7, 100])
+@pytest.mark.parametrize("shape", sorted(_VARLEN))
+def test_varlen_kernel_matches_plain(dev, dtype, tol, window, shape):
+    args = _case(dev, dtype, **_VARLEN[shape])
     got = ops.paged_attention_varlen(*args, window=window)
     want = ref.ref_paged_attention_varlen(*args, window=window)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= tol
-    assert (got[2] == 0).all() and (got[0, 1:] == 0).all()
+    for b, n in enumerate(args[5].tolist()):
+        assert (got[b, n:] == 0).all()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -60,6 +89,37 @@ def test_decode_kernel_matches_plain(dev, dtype, tol, window):
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert (got[2] == 0).all()
+
+
+@pytest.mark.parametrize("varlen", [False, True])
+def test_paged_wrappers_refuse_misaligned_pools_and_head_dims(dev, varlen):
+    """K/V rows are staged by 16-byte cp.async: a pool off a 16-byte
+    boundary and a head dim that is not a multiple of 8 raise before any
+    launch."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention_varlen import (
+        paged_attention_varlen_cuda)
+
+    def call(q, kp, vp, tables, row_start, row_len):
+        if varlen:
+            return paged_attention_varlen_cuda(q, kp, vp, tables, row_start,
+                                               row_len)
+        return paged_attention_cuda(q[:, 0].contiguous(), kp, vp, tables,
+                                    row_start + row_len)
+
+    q, kp, vp, tables, row_start, row_len = _case(dev, torch.float32)
+    odd = torch.empty(kp.numel() + 1, dtype=kp.dtype, device=dev)[1:]
+    odd = odd.view(kp.shape).copy_(kp)             # contiguous, 4 bytes off
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        call(q, odd, vp, tables, row_start, row_len)
+    with pytest.raises(ValueError, match="16-byte"):
+        call(q, kp, odd, tables, row_start, row_len)
+    with pytest.raises(ValueError, match="head dim"):
+        call(*_case(dev, torch.float32, d=12))
+    assert sum(kernels.launch_counts().values()) == 0
+    call(q, kp, vp, tables, row_start, row_len)    # the aligned pools run
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -338,7 +398,14 @@ def _flash_case(dev, dtype, b, s, h, kv, d, seed=0):
     (8, 32, 25, 5, 64, 16), (8, 32, 25, 5, 64, None), (2, 100, 14, 2, 64, 7),
     (2, 64, 4, 2, 32, None), (2, 100, 4, 1, 16, None),
     (2, 128, 8, 8, 64, 32), (2, 96, 4, 2, 32, 16), (2, 65, 2, 2, 8, 7),
-    (1, 300, 25, 5, 64, 100)])
+    (1, 300, 25, 5, 64, 100),
+    # D 64 at G 1, 5 and 7 (bfloat16 takes the wgmma path): S 1, 31, 64,
+    # 65 and 2048, global and windowed.
+    (2, 1, 14, 2, 64, None), (2, 31, 25, 5, 64, None), (2, 31, 14, 2, 64, 8),
+    (2, 64, 4, 4, 64, None), (2, 64, 25, 5, 64, 16), (2, 65, 14, 2, 64, None),
+    (2, 65, 8, 8, 64, 20), (1, 2048, 25, 5, 64, None),
+    (1, 2048, 14, 2, 64, 1024), (1, 2048, 4, 4, 64, 300),
+    (1, 2048, 14, 2, 64, None)])
 def test_flash_attention_kernel_matches_plain(dev, dtype, tol, b, s, h, kv,
                                               d, window):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -351,6 +418,28 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, tol, b, s, h, kv,
     want = ref.ref_attention(q, k, v, window=window)
     assert got.dtype == dtype and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,d,symbol", [
+    (torch.bfloat16, 64, "flash_kernel_wgmma<"),
+    (torch.float32, 64, "flash_kernel<float, 64"),
+    (torch.bfloat16, 32, "flash_kernel<__nv_bfloat16, 32")])
+def test_flash_attention_instantiation_follows_dtype_and_head_dim(dev, dtype,
+                                                                 d, symbol):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_impl)
+
+    q, k, v = _flash_case(dev, dtype, 2, 40, 14, 2, d)
+    flash_attention_cuda(q, k, v)                    # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_cuda(q, k, v, window=9)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "flash_kernel" in e.key]
+    assert len(names) == 1 and symbol in names[0], names
+    assert flash_impl(dtype, d) == ("wgmma" if "wgmma" in symbol else "fma")
 
 
 def test_flash_attention_dispatch_and_refusals(dev):
@@ -379,6 +468,9 @@ def test_flash_attention_dispatch_and_refusals(dev):
                              v[..., :48].contiguous())
     with pytest.raises(ValueError, match="bad shapes"):
         flash_attention_cuda(q[:, :, :5].contiguous(), k, v)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        flash_attention_cuda(*_flash_case(dev, torch.bfloat16, 1, 4, 65, 1,
+                                          64))
     assert kernels.launch_counts()["flash_attention"] == 1
 
 

@@ -221,3 +221,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_kv_write_cuda(pool, pool, rows, rows, lens, lens, lens,
                             layer=0)
+
+
+@pytest.mark.parametrize("dtype,d,impl", [
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "fma"),
+    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 8, "fma"),
+    (torch.float32, 16, "fma")])
+def test_flash_instantiation_depends_on_dtype_and_head_dim_alone(dtype, d,
+                                                                 impl):
+    """bfloat16 at D 64 takes the tensor-core path, everything else the
+    FMA kernel, whatever the other shapes."""
+    from repro_torch.kernels.flash_attention import flash_impl
+
+    assert flash_impl(dtype, d) == impl
