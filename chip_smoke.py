@@ -12,10 +12,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
 3. kernels: each kernel against its plain PyTorch version at the serve
    path's full-width shapes (H=14, KV=2, Dh=64, BS=8, M=32, B=4,
    T in {1, 16, 32}) plus ragged edge cases and contexts of up to 239
-   keys (four 64-key tiles, global and windowed), in float32 and
-   bfloat16; float32 within 2e-5, bfloat16 within 2e-2, the K/V row
-   write bit-exact.  Times each with CUDA events beside the plain
-   version, a library call and its bound.
+   keys (four 64-key tiles, global and windowed), and the speculative
+   verify shape (``paged_attention_multi``, B 4 x T 4 at the decode
+   contexts), in float32 and bfloat16; float32 within 2e-5, bfloat16
+   within 2e-2, the K/V row write bit-exact.  Times each with CUDA
+   events beside the plain version, a library call and its bound.  The
+   K/V row write is timed twice: the wrapper called directly with an
+   int32 mask, and ``ops.paged_kv_write`` with the step's bool mask (what
+   a model layer pays), each beside ``index_copy_``.
 4. serve: full-width qwen2.5-0.5b (24 layers, seeded random init) through
    the launcher's ``serve`` with its defaults; every request must retire
    and every kernel must have launched.
@@ -98,11 +102,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
     (``impl``: ``wgmma`` for bfloat16 at D 64, ``fma`` otherwise) and
     takes its device time from that kernel's profiled name.  ``ssm_scan`` against
     ``ref_ssm_scan`` at hymba's prefill (B 8, S 32, I 3200, N 16, zero
-    state), one decode step (S 1, carried state), B 8 x S 512, the JAX
-    sweep's shapes and a ragged I 300; within 2e-4 (bfloat16 2e-2) of
-    max(1, |ref|).  Each timed beside its plain version and bound, flash
-    also beside ``F.scaled_dot_product_attention`` (timed only); no
-    single PyTorch call computes the scan, so no library time for it.
+    state), one decode step (S 1, carried state), B 8 x S 512 and the
+    long forward's layer (``long_b1``: B 1 x S 2048, zero state), all
+    timed; untimed checks of b_t / c_t read in place as slices of one
+    ``[B, S, dt_rank + 2N]`` tensor, S either side of the crossover, a
+    ragged last chunk (of 32 and of 64 steps), decays that underflow to
+    0 (dt x 200), a carried state at S 2048, the JAX sweep's shapes and
+    a ragged I 300; within 2e-4 (bfloat16 2e-2) of max(1, |ref|).  Each
+    record names the instantiation that ran (``impl``: ``serial`` or
+    ``chunked``, with its ``chunk`` steps).  Then the crossover: both
+    instantiations' device time, forced, at B 1 to 8 over S 64 to 2048
+    (``ssm_crossover``).  Each timed beside its plain version
+    and bound, flash also beside ``F.scaled_dot_product_attention``
+    (timed only); no single PyTorch call computes the scan, so no
+    library time for it.
     (Phases 7-9 run qwen's generation prefill through ``flash_attention``
     too: phase 7 checks 24 launches per ``generate``, exactly.)
 17. hymba serve: ``repro_torch.launch.serve --engine static --arch
@@ -114,7 +127,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     values.  Tokens/s, prefill ms, decode step ms, peak memory and the
     device idle share over a profiled ``generate``; then one forward at
     B 1 x S 2048, timed and profiled (flash's device time per windowed
-    and per global layer).
+    and per global layer, ``ssm_scan``'s per kernel of its chunked
+    instantiation), in which each of the two kernels launches 32 times.
 18. hymba parity: the same width at 2 layers, dense weights scaled x3,
     on ``cpu`` (plain path) and ``cuda`` (kernels): forward logits
     within 2e-4 + 1e-4 |cpu| elementwise and the returned caches (K/V
@@ -163,6 +177,7 @@ WKV6_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
 HYMBA_B, HYMBA_P, HYMBA_NEW, HYMBA_L = 8, 32, 16, 32
 HYMBA_H, HYMBA_KV, HYMBA_I, HYMBA_N, HYMBA_WINDOW = 25, 5, 3200, 16, 1024
 HYMBA_LONG = 2048
+HYMBA_DT_RANK = 100                       # d_model / 16: x_proj's lead
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # Phase 18's logits, card against CPU: the card's float32 matmuls and
 # the SSM branch put S 1100 1.3e-4 from the CPU with the plain
@@ -196,12 +211,18 @@ def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match=None, iters: int = 20, attempts: int = 3):
+def device_ms(fn, match=None, iters: int = 20, attempts: int = 6):
     """Device time per call from a ``torch.profiler`` capture: the CUDA
     kernels whose name contains ``match`` (None: every kernel the call
-    runs).  A short capture now and then comes back without the card's
-    kernel records, so up to ``attempts`` captures are taken; None when
-    none of them holds the device time."""
+    runs).  A capture now and then comes back without the card's kernel
+    records (three in a row once, for bf16 flash at S 2048, late in a
+    full run), so up to ``attempts`` captures are taken; None when none
+    of them holds the device time.  A capture can also hold only some of
+    the ``iters`` launches of a kernel (13 of 20 records of a 0.6 ms
+    scan, and 1 of 20 late in a full run): with ``match``, where every
+    matched kernel launches once a call, the time is the sum of each
+    kernel's mean over the records it has.  Without it the total is
+    divided by ``iters`` and reads low when records are missing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -213,32 +234,44 @@ def device_ms(fn, match=None, iters: int = 20, attempts: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and (match is None or match in e.key))
-        if total:
-            return total / iters / 1e3
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count
+               and e.self_device_time_total
+               and (match is None or match in e.key)]
+        if not evs:
+            continue
+        if match is None:
+            return sum(e.self_device_time_total for e in evs) / iters / 1e3
+        return sum(e.self_device_time_total / e.count for e in evs) / 1e3
     return None
 
 
-def profile_kernels(fn):
+def profile_kernels(fn, complete=None, attempts: int = 6):
     """One profiled call of ``fn``: its total CUDA kernel time (ms) and
     every kernel by device time, largest first, as ``[name, ms,
-    calls]``."""
+    calls]``.  A capture can drop some of a call's kernel records (1 of
+    32 flash launches of the hymba long forward once), so where the
+    caller knows what a whole capture holds, ``complete(rows)`` says so
+    and up to ``attempts`` captures are taken until one is whole; the
+    last is returned either way and the caller's own check decides."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(attempts if complete else 1):
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    rows.sort(key=lambda r: -r[1])
-    return (sum(r[1] for r in rows),
-            [[name[:80], ms, n] for name, ms, n in rows])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total]
+        rows.sort(key=lambda r: -r[1])
+        rows = [[name[:80], ms, n] for name, ms, n in rows]
+        if complete is None or complete(rows):
+            break
+    return sum(r[1] for r in rows), rows
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -288,6 +321,9 @@ def _attention_cases():
     # Contexts of up to 239 keys: four 64-key tiles of M 32 x BS 8.
     yield "varlen_long", 16, [200, 180, 0, 230], [16, 16, 3, 9], None
     yield "varlen_long_window", 16, [200, 180, 0, 230], [16, 16, 3, 9], 100
+    # The speculative verify shape (paged_attention_multi, a wrapper over
+    # the varlen kernel): T 4 tokens a slot ending at the decode contexts.
+    yield "multi_t4", 4, [41, 13, 60, 29], [4, 4, 4, 4], None
 
 
 def _attention_bound(q, rows, lens, window, n_scalars, esize, dtype):
@@ -313,7 +349,7 @@ def _attention_bound(q, rows, lens, window, n_scalars, esize, dtype):
 def kernel_phase(torch):
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.paged_attention_varlen import \
         paged_attention_varlen_cuda
@@ -344,6 +380,13 @@ def kernel_phase(torch):
                 plain = lambda: ref.ref_paged_attention(*args, window=window)
                 name = "paged_attention"
                 symbol = "paged_attention_kernel"
+            elif case.startswith("multi"):
+                cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+                args = (q, kp, vp, tables, cl)
+                kern = lambda: ops.paged_attention_multi(*args)
+                plain = lambda: ref.ref_paged_attention_multi(*args)
+                name = "paged_attention_multi"
+                symbol = "paged_attention_varlen_kernel"
             else:
                 rs = torch.tensor(row_start, dtype=torch.int32, device=dev)
                 rl = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -380,8 +423,9 @@ def kernel_phase(torch):
             qh = qs.transpose(1, 2)
             lib = lambda: F.scaled_dot_product_attention(
                 qh, keys, vals, attn_mask=mask[:, None])
-            b_ms, b_by = _attention_bound(q, rows, ctx, window,
-                                          1 if decode else 2, esize, dname)
+            b_ms, b_by = _attention_bound(
+                q, rows, ctx, window, 2 if name.endswith("varlen") else 1,
+                esize, dname)
             rec = dict(phase="kernel", kernel=name, case=case, dtype=dname,
                        T=t, max_abs_err=err, tol=TOL[dname],
                        kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
@@ -390,7 +434,8 @@ def kernel_phase(torch):
                        plain_device_ms=device_ms(plain),
                        library_device_ms=device_ms(lib))
             emit(**rec)
-            key = (name, dname)
+            # paged_attention_multi runs kernel 3: its error is kernel 3's.
+            key = (name.replace("_multi", "_varlen"), dname)
             worst[key] = max(worst.get(key, 0.0), err)
             if case in ("decode", "varlen_t16"):
                 headline[key] = rec
@@ -448,6 +493,24 @@ def kernel_phase(torch):
             emit(**rec)
             if case == "decode_rows":
                 headline[("paged_kv_write", dname)] = rec
+            # What a layer of the model pays: ops.paged_kv_write with the
+            # step's bool mask (no cast), bit-exact, beside index_copy_.
+            mask = act.bool()
+            ok, ov = pk0.clone(), pv0.clone()
+            ops.paged_kv_write(ok, ov, kr, vr, page, off, mask, layer=layer)
+            torch.cuda.synchronize()
+            check(torch.equal(ok, wk) and torch.equal(ov, wv),
+                  f"ops.paged_kv_write/{case}/{dname}: not bit-exact")
+            kern = lambda: ops.paged_kv_write(ok, ov, kr, vr, page, off,
+                                              mask, layer=layer)
+            plain = lambda: ref.ref_paged_kv_write(ok, ov, kr, vr, page, off,
+                                                   mask, layer=layer)
+            emit(**dict(rec, case=f"{case}_ops", path="ops, bool mask",
+                        kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
+                        library_ms=time_ms(lib),
+                        kernel_device_ms=device_ms(kern, "kv_write_kernel"),
+                        plain_device_ms=device_ms(plain),
+                        library_device_ms=device_ms(lib)))
     for key, err in worst.items():           # worst case of each kernel
         headline[key] = dict(headline[key], max_abs_err=err)
     return headline
@@ -1591,34 +1654,62 @@ def flash_kernel_phase(torch):
     return headline
 
 
-def ssm_kernel_phase(torch):
+def _ssm_args(torch, dtype, bb, s, ii, nn, state, dt_scale=1.0,
+              strided=False, seed=0):
+    """u, dt = softplus(N(0, 1)) x ``dt_scale``, b_t, c_t, a = -exp(N(0, 1))
+    and h0 on the card; ``strided``: b_t and c_t as column slices of one
+    ``[B, S, dt_rank + 2N]`` tensor, the layout of hymba's ``x_proj``."""
     import torch.nn.functional as F
 
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    u, dt = r(bb, s, ii), F.softplus(r(bb, s, ii)) * dt_scale
+    if strided:
+        proj = r(bb, s, HYMBA_DT_RANK + 2 * nn).to(dtype)
+        b_t = proj[..., HYMBA_DT_RANK:HYMBA_DT_RANK + nn]
+        c_t = proj[..., HYMBA_DT_RANK + nn:]
+    else:
+        b_t, c_t = r(bb, s, nn).to(dtype), r(bb, s, nn).to(dtype)
+    return [u.to(dtype), dt.to(dtype), b_t, c_t, -torch.exp(r(ii, nn)),
+            r(bb, ii, nn) if state else None]
+
+
+def ssm_kernel_phase(torch):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    from repro_torch.kernels.ssm_scan import (CHUNKED_MIN_STEPS,
+                                              chunk_steps, ssm_impl,
+                                              ssm_scan_cuda)
 
     b, i, n = HYMBA_B, HYMBA_I, HYMBA_N
-    cases = (   # (case, B, S, I, N, carried state); the first three timed
-        ("prefill", b, HYMBA_P, i, n, False),
-        ("decode", b, 1, i, n, True),
-        ("long", b, 512, i, n, True),
-        ("sweep_8", 2, 16, 32, 8, True),
-        ("sweep_16", 2, 33, 100, 16, True),
-        ("sweep_64", 2, 64, 128, 16, True),
-        ("sweep_4", 2, 7, 8, 4, True),
-        ("ragged", 3, 50, 300, 16, False))
+    sx = CHUNKED_MIN_STEPS[0]   # a grid of few blocks (B 2 x I 300)
+    timed = ("prefill", "decode", "long", "long_b1")
+    cases = (   # (case, B, S, I, N, carried state, dt scale, strided b/c)
+        ("prefill", b, HYMBA_P, i, n, False, 1.0, False),
+        ("decode", b, 1, i, n, True, 1.0, False),
+        ("long", b, 512, i, n, True, 1.0, False),
+        ("long_b1", 1, HYMBA_LONG, i, n, False, 1.0, False),
+        ("strided_decode", b, 1, i, n, True, 1.0, True),
+        ("strided_long", 2, 600, i, n, True, 1.0, True),
+        ("below_crossover", 2, sx - 1, 300, n, True, 1.0, False),
+        ("at_crossover", 2, sx, 300, n, True, 1.0, False),
+        ("ragged_chunk", 2, sx + 67, 300, n, True, 1.0, False),
+        ("ragged_chunk64", 1, HYMBA_LONG + 37, i, n, True, 1.0, True),
+        ("underflow", 2, 300, 300, n, True, 200.0, False),
+        ("carried_long", 1, HYMBA_LONG, 300, n, True, 1.0, True),
+        ("sweep_8", 2, 16, 32, 8, True, 1.0, False),
+        ("sweep_16", 2, 33, 100, 16, True, 1.0, False),
+        ("sweep_64", 2, 64, 128, 16, True, 1.0, False),
+        ("sweep_4", 2, 7, 8, 4, True, 1.0, False),
+        ("ragged", 3, 50, 300, 16, False, 1.0, False))
     headline, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         esize = torch.empty((), dtype=dtype).element_size()
-        for case, bb, s, ii, nn, state in cases:
-            gen = torch.Generator(device="cuda").manual_seed(s * ii)
-            r = lambda *shape: torch.randn(*shape, generator=gen,
-                                           device="cuda")
-            args = [r(bb, s, ii), F.softplus(r(bb, s, ii)),
-                    r(bb, s, nn), r(bb, s, nn)]
-            args = [x.to(dtype) for x in args] + [
-                -torch.exp(r(ii, nn)), r(bb, ii, nn) if state else None]
+        for case, bb, s, ii, nn, state, scale, strided in cases:
+            args = _ssm_args(torch, dtype, bb, s, ii, nn, state, scale,
+                             strided, seed=s * ii)
+            impl = ssm_impl(bb, s, ii)
+            chunk = chunk_steps(bb, s, ii) if impl == "chunked" else 0
             y, hf = ssm_scan_cuda(*args)
             want_y, want_h = ref.ref_ssm_scan(*args)
             torch.cuda.synchronize()
@@ -1630,10 +1721,14 @@ def ssm_kernel_phase(torch):
                 e = (got.float() - want.float()).abs().max().item()
                 check(e <= SSM_TOL[dname] * max(
                     1.0, want.float().abs().max().item()),
-                    f"ssm_scan/{case}/{dname}: {what} err {e}")
+                    f"ssm_scan/{case}/{dname}/{impl}: {what} err {e}")
                 err = max(err, e)
             worst[dname] = max(worst.get(dname, 0.0), err)
-            if case not in ("prefill", "decode", "long"):
+            if case not in timed:
+                emit(phase="kernel_check", kernel="ssm_scan", case=case,
+                     dtype=dname, B=bb, S=s, I=ii, N=nn, impl=impl,
+                     chunk=chunk, strided=strided, max_abs_err=err,
+                     tol=SSM_TOL[dname])
                 continue
             kern = lambda: ssm_scan_cuda(*args)
             plain = lambda: ref.ref_ssm_scan(*args)
@@ -1645,12 +1740,12 @@ def ssm_kernel_phase(torch):
                       + ii * nn * 4 + st_bytes * (2 if state else 1))
             b_ms, b_by = bound(nbytes, 7 * bb * s * ii * nn, dname)
             rec = dict(phase="kernel", kernel="ssm_scan", case=case,
-                       dtype=dname, B=bb, S=s, I=ii, N=nn, max_abs_err=err,
-                       tol=SSM_TOL[dname],
+                       dtype=dname, B=bb, S=s, I=ii, N=nn, impl=impl,
+                       chunk=chunk, max_abs_err=err, tol=SSM_TOL[dname],
                        kernel_ms=time_ms(kern, iters=100),
-                       plain_ms=time_ms(plain, iters=5, warmup=1),
+                       plain_ms=time_ms(plain, iters=3, warmup=1),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                       kernel_device_ms=device_ms(kern, "ssm_scan_kernel"),
+                       kernel_device_ms=device_ms(kern, "ssm_scan_"),
                        plain_device_ms=device_ms(plain, iters=2))
             emit(**rec)
             if case == "decode":         # 512 of a generate's 544 launches
@@ -1658,11 +1753,31 @@ def ssm_kernel_phase(torch):
     for dname, err in worst.items():
         headline[("ssm_scan", dname)] = dict(headline[("ssm_scan", dname)],
                                              max_abs_err=err)
+    # Where the chunked scan starts to beat the serial kernel: device time
+    # of each, forced, at hymba's width, float32, zero state.
+    for bb, s in ([(1, s) for s in (64, 96, 192, 256)]
+                  + [(bb, s) for bb in (1, 2, 3, 4, 5, 6, 8)
+                     for s in (128, 512, 2048)]):
+        args = _ssm_args(torch, torch.float32, bb, s, i, n, False, seed=s)
+        ms = {impl: device_ms(lambda: ssm_scan_cuda(*args, impl=impl),
+                              "ssm_scan_")
+              for impl in ("serial", "chunked")}
+        emit(phase="ssm_crossover", B=bb, S=s, I=i, N=n,
+             serial_device_ms=ms["serial"], chunked_device_ms=ms["chunked"],
+             chunk=chunk_steps(bb, s, i), picked=ssm_impl(bb, s, i))
     return headline
+
+
+def _long_forward_whole(rows) -> bool:
+    """A whole capture of the hymba long forward holds every layer's
+    flash and scan kernels."""
+    return (sum(c for k, _, c in rows if "flash_kernel" in k) == HYMBA_L
+            and all(c == HYMBA_L for k, _, c in rows if "ssm_scan_" in k))
 
 
 def hymba_serve_phase(torch):
     from repro_torch import kernels
+    from repro_torch.kernels.ssm_scan import ssm_impl
     from repro_torch.launch import serve as launcher
     from repro_torch.utils.tree import tree_leaves
 
@@ -1733,7 +1848,7 @@ def hymba_serve_phase(torch):
          device_busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms),
          kernel_launches=sum(c for _, _, c in rows),
          flash_ms=sum(ms for k, ms, _ in rows if "flash_kernel" in k),
-         ssm_scan_ms=sum(ms for k, ms, _ in rows if "ssm_scan_kernel" in k),
+         ssm_scan_ms=sum(ms for k, ms, _ in rows if "ssm_scan_" in k),
          top_kernels=rows[:8],
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          min_log_beta=lb[live].min().item(), launches=launches)
@@ -1754,9 +1869,12 @@ def hymba_serve_phase(torch):
         torch.cuda.synchronize()
         long_ms.append((time.perf_counter() - t1) * 1e3)
     kernels.reset_launch_counts()
-    long_busy, long_rows = profile_kernels(long_fwd)
-    check(kernels.launch_counts()["flash_attention"] == HYMBA_L,
+    long_fwd()
+    torch.cuda.synchronize()
+    check(kernels.launch_counts()["flash_attention"] == HYMBA_L
+          and kernels.launch_counts()["ssm_scan"] == HYMBA_L,
           f"long forward launched {kernels.launch_counts()}")
+    long_busy, long_rows = profile_kernels(long_fwd, _long_forward_whole)
     flash = {kind: [(ms, c) for k, ms, c in long_rows
                     if "flash_kernel" in k and tag in k]
              for kind, tag in (("local", "true>"), ("global", "false>"))}
@@ -1769,8 +1887,9 @@ def hymba_serve_phase(torch):
          flash_local_ms_per_layer=per_layer["local"],
          flash_global_ms_per_layer=per_layer["global"],
          flash_ms=sum(ms for r in flash.values() for ms, _ in r),
-         ssm_scan_ms=sum(ms for k, ms, _ in long_rows
-                         if "ssm_scan_kernel" in k),
+         ssm_scan_ms=sum(ms for k, ms, _ in long_rows if "ssm_scan_" in k),
+         ssm_scan_impl=ssm_impl(1, HYMBA_LONG, HYMBA_I),
+         ssm_scan_kernels=[r for r in long_rows if "ssm_scan_" in r[0]],
          top_kernels=long_rows[:8],
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     del static, res, tokens
@@ -1884,6 +2003,122 @@ KERNELS = (
 )
 
 
+# ---------------------------------------------------------------------------
+# Comparison mode: ``chip_smoke.py --ab SRC`` measures ``paged_kv_write``
+# and ``ssm_scan`` as the model calls them, with the port found under SRC
+# (this tree's ``src`` or an unpacked parent commit's), through the entry
+# points both trees share.  Run it for the parent and the change in turns
+# on one card; it prints JSON lines only (``profile_serve``'s result also
+# lands in build/ab_profile_serve.json).
+# ---------------------------------------------------------------------------
+
+
+def ab_main(src: str) -> int:
+    sys.path.insert(0, str(Path(src).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --ab: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    build.build_all()
+    emit(phase="ab_tree", src=str(Path(repro_torch.__file__).parent),
+         name=torch.cuda.get_device_name(0))
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1234)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for case, n_rows in (("decode_rows", B), ("varlen_rows", B * 16)):
+            pk, pv = (x.to(dev) for x in _pools(gen, dtype, torch, layers=L))
+            kr = torch.randn(n_rows, KV, DH, generator=gen).to(dtype).to(dev)
+            vr = torch.randn(n_rows, KV, DH, generator=gen).to(dtype).to(dev)
+            dest = torch.randperm(NB * BS, generator=gen)[:n_rows]
+            page = (dest // BS).to(torch.int32).to(dev)
+            off = (dest % BS).to(torch.int32).to(dev)
+            mask = (torch.arange(n_rows) % 5 != 3).to(dev)
+            act = mask.to(torch.int32)
+            sel = mask.cpu()
+            rid = (((7 * KV + torch.arange(KV)[None, :]) * NB
+                    + page.cpu()[sel].long()[:, None]) * BS
+                   + off.cpu()[sel].long()[:, None]).reshape(-1).to(dev)
+            ksrc, vsrc = kr[mask].reshape(-1, DH), vr[mask].reshape(-1, DH)
+            fk, fv = pk.view(-1, DH), pv.view(-1, DH)
+            fns = {
+                "ops_bool": lambda: ops.paged_kv_write(
+                    pk, pv, kr, vr, page, off, mask, layer=7),
+                "direct_int32": lambda: paged_kv_write_cuda(
+                    pk, pv, kr, vr, page, off, act, layer=7),
+                "index_copy": lambda: (fk.index_copy_(0, rid, ksrc),
+                                       fv.index_copy_(0, rid, vsrc))}
+            emit(phase="ab_kv_write", case=case, dtype=dname,
+                 ms={k: time_ms(f, iters=200) for k, f in fns.items()},
+                 device_ms={k: device_ms(f) for k, f in fns.items()})
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for case, bb, s, state in (("prefill", HYMBA_B, HYMBA_P, False),
+                                   ("decode", HYMBA_B, 1, True),
+                                   ("long", HYMBA_B, 512, True),
+                                   ("long_b1", 1, HYMBA_LONG, False)):
+            args = _ssm_args(torch, dtype, bb, s, HYMBA_I, HYMBA_N, state,
+                             seed=s)
+            kern = lambda: ssm_scan_cuda(*args)
+            emit(phase="ab_ssm_scan", case=case, dtype=dname, B=bb, S=s,
+                 ms=time_ms(kern, iters=50),
+                 device_ms=device_ms(kern, "ssm_scan_"))
+    # The qwen serve path: launches and device time a model pass.
+    from repro_torch.launch import profile_serve
+
+    out = ROOT / "build" / "ab_profile_serve.json"
+    out.parent.mkdir(exist_ok=True)
+    profile_serve.main(["--full-width", "--out", str(out)])
+    # The hymba static serve path and the long forward.
+    from repro_torch.launch import serve as launcher
+
+    static = launcher.prepare_static(launcher.build_parser().parse_args([
+        "--engine", "static", "--arch", "hymba-1.5b", "--full-width",
+        "--device", "cuda", "--batch", str(HYMBA_B), "--max-new-tokens",
+        str(HYMBA_NEW)]))
+    static.generate()
+    kernels.reset_launch_counts()
+    _, seconds = launcher.run_static(static)
+    counts = kernels.launch_counts()
+    busy, rows = profile_kernels(static.generate)
+    emit(phase="ab_hymba_generate", seconds=seconds,
+         tokens_per_s=HYMBA_B * HYMBA_NEW / seconds, device_busy_ms=busy,
+         kernel_launches=sum(c for _, _, c in rows),
+         ssm_scan_ms=sum(ms for k, ms, _ in rows if "ssm_scan_" in k),
+         ssm_scan_launches=counts["ssm_scan"], top_kernels=rows[:6])
+    tokens = torch.randint(3, static.bundle.cfg.vocab_size, (1, HYMBA_LONG),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(7), device="cuda")
+    long_fwd = lambda: static.bundle.forward(static.params, tokens)
+    long_fwd()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        long_fwd()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    kernels.reset_launch_counts()
+    long_fwd()
+    n_scans = kernels.launch_counts()["ssm_scan"]
+    busy, rows = profile_kernels(long_fwd, _long_forward_whole)
+    emit(phase="ab_hymba_long_forward", wall_ms=sorted(walls)[1],
+         device_busy_ms=busy,
+         ssm_scan_ms=sum(ms for k, ms, _ in rows if "ssm_scan_" in k),
+         ssm_scan_launches=n_scans,
+         top_kernels=rows[:6])
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1959,4 +2194,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"]:
+        sys.exit(ab_main(sys.argv[2]))
     sys.exit(main())

@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_kv_write", "paged_attention", "paged_attention_varlen",
@@ -108,7 +110,8 @@ class Kernel:
     are ``c_void_p`` so ctypes passes them at full width.  Calling the
     object launches the kernel on the given arguments, raises if the
     launcher returns a CUDA error, and only then adds one to
-    ``launches``."""
+    ``launches``.  :meth:`launch` does the same on a device's current
+    stream, which it appends as the last argument."""
 
     def __init__(self, name: str, argtypes) -> None:
         self.name = name
@@ -124,6 +127,20 @@ class Kernel:
             self._fn = fn
         check(self._fn(*args), self.name)
         self.launches += 1
+
+    def launch(self, device, *args) -> None:
+        """Launch on the current stream of CUDA ``device``, making it the
+        current device only for the call and only when it is not
+        already (a launch goes to the current device's context).  The
+        stream is read as a raw handle: ``torch.cuda.current_stream()``
+        builds a ``Stream`` object a call, which the launcher does not
+        need."""
+        index = device.index
+        if torch.cuda.current_device() != index:
+            with torch.cuda.device(index):
+                self.launch(device, *args)
+            return
+        self(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(err: int, name: str) -> None:

@@ -82,9 +82,8 @@ def flash_attention_cuda(
             raise ValueError(f"{name}: the wgmma path's TMA needs q, k, v "
                              "16-byte aligned")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-               s, h, kv, d, 0 if window is None else int(window),
-               _DTYPES[q.dtype], d ** -0.5,
-               torch.cuda.current_stream().cuda_stream)
+    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), b, s, h, kv, d,
+                  0 if window is None else int(window), _DTYPES[q.dtype],
+                  d ** -0.5)
     return out

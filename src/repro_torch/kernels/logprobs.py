@@ -61,11 +61,9 @@ def fused_logprob_cuda(logits: torch.Tensor, targets: torch.Tensor
     n, v = logits.shape
     logp, ent, lse = (torch.empty(n, dtype=torch.float32,
                                   device=logits.device) for _ in range(3))
-    with torch.cuda.device(logits.device):
-        FWD_KERNEL(logits.data_ptr(), targets.data_ptr(), logp.data_ptr(),
-                   ent.data_ptr(), lse.data_ptr(), n, v,
-                   _DTYPES[logits.dtype],
-                   torch.cuda.current_stream().cuda_stream)
+    FWD_KERNEL.launch(logits.device, logits.data_ptr(), targets.data_ptr(),
+                      logp.data_ptr(), ent.data_ptr(), lse.data_ptr(), n, v,
+                      _DTYPES[logits.dtype])
     return logp, ent, lse
 
 
@@ -79,13 +77,12 @@ def fused_logprob_bwd_cuda(logits: torch.Tensor, targets: torch.Tensor,
     _check(BWD_KERNEL.name, logits, targets, rows)
     n, v = logits.shape
     out = torch.empty_like(logits)
-    with torch.cuda.device(logits.device):
-        BWD_KERNEL(logits.data_ptr(), targets.data_ptr(), lse.data_ptr(),
-                   ent.data_ptr(), None if g_lp is None else g_lp.data_ptr(),
-                   None if g_ent is None else g_ent.data_ptr(),
-                   out.data_ptr(), n, v, int(g_lp is not None),
-                   int(g_ent is not None), _DTYPES[logits.dtype],
-                   torch.cuda.current_stream().cuda_stream)
+    BWD_KERNEL.launch(logits.device, logits.data_ptr(), targets.data_ptr(),
+                      lse.data_ptr(), ent.data_ptr(),
+                      None if g_lp is None else g_lp.data_ptr(),
+                      None if g_ent is None else g_ent.data_ptr(),
+                      out.data_ptr(), n, v, int(g_lp is not None),
+                      int(g_ent is not None), _DTYPES[logits.dtype])
     return out
 
 

@@ -22,7 +22,7 @@ from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.paged_attention_varlen import \
     paged_attention_varlen_cuda
 from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
-from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+from repro_torch.kernels.ssm_scan import bc_row_stride, ssm_scan_cuda
 from repro_torch.kernels.vtrace import vtrace_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
 
@@ -35,6 +35,14 @@ def _route(t: torch.Tensor) -> str:
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` itself when it is contiguous and of ``dtype``, else a
+    contiguous copy in ``dtype``."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
 
 
 def paged_attention(
@@ -86,14 +94,19 @@ def paged_kv_write(
     """Scatter K/V rows ``[N, KV, D]`` (one decode step's ``[B, KV, D]``,
     or a varlen round's ``B * T`` rows) into layer ``layer`` of the
     pools, in place; inactive rows write nothing.  Returns the pools."""
-    if _route(k_pages) == "cpu":
+    if not k_pages.is_cuda:
+        _route(k_pages)
         return ref.ref_paged_kv_write(
             k_pages, v_pages, k_rows, v_rows, page_idx, offset, active,
             layer=layer)
+    # Called once per layer: tensors already in the kernel's types (the
+    # model's are) go through as they are, with no conversion launch.
+    dtype = k_pages.dtype
     return paged_kv_write_cuda(
-        k_pages, v_pages, k_rows.to(k_pages.dtype).contiguous(),
-        v_rows.to(v_pages.dtype).contiguous(), _i32(page_idx), _i32(offset),
-        _i32(active), layer=layer)
+        k_pages, v_pages, _as(k_rows, dtype), _as(v_rows, dtype),
+        _as(page_idx, torch.int32), _as(offset, torch.int32),
+        _as(active, torch.bool if active.dtype == torch.bool
+            else torch.int32), layer=layer)
 
 
 def logprobs_from_logits(logits, targets):
@@ -161,11 +174,14 @@ def ssm_scan(u, dt, b_t, c_t, a, h0=None):
     """The selective scan over ``[B, S, I]`` channels with an ``[I, N]``
     diagonal ``a``: ``(y [B, S, I]`` in u's dtype, ``h_final [B, I, N]``
     float32)``; ``h0=None`` starts from zeros.  No gradient on the card
-    (the kernel raises on inputs that require grad).  On the card every
-    input is made contiguous, and ``a`` and ``h0`` float32."""
+    (the kernel raises on inputs that require grad).  On the card ``u``,
+    ``dt``, ``a`` and ``h0`` are made contiguous, ``a`` and ``h0``
+    float32; ``b_t`` and ``c_t`` are read in place when they are column
+    slices of one contiguous tensor (the model's), else made contiguous."""
     if _route(u) == "cpu":
         return ref.ref_ssm_scan(u, dt, b_t, c_t, a, h0)
+    b_t, c_t = (t if bc_row_stride(t) is not None else t.contiguous()
+                for t in (b_t, c_t))
     return ssm_scan_cuda(
-        *(t.contiguous() for t in (u, dt, b_t, c_t)),
-        a.float().contiguous(),
+        u.contiguous(), dt.contiguous(), b_t, c_t, a.float().contiguous(),
         None if h0 is None else h0.float().contiguous())

@@ -39,11 +39,10 @@ def paged_attention_varlen_cuda(
     b, t, h, d = q.shape
     kv, nb, bs, _ = k_pages.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        KERNEL(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-               block_tables.data_ptr(), row_start.data_ptr(),
-               row_len.data_ptr(), out.data_ptr(), b, t, h, kv, nb, bs, d,
-               block_tables.shape[1],
-               -1 if window is None else int(window), d ** -0.5,
-               DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    KERNEL.launch(q.device, q.data_ptr(), k_pages.data_ptr(),
+                  v_pages.data_ptr(), block_tables.data_ptr(),
+                  row_start.data_ptr(), row_len.data_ptr(), out.data_ptr(),
+                  b, t, h, kv, nb, bs, d, block_tables.shape[1],
+                  -1 if window is None else int(window), d ** -0.5,
+                  DTYPES[q.dtype])
     return out

@@ -354,3 +354,42 @@ def ref_ssm_scan(
                                          * b32[:, t, None, :])
         ys.append(torch.einsum("bin,bn->bi", h, c32[:, t]))
     return torch.stack(ys, dim=1).to(u.dtype), h
+
+
+def ref_ssm_scan_chunked(
+    u: torch.Tensor,
+    dt: torch.Tensor,
+    b_t: torch.Tensor,
+    c_t: torch.Tensor,
+    a: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    *,
+    chunk: int,
+):
+    """:func:`ref_ssm_scan` in the chunked form the card's long-sequence
+    instantiation computes, written plainly to pin down its algebra (the
+    tests hold it to the step-by-step scan).  A chunk's recurrence
+    composes into ``h_end = exp(a * sum(dt)) * h_start + h_local``, with
+    ``h_local`` its end state from zero: (1) each chunk's local end
+    state and sum of dt, (2) the carry of true start states across
+    chunks from ``h0``, (3) each chunk re-run from its true start for
+    ``y``; the last chunk's end state is ``h_final``."""
+    s = u.shape[1]
+    a32 = a.float()[None]
+    carry = (torch.zeros((u.shape[0], u.shape[2], a.shape[1]),
+                         dtype=torch.float32, device=u.device)
+             if h0 is None else h0.float())
+    spans = [slice(t0, min(t0 + chunk, s)) for t0 in range(0, s, chunk)]
+    starts = []
+    for span in spans:
+        starts.append(carry)
+        _, local = ref_ssm_scan(u[:, span], dt[:, span], b_t[:, span],
+                                c_t[:, span], a)
+        decay = torch.exp(a32 * dt[:, span].float().sum(1)[..., None])
+        carry = decay * carry + local
+    ys = []
+    for span, start in zip(spans, starts):
+        y, h = ref_ssm_scan(u[:, span], dt[:, span], b_t[:, span],
+                            c_t[:, span], a, start)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h

@@ -59,10 +59,8 @@ def vtrace_cuda(
     b, t = values.shape
     vs = torch.empty((b, t), dtype=torch.float32, device=values.device)
     adv = torch.empty_like(vs)
-    with torch.cuda.device(values.device):
-        KERNEL(log_ratios.data_ptr(), values.data_ptr(),
-               bootstrap_value.data_ptr(), rewards.data_ptr(),
-               discounts.data_ptr(), vs.data_ptr(), adv.data_ptr(), b, t,
-               _DTYPES[values.dtype], rho_bar, c_bar, lam,
-               torch.cuda.current_stream().cuda_stream)
+    KERNEL.launch(values.device, log_ratios.data_ptr(), values.data_ptr(),
+                  bootstrap_value.data_ptr(), rewards.data_ptr(),
+                  discounts.data_ptr(), vs.data_ptr(), adv.data_ptr(), b, t,
+                  _DTYPES[values.dtype], rho_bar, c_bar, lam)
     return vs, adv

@@ -60,9 +60,9 @@ def wkv6_cuda(
         raise ValueError(f"{name}: bad shapes {shapes}")
     y = torch.empty((b, s, h, vd), dtype=r.dtype, device=r.device)
     final = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
-    with torch.cuda.device(r.device):
-        KERNEL(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-               u.data_ptr(), None if state is None else state.data_ptr(),
-               y.data_ptr(), final.data_ptr(), b, s, h, kd, vd,
-               _DTYPES[r.dtype], torch.cuda.current_stream().cuda_stream)
+    KERNEL.launch(r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  w.data_ptr(), u.data_ptr(),
+                  None if state is None else state.data_ptr(),
+                  y.data_ptr(), final.data_ptr(), b, s, h, kd, vd,
+                  _DTYPES[r.dtype])
     return y, final

@@ -225,8 +225,12 @@ def decode_step_paged(
     block_size = k_pages.shape[3]
     x = _embed(params, cfg, token[:, None])
     safe_pos = torch.clamp(pos, min=0)
+    # The write's destinations and mask, once for every layer, in the
+    # types the kernel reads (int32, and the bool mask as it is).
     page_idx = _page_of(block_tables, safe_pos[:, None], block_size)[:, 0]
-    offset = safe_pos % block_size
+    page_idx = page_idx.to(torch.int32).contiguous()
+    offset = (safe_pos % block_size).to(torch.int32).contiguous()
+    active = active.to(torch.bool).contiguous()
     context_lens = torch.where(active, safe_pos + 1, 0).to(torch.int32)
     for layer in range(cfg.n_layers):
         lp = tree_map(lambda a: a[layer], params["layers"])
@@ -264,8 +268,11 @@ def decode_step_paged_varlen(
     row_len = row_len.to(torch.int32)
     steps = torch.arange(t, dtype=torch.int32, device=tokens.device)
     positions = safe_start[:, None] + steps[None, :]          # [B, T]
+    # The write's destinations and mask, once for every layer, in the
+    # types the kernel reads (int32, and the bool mask as it is).
     page_idx = _page_of(block_tables, positions, block_size).reshape(-1)
-    offset = (positions % block_size).reshape(-1)
+    page_idx = page_idx.to(torch.int32).contiguous()
+    offset = (positions % block_size).reshape(-1).contiguous()
     live = steps[None, :] < row_len[:, None]
     write_ok = (live & (positions < write_cap[:, None])).reshape(-1)
     kv, dh = cfg.n_kv_heads, cfg.head_dim

@@ -139,6 +139,58 @@ def test_kv_write_kernel_bit_exact(dev, dtype):
     assert all(torch.equal(a, b) for a, b in zip(pools, want))
 
 
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_write_plan_serves_a_step_and_checks_each_call(dev, dtype,
+                                                          mask_dtype):
+    """One step's destinations and mask (bool or int32) through every
+    layer: bit-exact against the plain write, untouched rows untouched,
+    one launch a layer.  A call whose rows do not fit the step's plan
+    raises, and so does a pool reshaped in place after the plan was
+    made."""
+    from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
+
+    g = torch.Generator().manual_seed(2)
+    pools = [torch.randn(4, 2, 16, 8, 64, generator=g).to(dtype).to(dev)
+             for _ in range(2)]
+    dest = torch.randperm(16 * 8, generator=g)[:6]
+    page = (dest // 8).to(torch.int32).to(dev)
+    off = (dest % 8).to(torch.int32).to(dev)
+    active = torch.tensor([1, 0, 1, 1, 0, 1], device=dev).to(mask_dtype)
+    want = [p.clone() for p in pools]
+    kernels.reset_launch_counts()
+    for layer in range(4):
+        rows = [torch.randn(6, 2, 64, generator=g).to(dtype).to(dev)
+                for _ in range(2)]
+        ref.ref_paged_kv_write(*want, *rows, page, off, active, layer=layer)
+        paged_kv_write_cuda(*pools, *rows, page, off, active, layer=layer)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_kv_write"] == 4
+    assert all(torch.equal(a, b) for a, b in zip(pools, want))
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_kv_write_cuda(*pools, rows[0][:5], rows[1][:5], page, off,
+                            active, layer=0)
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_kv_write_cuda(*pools, *rows, page, off, active, layer=4)
+    with pytest.raises(TypeError, match="dtype"):
+        paged_kv_write_cuda(*pools, rows[0].double(), rows[1], page, off,
+                            active, layer=0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        paged_kv_write_cuda(*pools, rows[0].cpu(), rows[1], page, off,
+                            active, layer=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_kv_write_cuda(*pools, rows[0].transpose(1, 2).contiguous()
+                            .transpose(1, 2), rows[1], page, off, active,
+                            layer=0)
+    with pytest.raises(TypeError, match="bool or int32"):
+        paged_kv_write_cuda(*pools, *rows, page, off, active.long(),
+                            layer=0)
+    pools[0].unsqueeze_(0)
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_kv_write_cuda(*pools, *rows, page, off, active, layer=0)
+    assert kernels.launch_counts()["paged_kv_write"] == 4
+
+
 def test_model_step_on_card_launches_kernels_and_matches_cpu(dev):
     from repro_torch.models import transformer as tf
 
@@ -531,6 +583,75 @@ def test_ssm_scan_dispatch_and_refusals(dev):
     big = _ssm_case(dev, torch.float32, 1, 2, 8, 17)
     with pytest.raises(ValueError, match="bad shapes"):
         ssm_scan_cuda(*big)
+
+
+def _strided(t, lead=5):
+    """``t`` [B, S, N] as a column slice of a wider ``[B, S, lead + N + 3]``
+    tensor (rows evenly spaced, the model's ``x_proj`` layout)."""
+    wide = torch.zeros(*t.shape[:2], lead + t.shape[2] + 3, dtype=t.dtype,
+                       device=t.device)
+    wide[..., lead:lead + t.shape[2]] = t
+    return wide[..., lead:lead + t.shape[2]]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,i,n,state,dt_scale", [
+    (1, 2048, 3200, 16, False, 1.0),     # the long forward's layer
+    (2, 127, 300, 16, True, 1.0),        # either side of the crossover
+    (2, 128, 300, 16, True, 1.0),
+    (2, 130, 300, 16, True, 1.0),        # a ragged last chunk
+    (2, 1000, 300, 16, True, 1.0),       # a carried state at long S
+    (3, 300, 200, 8, True, 200.0),       # decays that underflow to 0
+    (1, 65, 64, 4, False, 1.0),
+    (1, 2085, 3200, 16, True, 1.0)])     # a ragged last 64-step chunk
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssm_scan_both_instantiations_match_plain(dev, dtype, tol, b, s, i,
+                                                  n, state, dt_scale,
+                                                  strided):
+    """Each instantiation, forced, and the one ``ssm_impl`` picks, against
+    ``ref_ssm_scan``, with ``b_t`` / ``c_t`` contiguous or read in place as
+    slices of a wider tensor: one launch a call."""
+    from repro_torch.kernels.ssm_scan import ssm_impl, ssm_scan_cuda
+
+    u, dt, b_t, c_t, a, h0 = _ssm_case(dev, dtype, b, s, i, n, state,
+                                       seed=s + i)
+    dt = (dt.float() * dt_scale).to(dtype)
+    if strided:
+        b_t, c_t = _strided(b_t), _strided(c_t)
+    want_y, want_h = ref.ref_ssm_scan(u, dt, b_t, c_t, a, h0)
+    for impl in ("serial", "chunked", None):
+        kernels.reset_launch_counts()
+        y, h = ssm_scan_cuda(u, dt, b_t, c_t, a, h0, impl=impl)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["ssm_scan"] == 1
+        assert y.dtype == dtype and h.dtype == torch.float32
+        for got, want in ((y, want_y), (h, want_h)):
+            assert bool(torch.isfinite(got).all())
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= tol * max(1.0, want.float().abs().max().item()), \
+                (impl, ssm_impl(b, s, i), err)
+
+
+def test_ssm_scan_refuses_strides_it_cannot_read(dev):
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    u, dt, b_t, c_t, a, h0 = _ssm_case(dev, torch.float32, 2, 9, 64, 16)
+    wide = torch.zeros(2, 9, 40, device=dev)
+    bad = {"columns": wide[..., ::2][..., :16],
+           "uneven rows": torch.zeros(2, 10, 40, device=dev)[:, :9, :16],
+           "batch-major": b_t.transpose(0, 1).contiguous().transpose(0, 1)}
+    kernels.reset_launch_counts()
+    for what, t in bad.items():
+        with pytest.raises(ValueError, match="contiguous"):
+            ssm_scan_cuda(u, dt, t, c_t, a, h0)
+        with pytest.raises(ValueError, match="contiguous"):
+            ssm_scan_cuda(u, dt, b_t, t, a, h0)
+    with pytest.raises(ValueError, match="impl"):
+        ssm_scan_cuda(u, dt, b_t, c_t, a, h0, impl="fast")
+    assert kernels.launch_counts()["ssm_scan"] == 0
+    ssm_scan_cuda(u, dt, _strided(b_t), _strided(c_t), a, h0)
+    assert kernels.launch_counts()["ssm_scan"] == 1
 
 
 def test_attn_forward_launches_flash_only_without_grad(dev):

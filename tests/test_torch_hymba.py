@@ -177,6 +177,116 @@ def test_ref_ssm_scan_keeps_bfloat16_outputs_and_a_float32_state():
         1.0, want.abs().max().item())
 
 
+def _strided_bc(b_t, c_t, lead=5):
+    """``b_t`` and ``c_t`` as column slices of one ``[B, S, lead + 2N]``
+    tensor, the layout of the model's ``x_proj`` output."""
+    n = b_t.shape[-1]
+    proj = torch.randn(*b_t.shape[:2], lead + 2 * n,
+                       generator=torch.Generator().manual_seed(0))
+    proj[..., lead:lead + n] = b_t
+    proj[..., lead + n:] = c_t
+    return proj[..., lead:lead + n], proj[..., lead + n:]
+
+
+@pytest.mark.parametrize("s,i,n", [(33, 100, 16), (1, 40, 16), (7, 8, 4)])
+def test_ops_ssm_scan_reads_strided_b_and_c_like_contiguous_ones(s, i, n):
+    """``b_t`` / ``c_t`` as slices of one wider tensor give what the
+    contiguous ones give, exactly, and JAX's scan within 2e-4."""
+    jargs, targs = _both(_ssm_inputs(3, s, i, n, seed=s + i))
+    sb, sc = _strided_bc(targs[2], targs[3])
+    assert not sb.is_contiguous() and sb.stride(1) == 5 + 2 * n
+    y, h = ops.ssm_scan(targs[0], targs[1], sb, sc, *targs[4:])
+    y_c, h_c = ops.ssm_scan(*targs)
+    assert torch.equal(y, y_c) and torch.equal(h, h_c)
+    y_j, h_j = jax_ssm._ssm_scan(*jargs)
+    _close(y, y_j, 2e-4)
+    _close(h, h_j, 2e-4)
+
+
+@pytest.mark.parametrize("s,chunk,dt_scale", [
+    (50, 1, 1.0), (50, 7, 1.0), (50, 64, 1.0), (130, 64, 1.0),
+    (64, 64, 1.0), (65, 64, 1.0), (29, 7, 1.0), (40, 7, 200.0)])
+@pytest.mark.parametrize("state", [True, False])
+def test_chunked_scan_algebra_matches_jax(s, chunk, dt_scale, state):
+    """The chunked form of the card's long-sequence instantiation (chunk
+    end states from zero, the carry across chunks, each chunk re-run
+    from its true start) against JAX's step-by-step scan, at chunk sizes
+    1, 7 and 64, ragged last chunks, a carried state, and dt x 200, where
+    exp(dt * a) and exp(a * sum(dt)) underflow to 0: within 2e-4."""
+    args = _ssm_inputs(2, s, 24, 16, seed=s * chunk, state=state)
+    args[1] = args[1] * np.float32(dt_scale)
+    jargs, targs = _both(args)
+    y, h = ref.ref_ssm_scan_chunked(*targs, chunk=chunk)
+    y_j, h_j = jax_ssm._ssm_scan(*jargs)
+    _close(y, y_j, 2e-4)
+    _close(h, h_j, 2e-4)
+
+
+def test_ssm_forward_hands_the_scan_b_and_c_as_views_of_x_proj(weights,
+                                                                monkeypatch):
+    """The block passes ``b_t`` and ``c_t`` to the scan as they come out
+    of ``x_proj``: slices of one tensor, not copies (the card reads them
+    in place), with the output and state of contiguous copies."""
+    _, tp = _layer(weights, "ssm", 0)
+    seen = []
+    real = ssm.kops.ssm_scan
+
+    def spy(u, dt, b_t, c_t, a, h0=None):
+        seen.append((b_t, c_t))
+        return real(u, dt, b_t, c_t, a, h0)
+
+    monkeypatch.setattr(ssm.kops, "ssm_scan", spy)
+    x = torch.randn(2, 5, CFG.d_model,
+                    generator=torch.Generator().manual_seed(3))
+    out, (h, _) = ssm.ssm_forward(tp, x, CFG.ssm)
+    monkeypatch.setattr(
+        ssm.kops, "ssm_scan", lambda u, dt, b_t, c_t, a, h0=None: real(
+            u, dt, b_t.contiguous(), c_t.contiguous(), a, h0))
+    out_c, (h_c, _) = ssm.ssm_forward(tp, x, CFG.ssm)
+    assert torch.equal(out, out_c) and torch.equal(h, h_c)
+    (b_t, c_t), = seen
+    n = CFG.ssm.state_dim
+    assert b_t.untyped_storage().data_ptr() == \
+        c_t.untyped_storage().data_ptr()
+    assert c_t.data_ptr() - b_t.data_ptr() == n * b_t.element_size()
+    assert not b_t.is_contiguous() and b_t.stride(-1) == 1
+
+
+@pytest.mark.parametrize("b,s,i,impl,chunk", [
+    (8, 1, 3200, "serial", 0), (8, 32, 3200, "serial", 0),
+    (1, 100, 3200, "serial", 0), (1, 128, 3200, "chunked", 32),
+    (2, 128, 3200, "serial", 0), (1, 512, 3200, "chunked", 32),
+    (4, 512, 3200, "chunked", 64), (6, 2048, 3200, "chunked", 64),
+    (8, 512, 3200, "serial", 0), (1, 2048, 3200, "chunked", 64),
+    (2, 130, 300, "chunked", 32)])
+def test_ssm_instantiation_follows_length_and_grid(b, s, i, impl, chunk):
+    """Decode steps and hymba's S 32 prefill take the serial kernel; the
+    chunked scan takes over from S 128 while the serial grid (a block per
+    128 channels of a row) fills at most a quarter of the 132 SMs, and
+    from S 512 while it is under 1.5 times their number (B 8 at I 3200
+    is not); in 64-step chunks where that still gives about three blocks
+    an SM, else 32."""
+    from repro_torch.kernels.ssm_scan import chunk_steps, ssm_impl
+
+    assert ssm_impl(b, s, i) == impl
+    if chunk:
+        assert chunk_steps(b, s, i) == chunk
+
+
+def test_ssm_row_stride_accepts_slices_and_refuses_other_layouts():
+    from repro_torch.kernels.ssm_scan import bc_row_stride
+
+    proj = torch.zeros(3, 5, 132)
+    assert bc_row_stride(proj[..., 100:116]) == 132
+    assert bc_row_stride(proj[..., 116:]) == 132
+    assert bc_row_stride(torch.zeros(3, 5, 16)) == 16
+    assert bc_row_stride(torch.zeros(3, 1, 132)[..., 100:116]) == 132
+    assert bc_row_stride(torch.zeros(5, 3, 16).transpose(0, 1)) is None
+    assert bc_row_stride(proj[:, ::2, 100:116]) is None       # rows uneven
+    assert bc_row_stride(proj[..., 100:116:2]) is None        # columns
+    assert bc_row_stride(torch.zeros(5, 16)) is None
+
+
 # ---------------------------------------------------------------------------
 # Blocks, model, generation
 # ---------------------------------------------------------------------------

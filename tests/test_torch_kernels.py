@@ -234,3 +234,41 @@ def test_flash_instantiation_depends_on_dtype_and_head_dim_alone(dtype, d,
     from repro_torch.kernels.flash_attention import flash_impl
 
     assert flash_impl(dtype, d) == impl
+
+
+@pytest.mark.parametrize("mask_dtype", ["bool", "int32"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_paged_kv_write_takes_a_bool_or_int32_mask_bit_exact(
+        dtype, mask_dtype):
+    """``ops.paged_kv_write`` with the model's bool mask and with an int32
+    one writes the rows the JAX oracle and the Pallas kernel (interpret
+    mode) write, exactly, over three layers of one step's destinations."""
+    rng = np.random.default_rng(9)
+    L, kv, nb, bs, d, b = 3, 2, 12, 4, 16, 6
+    shape = (L, kv, nb, bs, d)
+    k0 = rng.standard_normal(shape).astype(np.float32)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    rows = rng.standard_normal((L, 2, b, kv, d)).astype(np.float32)
+    dest = rng.permutation(nb * bs)[:b]
+    page, off = (dest // bs).astype(np.int32), (dest % bs).astype(np.int32)
+    active = np.asarray([1, 0, 1, 1, 0, 1]).astype(mask_dtype)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tk, tv = (x.to(tdt) for x in _t(k0, v0))
+    tpage, toff, tact = _t(page, off, active)
+    jk, jv = (x.astype(jdt) for x in _j(k0, v0))
+    pk, pv = jk, jv
+    for layer in range(L):
+        kr, vr = rows[layer]
+        ops.paged_kv_write(tk, tv, *(x.to(tdt) for x in _t(kr, vr)), tpage,
+                           toff, tact, layer=layer)
+        jkr, jvr = (x.astype(jdt) for x in _j(kr, vr))
+        jk, jv = jref.ref_paged_kv_write(jk, jv, jkr, jvr,
+                                         *_j(page, off, active), layer=layer)
+        pk, pv = pallas_paged_kv_write(pk, pv, jkr, jvr,
+                                       *_j(page, off, active), layer=layer,
+                                       interpret=True)
+    for got, w, p in ((tk, jk, pk), (tv, jv, pv)):
+        got = got.float().numpy()
+        np.testing.assert_array_equal(got, np.asarray(w, np.float32))
+        np.testing.assert_array_equal(got, np.asarray(p, np.float32))
+

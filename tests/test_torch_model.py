@@ -158,3 +158,61 @@ def test_decode_step_paged_multi_matches_jax(jax_params):
                                np.asarray(want.logits)[active],
                                rtol=1e-4, atol=1e-4)
     _assert_pools(got_pool, want_pool)
+
+
+@pytest.mark.parametrize("varlen", [False, True])
+def test_paged_steps_hand_every_layer_one_set_of_kernel_typed_tensors(
+        jax_params, monkeypatch, varlen):
+    """A step makes the K/V write's destinations and mask once, in the
+    types the kernel reads (int32 ``page_idx`` / ``offset``, the bool mask
+    as it is, contiguous): every layer's call gets the same tensors, so no
+    layer converts them.  Logits and pools stay JAX's."""
+    rng = np.random.default_rng(31)
+    b, t = 4, 3
+    tables = _tables(rng, b)
+    pos = np.asarray([2, 0, 6, 11], np.int32)
+    active = np.asarray([True, False, True, True])
+    row_len = np.where(active, t, 0).astype(np.int32)
+    cap = np.asarray([16, 16, 8, 16], np.int32)
+    tokens = rng.integers(0, CFG.vocab_size, (b, t)).astype(np.int32)
+    pool = _pool(5)
+    params = from_jax_params(_np_tree(jax_params), "cpu")
+    calls = []
+    real = tf.kops.paged_kv_write
+
+    def spy(*args, layer):
+        calls.append(args[4:])
+        return real(*args, layer=layer)
+
+    monkeypatch.setattr(tf.kops, "paged_kv_write", spy)
+    jpool = {k: jnp.asarray(v) for k, v in pool.items()}
+    if varlen:
+        want, want_pool = jax_tf.decode_step_paged_varlen(
+            jax_params, JCFG, jnp.asarray(tokens), jpool,
+            jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(row_len),
+            jnp.asarray(cap), kernel_mode="reference")
+        got, got_pool = tf.decode_step_paged_varlen(
+            params, CFG, torch.from_numpy(tokens), _port_pool(pool),
+            torch.from_numpy(tables), torch.from_numpy(pos),
+            torch.from_numpy(row_len), torch.from_numpy(cap))
+        live = np.arange(t)[None, :] < row_len[:, None]
+    else:
+        want, want_pool = jax_tf.decode_step_paged(
+            jax_params, JCFG, jnp.asarray(tokens[:, 0]), jpool,
+            jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(active),
+            kernel_mode="reference")
+        got, got_pool = tf.decode_step_paged(
+            params, CFG, torch.from_numpy(tokens[:, 0]), _port_pool(pool),
+            torch.from_numpy(tables), torch.from_numpy(pos),
+            torch.from_numpy(active))
+        live = active
+    assert len(calls) == CFG.n_layers
+    page_idx, offset, mask = calls[0]
+    assert (page_idx.dtype, offset.dtype, mask.dtype) == (
+        torch.int32, torch.int32, torch.bool)
+    assert all(x.is_contiguous() for x in calls[0])
+    assert all(all(a is b for a, b in zip(c, calls[0])) for c in calls)
+    np.testing.assert_allclose(got.logits.numpy()[live],
+                               np.asarray(want.logits)[live],
+                               rtol=1e-4, atol=1e-4)
+    _assert_pools(got_pool, want_pool)
