@@ -51,12 +51,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 10. V-trace kernel: ``vtrace`` against ``ref_vtrace`` at the paper's
     shape (B = 500 trajectories, T = 1000 steps), the JAX sweep shapes
-    (1, 5), (4, 13), (8, 64), (13, 100) and T = 1, with episode ends
-    (zero discounts), log-ratios of +-3 (both clips bite) and
-    (rho_bar, c_bar, lam) = (1, 1, 1) and (2, 0.5, 0.95), from float32
-    and bfloat16 inputs; within 1e-5 (bfloat16 5e-2) of max(1, |ref|).
-    Timed at 500 x 1000 beside the plain version and the bound; no
-    single PyTorch call computes the recurrence, so no library time.
+    (1, 5), (4, 13), (8, 64), (13, 100), the scan's tile and lane edges
+    (T = 1, 31, 32, 33, 1000 at B 1, 4096), B = 4224 and rows of nothing
+    but episode ends, with episode ends (zero discounts), log-ratios of
+    +-3 (both clips bite) and (rho_bar, c_bar, lam) = (1, 1, 1) and (2,
+    0.5, 0.95), from float32 and bfloat16 inputs; within 1e-5 (bfloat16
+    5e-2) of max(1, |ref|).  Timed at 500 x 1000 beside the plain version
+    and the bound; no single PyTorch call computes the recurrence, so no
+    library time.  Then device time against B and T
+    (``vtrace_scaling``).
 11. rl: ``repro_torch.launch.train rl`` in-process at the paper's scale
     (500 actors x 1000 steps, a 4-snapshot mixture) with the launcher's
     defaults (VACO, ``backward_mixture``, ``pass_through``) for 2
@@ -70,21 +73,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
     filter active): losses, tv, frac_filtered and grad norm within 1e-4
     relative, the param update within 1e-2 in L2 norm.
 
-13. WKV6 kernel: ``wkv6`` against ``ref_wkv6`` at the rwkv6 serve
-    path's shapes (B 8, H 32, K = V = 64: the S = 32 prefill from a zero
-    state, one S = 1 decode step from a carried state) and B 8 x S 512,
-    the JAX sweep shapes (K = V in 16, 32, 64, 8), a ragged S = 50 and
-    near-total forgetting (w = 1e-6); float32 within 3e-4 and bfloat16
-    within 2e-2, of max(1, |ref|).  Timed beside the plain version and
-    the bound; no single PyTorch call computes the recurrence, so no
-    library time.
+13. WKV6 kernels: every instantiation of ``wkv6`` (``serial``,
+    ``chunked``, ``split``, each forced) against ``ref_wkv6`` at the
+    rwkv6 serve path's shapes (B 8, H 32, K = V = 64: the S = 32 prefill
+    from a zero state, one S = 1 decode step from a carried state), B 8
+    x S 512, the long forward's layer (``long_b1``: B 1 x S 2048), the
+    16-step sub-chunk's edges (S 63, 64, 65, 129), a ragged last segment
+    (S 1000), decays mixing exact 0s, exact 1s and 1e-6, the JAX sweep
+    shapes (K = V in 16, 32, 64, 8), a ragged S = 50 and near-total
+    forgetting (w = 1e-6); float32 within 3e-4 and bfloat16 within 2e-2,
+    of max(1, |ref|).  The four timed cases take the instantiation
+    ``wkv6_impl`` picks (``impl`` in the record), beside the plain
+    version and the bound; no single PyTorch call computes the
+    recurrence, so no library time.  Then the crossover: all three
+    instantiations' device time, forced, at B 1 to 8 over S 4 to 2048
+    (``wkv6_crossover``).
 14. rwkv6 serve: ``repro_torch.launch.serve --engine static --arch
     rwkv6-1.6b --full-width --batch 8 --max-new-tokens 16`` in-process
     (24 layers, d 2048, vocab 65536, seeded random init, float32): one
     warm ``generate``, then the timed one, in which ``wkv6`` must launch
     24 x (1 prefill + 16 decode steps) = 408 times; every row gets its
     tokens and finite ``log_beta``.  Prefill ms, tokens/s, peak memory
-    and the device idle share over a profiled ``generate``.
+    and the device idle share over a profiled ``generate``; then one
+    forward at B 1 x S 2048 (24 ``wkv6`` launches), its wall, device
+    busy time and ``wkv6``'s share (``rwkv_long_forward``).
 15. rwkv6 parity: the same width at 2 layers, dense weights scaled x3,
     on ``cpu`` (plain path) and ``cuda`` (kernel): forward logits within
     1e-4 and the returned cache within 1e-4 of max(1, |cpu|); greedy
@@ -169,6 +181,7 @@ VTRACE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # rwkv6-1.6b's static serve: 8 prompts of 32 tokens, 16 new tokens, 32
 # WKV heads of 64 over 24 layers.
 RWKV_B, RWKV_P, RWKV_NEW, RWKV_H, RWKV_L = 8, 32, 16, 32, 24
+RWKV_LONG = 2048                          # one B 1 x S 2048 forward
 WKV6_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
 # hymba-1.5b's static serve: 8 prompts of 32 tokens, 16 new tokens, 32
 # layers of 25 query / 5 kv heads of 64 (window 1024, layers 15 and 31
@@ -1097,15 +1110,23 @@ def vtrace_kernel_phase(torch):
     from repro_torch.kernels.vtrace import vtrace_cuda
 
     headline, worst = {}, {}
+    # The paper's shape, the JAX sweep's, tile and lane edges (T 1, 31,
+    # 32, 33, a ragged 1000 at B 1, four 1024-step tiles), a grid of
+    # 4224 warps, and rows that are all episode ends.
     shapes = ((RL_ACTORS, RL_STEPS), (1, 5), (4, 13), (8, 64), (13, 100),
-              (RL_ACTORS, 1))
+              (RL_ACTORS, 1), (1, 1), (3, 31), (3, 32), (3, 33),
+              (1, RL_STEPS), (2, 4096), (4224, 100), ("dones", 7, 300))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         esize = torch.empty((), dtype=dtype).element_size()
-        for b, t in shapes:
+        for shape in shapes:
+            dones = shape[0] == "dones"
+            b, t = shape[-2:]
             for clips in ((1.0, 1.0, 1.0), (2.0, 0.5, 0.95)):
                 kw = dict(zip(("rho_bar", "c_bar", "lam"), clips))
                 args = _vtrace_inputs(torch, b, t, dtype, seed=b * t)
+                if dones:
+                    args = args[:4] + (torch.zeros_like(args[4]),)
                 got = vtrace_cuda(*args, **kw)
                 want = ref.ref_vtrace(*args, **kw)
                 torch.cuda.synchronize()
@@ -1143,13 +1164,12 @@ def vtrace_kernel_phase(torch):
     for dname, err in worst.items():
         headline[("vtrace", dname)] = dict(headline[("vtrace", dname)],
                                            max_abs_err=err)
-    # Latency against width: one block per 32 trajectories, so device
-    # time flat in B up to 132 blocks (4224 rows) means the per-chunk
-    # chain, not the bytes, sets it; T = 250 against 1000 gives the
-    # cost per chunk.
+    # Width and length: one warp per trajectory, four a block (B 4224 is
+    # 1056 blocks, 8 an SM); T = 250 against 1000 gives the cost of a
+    # tile's length, T 4096 that of four tiles in turn.
     scaling = {}
     for b, t in ((32, RL_STEPS), (RL_ACTORS, RL_STEPS), (4224, RL_STEPS),
-                 (RL_ACTORS, 250)):
+                 (RL_ACTORS, 250), (RL_ACTORS, 4096)):
         args = _vtrace_inputs(torch, b, t, torch.float32, seed=7)
         scaling[f"{b}x{t}"] = device_ms(lambda: vtrace_cuda(*args),
                                         "vtrace_kernel")
@@ -1335,26 +1355,52 @@ def rl_parity_phase(torch):
 
 
 def _wkv6_inputs(torch, dtype, b, s, h, kd, state, decay=None, seed=0):
-    """r, k, v ~ N(0, 1), decays in (0.1, 0.9) (or all ``decay``), u ~
+    """r, k, v ~ N(0, 1), decays in (0.1, 0.9) (or all ``decay``; "mix":
+    a fifth of them exactly 0, a fifth exactly 1, a tenth 1e-6), u ~
     0.3 N(0, 1) and a N(0, 1) float32 state (or None), on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     w = torch.sigmoid(n(b, s, h, kd)) * 0.8 + 0.1
-    if decay is not None:
+    if decay == "mix":
+        m = torch.rand(w.shape, generator=gen, device="cuda")
+        w[m < 0.2] = 0.0
+        w[(m >= 0.2) & (m < 0.4)] = 1.0
+        w[(m >= 0.4) & (m < 0.5)] = 1e-6
+    elif decay is not None:
         w = torch.full_like(w, decay)
     args = [n(b, s, h, kd), n(b, s, h, kd), n(b, s, h, kd), w, 0.3 * n(h, kd)]
     return [a.to(dtype) for a in args] + [n(b, h, kd, kd) if state else None]
 
 
+def _wkv6_bound(bb, s, hh, kd, state, esize, dname):
+    """r, k, v, w and y once each, u once, the state read where the call
+    carries one and written once; 5 operations per state element and
+    step (r.S, then w*S + k*v; the bonus term is per key, not per
+    element)."""
+    n_tok = bb * s * hh * kd
+    st_bytes = bb * hh * kd * kd * 4
+    nbytes = (5 * n_tok + hh * kd) * esize + st_bytes * (2 if state else 1)
+    return bound(nbytes, 5 * n_tok * kd, dname)
+
+
 def wkv6_kernel_phase(torch):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.wkv6 import wkv6_cuda
+    from repro_torch.kernels.wkv6 import (IMPLS, split_steps, wkv6_cuda,
+                                          wkv6_impl)
 
     b, h = RWKV_B, RWKV_H
+    timed = ("prefill", "decode", "long", "long_b1")
     cases = (   # (case, B, S, H, K, carried state, decay); timed first
         ("prefill", b, RWKV_P, h, 64, False, None),
         ("decode", b, 1, h, 64, True, None),
         ("long", b, 512, h, 64, True, None),
+        ("long_b1", 1, RWKV_LONG, h, 64, False, None),
+        ("s63", 2, 63, 3, 64, True, None),        # sub-chunk edges
+        ("s64", 2, 64, 3, 64, True, None),
+        ("s65", 2, 65, 3, 64, True, None),
+        ("s129", 1, 129, 2, 64, True, None),
+        ("split_ragged", 1, 1000, 3, 64, True, None),   # ragged segment
+        ("zero_decay", 2, 130, 2, 64, True, "mix"),     # w = 0, 1, 1e-6
         ("sweep_16", 2, 32, 2, 16, True, None),
         ("sweep_32", 2, 50, 3, 32, True, None),
         ("sweep_64", 2, 64, 2, 64, True, None),
@@ -1368,40 +1414,43 @@ def wkv6_kernel_phase(torch):
         for case, bb, s, hh, kd, state, decay in cases:
             args = _wkv6_inputs(torch, dtype, bb, s, hh, kd, state, decay,
                                 seed=s * hh + kd)
-            y, sf = wkv6_cuda(*args)
             want_y, want_sf = ref.ref_wkv6(*args)
-            torch.cuda.synchronize()
-            err = 0.0
-            for got, want, what in ((y, want_y, "y"), (sf, want_sf, "state")):
-                check(bool(torch.isfinite(got).all())
-                      and got.shape == want.shape,
-                      f"wkv6/{case}/{dname}: bad {what}")
-                e = (got.float() - want.float()).abs().max().item()
-                check(e <= WKV6_TOL[dname] * max(
-                    1.0, want.float().abs().max().item()),
-                    f"wkv6/{case}/{dname}: {what} err {e}")
-                err = max(err, e)
-            worst[dname] = max(worst.get(dname, 0.0), err)
-            if case not in ("prefill", "decode", "long"):
+            picked = wkv6_impl(bb, s, hh)
+            errs = {}
+            for impl in IMPLS:   # every instantiation, forced
+                y, sf = wkv6_cuda(*args, impl=impl)
+                torch.cuda.synchronize()
+                err = 0.0
+                for got, want, what in ((y, want_y, "y"),
+                                        (sf, want_sf, "state")):
+                    check(bool(torch.isfinite(got).all())
+                          and got.shape == want.shape,
+                          f"wkv6/{case}/{dname}/{impl}: bad {what}")
+                    e = (got.float() - want.float()).abs().max().item()
+                    check(e <= WKV6_TOL[dname] * max(
+                        1.0, want.float().abs().max().item()),
+                        f"wkv6/{case}/{dname}/{impl}: {what} err {e}")
+                    err = max(err, e)
+                errs[impl] = err
+            worst[dname] = max(worst.get(dname, 0.0), *errs.values())
+            if case not in timed:
+                emit(phase="kernel_check", kernel="wkv6", case=case,
+                     dtype=dname, B=bb, S=s, H=hh, K=kd, impl=picked,
+                     max_abs_err=errs, tol=WKV6_TOL[dname])
                 continue
             kern = lambda: wkv6_cuda(*args)
             plain = lambda: ref.ref_wkv6(*args)
-            # r, k, v, w and y once each, u once, the state read where
-            # the call carries one and written once; 5 operations per
-            # state element and step (r.S, then w*S + k*v; the bonus
-            # term is per key, not per element).
-            n_tok = bb * s * hh * kd
-            st_bytes = bb * hh * kd * kd * 4
-            nbytes = (5 * n_tok + hh * kd) * esize + st_bytes * (
-                2 if state else 1)
-            b_ms, b_by = bound(nbytes, 5 * n_tok * kd, dname)
+            b_ms, b_by = _wkv6_bound(bb, s, hh, kd, state, esize, dname)
             rec = dict(phase="kernel", kernel="wkv6", case=case,
-                       dtype=dname, B=bb, S=s, H=hh, K=kd, max_abs_err=err,
-                       tol=WKV6_TOL[dname],
+                       dtype=dname, B=bb, S=s, H=hh, K=kd, impl=picked,
+                       seg=split_steps(bb, s, hh) if picked == "split"
+                       else 0,
+                       max_abs_err=errs[picked], tol=WKV6_TOL[dname],
                        kernel_ms=time_ms(kern, iters=100),
-                       plain_ms=time_ms(plain, iters=5, warmup=1),
+                       plain_ms=time_ms(plain, iters=2 if s > 512 else 5,
+                                        warmup=1),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                       kernel_device_ms=device_ms(kern, "wkv6_kernel"),
+                       kernel_device_ms=device_ms(kern, "wkv6_"),
                        plain_device_ms=device_ms(plain, iters=2))
             emit(**rec)
             if case == "decode":         # 384 of the path's 408 launches
@@ -1409,11 +1458,23 @@ def wkv6_kernel_phase(torch):
     for dname, err in worst.items():
         headline[("wkv6", dname)] = dict(headline[("wkv6", dname)],
                                          max_abs_err=err)
+    # Where each instantiation pays: device time of all three, forced,
+    # at rwkv6's 32 heads of 64, float32, zero state.
+    for bb in (1, 2, 4, 8):
+        for s in (4, 8, 12, 16, 32, 64, 128, 256, 512, 2048):
+            args = _wkv6_inputs(torch, torch.float32, bb, s, h, 64, False,
+                                seed=s)
+            ms = {impl: device_ms(lambda: wkv6_cuda(*args, impl=impl),
+                                  "wkv6_")
+                  for impl in IMPLS}
+            emit(phase="wkv6_crossover", B=bb, S=s, H=h, device_ms=ms,
+                 picked=wkv6_impl(bb, s, h), seg=split_steps(bb, s, h))
     return headline
 
 
 def rwkv_serve_phase(torch):
     from repro_torch import kernels
+    from repro_torch.kernels.wkv6 import wkv6_impl
     from repro_torch.launch import serve as launcher
     from repro_torch.utils.tree import tree_leaves
 
@@ -1481,9 +1542,56 @@ def rwkv_serve_phase(torch):
          top_kernels=rows[:8],
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          min_log_beta=lb[live].min().item(), launches=launches)
+    rwkv_long_forward(torch, static, kernels,
+                      wkv6_impl(1, RWKV_LONG, RWKV_H))
     del static, res
     torch.cuda.empty_cache()
     return launches
+
+
+def _rwkv_long_whole(rows) -> bool:
+    """A whole capture of the rwkv6 long forward holds each wkv6 kernel
+    once a layer."""
+    counts = [c for k, _, c in rows if "wkv6_" in k]
+    return bool(counts) and all(c == RWKV_L for c in counts)
+
+
+def rwkv_long_forward(torch, static, kernels, impl,
+                      tag="rwkv_long_forward"):
+    """One forward of B 1 x S 2048 through the static engine's bundle:
+    24 ``wkv6`` calls (``impl`` names the instantiation they take), wall
+    and device time, ``wkv6``'s share."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(3, static.bundle.cfg.vocab_size, (1, RWKV_LONG),
+                           generator=gen, device="cuda")
+    long_fwd = lambda: static.bundle.forward(static.params, tokens)
+    out = long_fwd()
+    check(bool(torch.isfinite(out.logits).all())
+          and tuple(out.logits.shape[:2]) == (1, RWKV_LONG),
+          "rwkv long forward: bad logits")
+    del out
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        long_fwd()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    kernels.reset_launch_counts()
+    long_fwd()
+    torch.cuda.synchronize()
+    n_wkv = kernels.launch_counts()["wkv6"]
+    check(n_wkv == RWKV_L, f"rwkv long forward launched wkv6 {n_wkv} times")
+    busy, rows = profile_kernels(long_fwd, _rwkv_long_whole)
+    wkv_rows = [r for r in rows if "wkv6_" in r[0]]
+    emit(phase=tag, batch=1, seq=RWKV_LONG, wall_ms=sorted(walls)[1],
+         device_busy_ms=busy,
+         wkv6_ms=sum(ms for _, ms, _ in wkv_rows),
+         wkv6_share=sum(ms for _, ms, _ in wkv_rows) / busy,
+         wkv6_launches=n_wkv, wkv6_impl=impl,
+         wkv6_kernels=wkv_rows, top_kernels=rows[:8],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del tokens
 
 
 def rwkv_parity_phase(torch):
@@ -2004,8 +2112,9 @@ KERNELS = (
 
 
 # ---------------------------------------------------------------------------
-# Comparison mode: ``chip_smoke.py --ab SRC`` measures ``paged_kv_write``
-# and ``ssm_scan`` as the model calls them, with the port found under SRC
+# Comparison mode: ``chip_smoke.py --ab SRC`` measures ``paged_kv_write``,
+# ``ssm_scan``, ``wkv6`` and ``vtrace`` as the model calls them (and the
+# qwen, hymba and rwkv6 serve paths), with the port found under SRC
 # (this tree's ``src`` or an unpacked parent commit's), through the entry
 # points both trees share.  Run it for the parent and the change in turns
 # on one card; it prints JSON lines only (``profile_serve``'s result also
@@ -2072,6 +2181,29 @@ def ab_main(src: str) -> int:
             emit(phase="ab_ssm_scan", case=case, dtype=dname, B=bb, S=s,
                  ms=time_ms(kern, iters=50),
                  device_ms=device_ms(kern, "ssm_scan_"))
+    # wkv6 as the rwkv6 path calls it, and vtrace at the paper's shape.
+    from repro_torch.kernels import wkv6 as wkv6_mod
+    from repro_torch.kernels.vtrace import vtrace_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    pick = getattr(wkv6_mod, "wkv6_impl", lambda *a: "serial")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for case, bb, s, state in (("prefill", RWKV_B, RWKV_P, False),
+                                   ("decode", RWKV_B, 1, True),
+                                   ("long", RWKV_B, 512, True),
+                                   ("long_b1", 1, RWKV_LONG, False)):
+            args = _wkv6_inputs(torch, dtype, bb, s, RWKV_H, 64, state,
+                                seed=s)
+            kern = lambda: wkv6_cuda(*args)
+            emit(phase="ab_wkv6", case=case, dtype=dname, B=bb, S=s,
+                 impl=pick(bb, s, RWKV_H), ms=time_ms(kern, iters=50),
+                 device_ms=device_ms(kern, "wkv6_"))
+        args = _vtrace_inputs(torch, RL_ACTORS, RL_STEPS, dtype, seed=1)
+        kern = lambda: vtrace_cuda(*args)
+        emit(phase="ab_vtrace", dtype=dname, B=RL_ACTORS, T=RL_STEPS,
+             ms=time_ms(kern, iters=100),
+             device_ms=device_ms(kern, "vtrace_kernel"))
     # The qwen serve path: launches and device time a model pass.
     from repro_torch.launch import profile_serve
 
@@ -2116,6 +2248,25 @@ def ab_main(src: str) -> int:
          ssm_scan_ms=sum(ms for k, ms, _ in rows if "ssm_scan_" in k),
          ssm_scan_launches=n_scans,
          top_kernels=rows[:6])
+    del static, tokens
+    torch.cuda.empty_cache()
+    # The rwkv6 static serve path and its long forward.
+    static = launcher.prepare_static(launcher.build_parser().parse_args([
+        "--engine", "static", "--arch", "rwkv6-1.6b", "--full-width",
+        "--device", "cuda", "--batch", str(RWKV_B), "--max-new-tokens",
+        str(RWKV_NEW)]))
+    static.generate()
+    kernels.reset_launch_counts()
+    _, seconds = launcher.run_static(static)
+    counts = kernels.launch_counts()
+    busy, rows = profile_kernels(static.generate)
+    emit(phase="ab_rwkv_generate", seconds=seconds,
+         tokens_per_s=RWKV_B * RWKV_NEW / seconds, device_busy_ms=busy,
+         kernel_launches=sum(c for _, _, c in rows),
+         wkv6_ms=sum(ms for k, ms, _ in rows if "wkv6_" in k),
+         wkv6_launches=counts["wkv6"], top_kernels=rows[:6])
+    rwkv_long_forward(torch, static, kernels, pick(1, RWKV_LONG, RWKV_H),
+                      tag="ab_rwkv_long_forward")
     return 0
 
 
@@ -2147,7 +2298,8 @@ def main() -> int:
     t0 = time.perf_counter()
     times = build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]
              for name, log in build.build_log.items()}
     emit(phase="build", seconds=time.perf_counter() - t0, nvcc_s=times,
          ptxas=ptxas)

@@ -1,5 +1,5 @@
 // V-trace targets and realigned advantages (paper Eqs. 14-15) in one
-// backward sweep over time.
+// time-parallel scan.
 //
 // Replaces: src/repro/kernels/vtrace_pallas.py, vtrace_pallas
 // (_vtrace_kernel), the Pallas TPU kernel that keeps a [8, T] tile of
@@ -18,38 +18,59 @@
 // What bounds it on an H100: its bytes are few, four [B, T] inputs and
 // the bootstrap read once and two [B, T] float32 outputs written once,
 // 12.0 MB at the paper's B = 500, T = 1000 in float32, 3.6 us at 3.35
-// TB/s.  The real limit is latency: acc is a chain of T dependent
-// multiply-adds per trajectory, and B = 500 trajectories fill only 16
-// warps of a 132-SM card.
+// TB/s.  Walked step by step, acc is a chain of T dependent
+// multiply-adds per trajectory: the first design (a thread per
+// trajectory, a block per 32) gave B = 500 16 blocks on 132 SMs and a
+// chain of 1,000 steps, 111 us.
 //
-// Design: one block per 32 trajectories; time is swept backwards in
-// chunks of 32 steps.  Every input element is read once, along t by
-// consecutive threads (a thread per row would read [B, T] row-major
-// memory with a stride of T), and staged in shared memory with the
-// parts that need no carry already computed there: rho_t * (...) and
-// d_t * c_t.  One thread per trajectory then runs the chunk's 32
-// dependent steps out of shared memory (rows padded to 33 words, so the
-// 32 threads hit 32 banks), and all 128 threads compute the advantages
-// and write both outputs back along t.  The carries from one chunk to
-// the next (acc, V and vs of the chunk's first step) stay in registers
-// and shared memory.  Any B >= 1 and T >= 1; ragged edges are masked.
-// A parallel scan over t ((a, b) pairs of acc -> a + b * acc compose
-// associatively) would shorten the chain; that is for a later change.
+// Design: acc_t = delta_t + a_t acc_{t+1} (a = d c) is an affine map of
+// acc_{t+1}, and affine maps compose associatively, so the chain is a
+// scan.  One warp per trajectory (B warps, four a block); time is cut
+// into tiles of 32 x seg steps (seg = min(32, ceil(T / 32)): T = 1000 is
+// one tile), walked from the last, and in a tile lane j owns the seg
+// consecutive steps from j x seg.  Per tile:
+//   1. the warp reads the tile along t (consecutive lanes, consecutive
+//      steps: coalesced; eight steps' loads issued before any is used,
+//      so a tile costs a few memory latencies, not 32), computes delta
+//      and a there and stores them in shared memory in step order, one
+//      pad word every 32 so that the lanes' segment walks hit distinct
+//      banks; steps past T are the identity map (delta 0, a 1);
+//   2. each lane composes its segment's map, acc_start = A acc_in + B,
+//      walking backwards;
+//   3. an inclusive warp-shuffle scan from the right (offsets 1 .. 16)
+//      composes the maps of lanes j .. 31, so lane j gets the acc at its
+//      segment's start from the acc entering the tile; lane j's acc_in
+//      is lane j + 1's start (the tile's incoming acc for lane 31);
+//   4. each lane re-runs its segment from acc_in and stores every acc_t;
+//   5. the warp writes vs and the advantages along t, with vs_{t+1}
+//      from the neighbouring step (the next tile's first acc across the
+//      tile edge, the bootstrap at T).
+// The dependent chain is ~2 x seg + 5 shuffles a tile instead of T, and
+// B = 500 fills the card with 500 warps.  Every input is read from
+// device memory once (step 5 re-reads V, r and d from L1 / L2).  Any B
+// >= 1 and T >= 1.  The reassociated sums stay within the recurrence's
+// float32 rounding: ref.ref_vtrace_segmented is this algebra, plainly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 32;            // trajectories per block
-constexpr int kChunk = 32;           // time steps staged per pass
-constexpr int kThreads = 128;
-constexpr int kPitch = kChunk + 1;   // row padding against bank conflicts
+constexpr int kWarps = 4;            // trajectories per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxSeg = 32;          // steps a lane owns in a tile
+constexpr int kBatch = 8;            // steps whose loads go out together
+constexpr int kTileWords = 32 * kMaxSeg + kMaxSeg;   // one pad a 32
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+// Step i of a tile in shared memory: one pad word after every 32, so
+// that the 32 lanes' segment walks (lane j at j * seg + m) fall on
+// distinct banks for the seg values that matter (32: banks j + m).
+__device__ __forceinline__ int word(int i) { return i + (i >> 5); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -58,76 +79,110 @@ vtrace_kernel(const T* __restrict__ log_ratios, const T* __restrict__ values,
               const T* __restrict__ discounts, float* __restrict__ vs_out,
               float* __restrict__ adv_out, int n_rows, int n_steps,
               float rho_bar, float c_bar, float lam) {
-  __shared__ float s_val[kRows][kPitch];
-  __shared__ float s_rew[kRows][kPitch];
-  __shared__ float s_disc[kRows][kPitch];
-  __shared__ float s_delta[kRows][kPitch];  // rho, then delta
-  __shared__ float s_dc[kRows][kPitch];     // d * c
-  __shared__ float s_vs[kRows][kPitch];
-  __shared__ float s_v_next[kRows];   // V one step right of the chunk
-  __shared__ float s_vs_next[kRows];  // vs one step right of the chunk
+  __shared__ float s_delta[kWarps][kTileWords];   // delta, then acc
+  __shared__ float s_a[kWarps][kTileWords];       // d * c
 
-  const int row0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const bool sweeps = tid < kRows && row0 + tid < n_rows;
-  if (tid < kRows) {
-    const float boot = sweeps ? to_float(bootstrap[row0 + tid]) : 0.f;
-    s_v_next[tid] = boot;
-    s_vs_next[tid] = boot;
-  }
-  float acc = 0.f;   // the sweeping thread's acc_{t+1}
-  for (int t0 = ((n_steps - 1) / kChunk) * kChunk; t0 >= 0; t0 -= kChunk) {
-    const int len = min(kChunk, n_steps - t0);
-    __syncthreads();   // the previous chunk's tiles are read, carries set
-    // 1. Stage the chunk along t, with rho and d * c.
-    for (int e = tid; e < kRows * kChunk; e += kThreads) {
-      const int r = e / kChunk, j = e % kChunk, row = row0 + r;
-      if (row < n_rows && j < len) {
-        const size_t g = (size_t)row * n_steps + t0 + j;
-        const float ratio = expf(to_float(log_ratios[g]));
-        const float d = to_float(discounts[g]);
-        s_val[r][j] = to_float(values[g]);
-        s_rew[r][j] = to_float(rewards[g]);
-        s_disc[r][j] = d;
-        s_delta[r][j] = fminf(rho_bar, ratio);
-        s_dc[r][j] = d * (lam * fminf(c_bar, ratio));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= n_rows) return;   // whole warps only: no block barrier below
+  float* sd = s_delta[warp];
+  float* sa = s_a[warp];
+  const size_t base = (size_t)row * n_steps;
+  const T* lr_p = log_ratios + base;
+  const T* v_p = values + base;
+  const T* r_p = rewards + base;
+  const T* d_p = discounts + base;
+  const float boot = to_float(bootstrap[row]);
+  const int seg = min(kMaxSeg, (n_steps + 31) / 32);
+  const int tile = 32 * seg;
+  const int own = lane * seg;   // this lane's first step in a tile
+
+  float carry = 0.f;   // acc entering the tile from its right (acc_T = 0)
+  for (int t0 = ((n_steps - 1) / tile) * tile; t0 >= 0; t0 -= tile) {
+    const int n = min(tile, n_steps - t0);
+    // 1. delta and a along t, kBatch steps' loads in flight together.
+    for (int m0 = 0; m0 < seg; m0 += kBatch) {
+      float lr[kBatch], val[kBatch], nxt[kBatch], rew[kBatch], dis[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = (m0 + j) * 32 + lane, t = t0 + i;
+        const bool in = m0 + j < seg && i < n;
+        lr[j] = in ? to_float(lr_p[t]) : 0.f;
+        val[j] = in ? to_float(v_p[t]) : 0.f;
+        nxt[j] = in ? (t + 1 < n_steps ? to_float(v_p[t + 1]) : boot) : 0.f;
+        rew[j] = in ? to_float(r_p[t]) : 0.f;
+        dis[j] = in ? to_float(d_p[t]) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = (m0 + j) * 32 + lane;
+        if (m0 + j >= seg) break;
+        float delta = 0.f, a = 1.f;   // past T: the identity map
+        if (i < n) {
+          const float ratio = expf(lr[j]);
+          delta = fminf(rho_bar, ratio) * (rew[j] + dis[j] * nxt[j] - val[j]);
+          a = dis[j] * (lam * fminf(c_bar, ratio));
+        }
+        sd[word(i)] = delta;
+        sa[word(i)] = a;
       }
     }
-    __syncthreads();
-    // 2. delta_t = rho_t * (r_t + d_t * V_{t+1} - V_t).
-    for (int e = tid; e < kRows * kChunk; e += kThreads) {
-      const int r = e / kChunk, j = e % kChunk;
-      if (row0 + r < n_rows && j < len) {
-        const float v_tp1 = j + 1 < len ? s_val[r][j + 1] : s_v_next[r];
-        s_delta[r][j] *= s_rew[r][j] + s_disc[r][j] * v_tp1 - s_val[r][j];
+    __syncwarp();
+    // 2. This lane's map over its segment, acc_start = mul acc_in + add.
+    float mul = 1.f, add = 0.f;
+#pragma unroll 4
+    for (int m = seg - 1; m >= 0; --m) {
+      const float a = sa[word(own + m)];
+      add = fmaf(a, add, sd[word(own + m)]);
+      mul *= a;
+    }
+    // 3. Compose with the lanes to the right: lane j gets lanes j .. 31.
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const float mul_r = __shfl_down_sync(0xffffffffu, mul, off);
+      const float add_r = __shfl_down_sync(0xffffffffu, add, off);
+      if (lane + off < 32) {
+        add = fmaf(mul, add_r, add);
+        mul *= mul_r;
       }
     }
-    __syncthreads();
-    // 3. The dependent chain, one thread per trajectory.
-    if (sweeps) {
-#pragma unroll 8
-      for (int j = len - 1; j >= 0; --j) {
-        acc = s_delta[tid][j] + s_dc[tid][j] * acc;
-        s_vs[tid][j] = s_val[tid][j] + acc;
+    const float start = fmaf(mul, carry, add);   // acc at the segment start
+    float acc = __shfl_down_sync(0xffffffffu, start, 1);
+    if (lane == 31) acc = carry;
+    // 4. Re-run the segment from its true incoming acc.
+#pragma unroll 4
+    for (int m = seg - 1; m >= 0; --m) {
+      const int w = word(own + m);
+      acc = fmaf(sa[w], acc, sd[w]);
+      sd[w] = acc;
+    }
+    const float next_carry = __shfl_sync(0xffffffffu, start, 0);
+    __syncwarp();
+    // 5. vs and the advantages along t (V, r, d again, from L1 / L2).
+    for (int m0 = 0; m0 < seg; m0 += kBatch) {
+      float val[kBatch], nxt[kBatch], rew[kBatch], dis[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = (m0 + j) * 32 + lane, t = t0 + i;
+        const bool in = m0 + j < seg && i < n;
+        val[j] = in ? to_float(v_p[t]) : 0.f;
+        nxt[j] = in ? (t + 1 < n_steps ? to_float(v_p[t + 1]) : boot) : 0.f;
+        rew[j] = in ? to_float(r_p[t]) : 0.f;
+        dis[j] = in ? to_float(d_p[t]) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = (m0 + j) * 32 + lane, t = t0 + i;
+        if (m0 + j >= seg) break;
+        if (i < n) {
+          const float acc_next = i + 1 < n ? sd[word(i + 1)] : carry;
+          vs_out[base + t] = val[j] + sd[word(i)];
+          adv_out[base + t] = rew[j] + dis[j] * (nxt[j] + acc_next) - val[j];
+        }
       }
     }
-    __syncthreads();
-    // 4. adv_t = r_t + d_t * vs_{t+1} - V_t; both outputs along t.
-    for (int e = tid; e < kRows * kChunk; e += kThreads) {
-      const int r = e / kChunk, j = e % kChunk, row = row0 + r;
-      if (row < n_rows && j < len) {
-        const float vs = s_vs[r][j];
-        const float vs_tp1 = j + 1 < len ? s_vs[r][j + 1] : s_vs_next[r];
-        const size_t g = (size_t)row * n_steps + t0 + j;
-        vs_out[g] = vs;
-        adv_out[g] = s_rew[r][j] + s_disc[r][j] * vs_tp1 - s_val[r][j];
-      }
-    }
-    __syncthreads();
-    if (sweeps) {
-      s_v_next[tid] = s_val[tid][0];
-      s_vs_next[tid] = s_vs[tid][0];
-    }
+    __syncwarp();   // the tile's shared rows are consumed
+    carry = next_carry;
   }
 }
 
@@ -137,7 +192,7 @@ cudaError_t launch(const void* log_ratios, const void* values,
                    const void* discounts, float* vs, float* adv, int n_rows,
                    int n_steps, float rho_bar, float c_bar, float lam,
                    cudaStream_t stream) {
-  const int blocks = (n_rows + kRows - 1) / kRows;
+  const int blocks = (n_rows + kWarps - 1) / kWarps;
   vtrace_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(log_ratios), static_cast<const T*>(values),
       static_cast<const T*>(bootstrap), static_cast<const T*>(rewards),

@@ -242,6 +242,72 @@ def ref_vtrace(
     return out.vs, out.advantages
 
 
+def ref_vtrace_segmented(
+    log_ratios: torch.Tensor,
+    values: torch.Tensor,
+    bootstrap_value: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    rho_bar: float = 1.0,
+    c_bar: float = 1.0,
+    lam: float = 1.0,
+    *,
+    seg: int,
+):
+    """:func:`ref_vtrace` in the time-parallel form the card's kernel
+    computes, written plainly to pin down its algebra (the tests hold it
+    to the step-by-step recurrence).  ``acc_t = delta_t + a_t acc_{t+1}``
+    (``a = d c``) is an affine map of ``acc_{t+1}``, and such maps
+    compose.  Time is cut into tiles of ``32 * seg`` steps, walked from
+    the last; a tile's 32 lanes each own ``seg`` consecutive steps
+    (steps past T are identity maps): (1) each lane composes its
+    segment's map backwards, (2) an inclusive scan from the right over
+    the lanes (offsets 1, 2, 4, 8, 16, as the warp's shuffles run) gives
+    each lane the acc at its segment's start from the tile's incoming
+    acc, (3) each lane re-runs its segment from the acc its right
+    neighbour starts with; the first lane's start is the next tile's
+    incoming acc.  Returns ``(vs, advantages)`` float32."""
+    from repro_torch.core.gae import _tp1
+
+    lr, val, boot, rew, disc = (x.float() for x in (
+        log_ratios, values, bootstrap_value, rewards, discounts))
+    ratio = torch.exp(lr)
+    rho = torch.clamp(ratio, max=rho_bar)
+    a_all = disc * (lam * torch.clamp(ratio, max=c_bar))
+    delta_all = rho * (rew + disc * _tp1(val, boot) - val)
+    bsz, t_len = val.shape
+    tile = 32 * seg
+    acc_all = torch.empty_like(val)
+    carry = torch.zeros_like(boot)
+    for t0 in reversed(range(0, t_len, tile)):
+        n = min(tile, t_len - t0)
+        delta = torch.zeros((bsz, tile), device=val.device)
+        a = torch.ones((bsz, tile), device=val.device)
+        delta[:, :n] = delta_all[:, t0:t0 + n]
+        a[:, :n] = a_all[:, t0:t0 + n]
+        delta, a = delta.view(bsz, 32, seg), a.view(bsz, 32, seg)
+        mul = torch.ones((bsz, 32), device=val.device)
+        add = torch.zeros((bsz, 32), device=val.device)
+        for m in reversed(range(seg)):
+            add = delta[:, :, m] + a[:, :, m] * add
+            mul = a[:, :, m] * mul
+        for off in (1, 2, 4, 8, 16):
+            mul_r = torch.cat([mul[:, off:], torch.ones_like(mul[:, :off])], 1)
+            add_r = torch.cat([add[:, off:], torch.zeros_like(add[:, :off])],
+                              1)
+            mul, add = mul * mul_r, mul * add_r + add
+        start = mul * carry[:, None] + add          # acc at each lane's start
+        acc = torch.cat([start[:, 1:], carry[:, None]], 1)
+        out = torch.empty_like(delta)
+        for m in reversed(range(seg)):
+            acc = delta[:, :, m] + a[:, :, m] * acc
+            out[:, :, m] = acc
+        acc_all[:, t0:t0 + n] = out.reshape(bsz, tile)[:, :n]
+        carry = start[:, 0]
+    vs = val + acc_all
+    return vs, rew + disc * _tp1(vs, boot) - val
+
+
 # ---------------------------------------------------------------------------
 # WKV6 linear-attention recurrence (rwkv6 time-mix)
 # ---------------------------------------------------------------------------
@@ -274,6 +340,94 @@ def ref_wkv6(
         ys.append(torch.einsum("bhkv,bhk->bhv", big_s + u32 * kv, r_t))
         big_s = w_t[..., :, None] * big_s + kv
     return torch.stack(ys, dim=1).to(r.dtype), big_s
+
+
+def _wkv6_sub(r, k, v, w, u, big_s):
+    """One sub-chunk of L steps from state ``big_s`` [B, H, K, V], every
+    operand float32: ``(y [B, L, H, V], the state after it)``.  Decays
+    enter only as products of w over spans of steps, each at most 1:
+    ``pre_t`` over the steps before t, ``suf_i`` over those after i, and
+    ``pair[t, i]`` over those strictly between i and t (a row of w with
+    the steps at or after t set to 1, its suffix products, shifted).  No
+    logarithm and no division, so w = 0 gives an exact 0."""
+    n = r.shape[1]
+    ones = torch.ones_like(w[:, :1])
+    pre = torch.cat([ones, torch.cumprod(w, 1)[:, :-1]], 1)
+    total = torch.cumprod(w, 1)[:, -1]                          # [B, H, K]
+    suf = torch.cat([torch.cumprod(w.flip(1), 1).flip(1)[:, 1:], ones], 1)
+    idx = torch.arange(n, device=r.device)
+    before = (idx[None, :] < idx[:, None])                      # [t, j]
+    rows = torch.where(before[None, :, :, None, None], w[:, None],
+                       torch.ones_like(w[:, None]))             # [B,t,j,H,K]
+    between = torch.cumprod(rows.flip(2), 2).flip(2)
+    pair = torch.cat([between[:, :, 1:], torch.ones_like(between[:, :, :1])],
+                     2)                                         # [B,t,i,H,K]
+    scores = torch.einsum("bthk,bihk,btihk->bhti", r, k, pair)
+    scores = scores * before[None, None].float()
+    scores = scores + torch.diag_embed(
+        torch.einsum("bthk,hk,bthk->bht", r, u, k))
+    y = (torch.einsum("bhti,bihv->bthv", scores, v)
+         + torch.einsum("bthk,bhkv->bthv", r * pre, big_s))
+    new_s = (total[..., None] * big_s
+             + torch.einsum("bihk,bihv->bhkv", k * suf, v))
+    return y, new_s
+
+
+def ref_wkv6_chunked(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: Optional[torch.Tensor] = None,
+    *,
+    chunk: int,
+    sub: int = 16,
+):
+    """:func:`ref_wkv6` in the chunked form the card's kernels compute,
+    written plainly to pin down its algebra (the tests hold it to the
+    step-by-step recurrence).  Within a sub-chunk of ``sub`` steps from
+    state S, with decay products that never exceed 1 (:func:`_wkv6_sub`):
+    ``y_t = sum_{i<t} (r_t . (k_i * pair_ti)) v_i + (r_t . u k_t) v_t
+    + (r_t * pre_t) S`` and ``S <- diag(total) S + (k * suf)^T v``; the
+    off-diagonal blocks of a longer chunk are those sub-chunks' products
+    through the state.  Segments of ``chunk`` steps (a multiple of
+    ``sub`` on the card) run as its split instantiation does: (1) each
+    segment's end state from zero, through its sub-chunks, (2) the carry
+    of true start states, ``S <- diag(prod w) S + local``, from
+    ``state``, (3) each segment re-run from its true start for y; the
+    last segment's end state is the final state.  ``chunk >= S`` is the
+    one-segment instantiation.  Returns ``(y`` in r's dtype, the final
+    state float32)."""
+    bsz, s, h, kd = r.shape
+    vd = v.shape[-1]
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    u32 = u.float()
+    zero = torch.zeros((bsz, h, kd, vd), dtype=torch.float32,
+                       device=r.device)
+    carry = zero if state is None else state.float()
+
+    def run(t0, t1, big_s):
+        ys = []
+        for a in range(t0, t1, sub):
+            span = slice(a, min(a + sub, t1))
+            y, big_s = _wkv6_sub(r32[:, span], k32[:, span], v32[:, span],
+                                 w32[:, span], u32, big_s)
+            ys.append(y)
+        return ys, big_s
+
+    spans = [(t0, min(t0 + chunk, s)) for t0 in range(0, s, chunk)]
+    starts = []
+    for t0, t1 in spans:
+        starts.append(carry)
+        _, local = run(t0, t1, zero)
+        decay = torch.prod(w32[:, t0:t1], 1)                    # [B, H, K]
+        carry = decay[..., None] * carry + local
+    ys = []
+    for (t0, t1), start in zip(spans, starts):
+        y, big_s = run(t0, t1, start)
+        ys += y
+    return torch.cat(ys, dim=1).to(r.dtype), big_s
 
 
 # ---------------------------------------------------------------------------

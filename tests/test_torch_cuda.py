@@ -309,7 +309,8 @@ def _vtrace_case(dev, dtype, b, t, seed=0):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("b,t", [(1, 5), (4, 13), (8, 64), (13, 100),
-                                 (33, 1), (500, 1000)])
+                                 (33, 1), (500, 1000), (1, 1), (3, 31),
+                                 (3, 33), (2, 4096)])
 def test_vtrace_kernel_matches_plain(dev, dtype, tol, b, t, clips):
     from repro_torch.kernels.vtrace import vtrace_cuda
 
@@ -323,6 +324,21 @@ def test_vtrace_kernel_matches_plain(dev, dtype, tol, b, t, clips):
     for got, want in ((vs, want_vs), (adv, want_adv)):
         assert got.dtype == torch.float32 and got.shape == (b, t)
         assert (got - want).abs().max().item() <= tol * max(
+            1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("disc", [0.0, 1.0])
+def test_vtrace_kernel_at_all_dones_and_no_dones(dev, disc):
+    """Every step an episode end (each map constant) or none (the maps
+    chain across every lane and tile edge of T 4100)."""
+    from repro_torch.kernels.vtrace import vtrace_cuda
+
+    args = _vtrace_case(dev, torch.float32, 5, 4100, seed=3)
+    args = args[:4] + (torch.full_like(args[4], disc),)
+    vs, adv = vtrace_cuda(*args, lam=0.95)
+    want_vs, want_adv = ref.ref_vtrace(*args, lam=0.95)
+    for got, want in ((vs, want_vs), (adv, want_adv)):
+        assert (got - want).abs().max().item() <= 1e-5 * max(
             1.0, want.abs().max().item())
 
 
@@ -380,6 +396,47 @@ def test_wkv6_kernel_matches_plain(dev, dtype, tol, b, s, h, kd, state):
             1.0, want.float().abs().max().item())
 
 
+@pytest.mark.parametrize("impl", ["serial", "chunked", "split"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kd,state,decay", [
+    (8, 32, 32, 64, False, None),     # the serve prefill
+    (1, 2048, 32, 64, False, None),   # the long forward's layer
+    (2, 63, 3, 64, True, None),       # 16-step sub-chunk edges
+    (2, 64, 3, 64, True, None),
+    (2, 65, 3, 64, True, None),
+    (1, 129, 2, 64, True, None),
+    (1, 1000, 3, 64, True, None),     # a ragged last segment
+    (2, 130, 2, 64, True, "mix"),     # exact 0s, exact 1s, 1e-6
+    (2, 17, 1, 8, True, None),        # K 8 padded on chip
+    (2, 50, 3, 32, True, None)])
+def test_wkv6_instantiations_match_plain(dev, dtype, tol, b, s, h, kd,
+                                         state, decay, impl):
+    """Each instantiation, forced, against ``ref_wkv6``: one launch a
+    call, finite outputs."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    args = _wkv6_case(dev, torch.float32, b, s, h, kd, state, seed=s + h)
+    if decay == "mix":
+        g = torch.Generator().manual_seed(s)
+        m = torch.rand(args[3].shape, generator=g).to(dev)
+        w = args[3]
+        w[m < 0.2] = 0.0
+        w[(m >= 0.2) & (m < 0.4)] = 1.0
+        w[(m >= 0.4) & (m < 0.5)] = 1e-6
+    args = [a.to(dtype) for a in args[:5]] + args[5:]
+    want_y, want_sf = ref.ref_wkv6(*args)
+    kernels.reset_launch_counts()
+    y, sf = wkv6_cuda(*args, impl=impl)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wkv6"] == 1
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    for got, want in ((y, want_y), (sf, want_sf)):
+        assert bool(torch.isfinite(got).all())
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
 def test_wkv6_kernel_extreme_decay_stays_finite(dev):
     from repro_torch.kernels.wkv6 import wkv6_cuda
 
@@ -415,6 +472,15 @@ def test_wkv6_dispatch_and_refusals(dev):
         wkv6_cuda(r.half(), k.half(), v.half(), w.half(), u.half(), s0)
     with pytest.raises(ValueError, match="bad shapes"):
         wkv6_cuda(r, k, v, w, u[:2], s0)
+    with pytest.raises(ValueError, match="impl"):
+        wkv6_cuda(r, k, v, w, u, s0, impl="fast")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        wkv6_cuda(r, k, v[..., :60].contiguous(), w, u, s0[..., :60]
+                  .contiguous(), impl="chunked")
+    kernels.reset_launch_counts()
+    wkv6_cuda(r, k, v[..., :60].contiguous(), w, u,
+              s0[..., :60].contiguous())          # V 60 takes the serial one
+    assert kernels.launch_counts()["wkv6"] == 1
 
 
 def test_rwkv_decode_step_on_card_launches_wkv6_and_matches_cpu(dev):

@@ -8,9 +8,11 @@ sampling is token-exact.  The CUDA kernel is held to the same plain
 version on the card (``test_torch_cuda.py``, ``chip_smoke.py``).
 
 Tolerances and why:
-* ``ref_wkv6`` against the Pallas kernel in interpret mode 3e-4, the JAX
-  kernel test's: the chunked form sums in another order and through
-  exp/log of the decays;
+* ``ref_wkv6`` and ``ref_wkv6_chunked`` against the Pallas kernel in
+  interpret mode 3e-4, the JAX kernel test's: the chunked form sums in
+  another order and through exp/log of the decays;
+* ``ref_wkv6_chunked`` against JAX's step-by-step ``ref_wkv6`` 1e-5: it
+  takes the decays as products over spans of steps, never their logs;
 * against JAX's step-by-step ``ref_wkv6`` 1e-5: the same float32
   recurrence, einsum sums in another order;
 * blocks, generation (log_beta, values) and the cache 1e-5; model logits
@@ -131,6 +133,85 @@ def test_ref_wkv6_and_the_cpu_route_match_jax(case):
         assert bool(torch.isfinite(y).all())
         _close(y, y_j, 1e-5)
         _close(sf, sf_j, 1e-5)
+
+
+@pytest.mark.parametrize("decay", [None, 1e-6], ids=["mid", "tiny"])
+@pytest.mark.parametrize("s,h,kd,chunk", [
+    (50, 2, 16, 16), (64, 2, 32, 32), (100, 1, 64, 64), (33, 3, 8, 16),
+    (130, 1, 16, 32)])
+def test_ref_wkv6_chunked_matches_the_pallas_kernel(s, h, kd, chunk, decay):
+    """The card's chunked algebra (16-step sub-chunks through the state,
+    segments of ``chunk`` steps carried across) against the Pallas kernel
+    at the same chunk, ragged S included."""
+    args = _wkv_inputs(2, s, h, kd, kd, seed=s + kd, decay=decay)
+    jargs, targs = _both(args)
+    y_p, sf_p = wkv6_pallas(*jargs, chunk=chunk, interpret=True)
+    y, sf = ref.ref_wkv6_chunked(*targs, chunk=chunk)
+    _close(y, y_p, 3e-4)
+    _close(sf, sf_p, 3e-4)
+
+
+@pytest.mark.parametrize("chunk,sub", [(16, 16), (32, 16), (64, 16),
+                                       (200, 16), (24, 8), (12, 4)])
+def test_ref_wkv6_chunked_matches_the_recurrence(chunk, sub):
+    """Every segment and sub-chunk length, ragged last ones included,
+    against JAX's step-by-step recurrence."""
+    jargs, targs = _both(_wkv_inputs(2, 70, 2, 32, 32, seed=chunk + sub))
+    y_j, sf_j = jax_ref.ref_wkv6(*jargs)
+    y, sf = ref.ref_wkv6_chunked(*targs, chunk=chunk, sub=sub)
+    _close(y, y_j, 1e-5)
+    _close(sf, sf_j, 1e-5)
+
+
+def _zero_decays(w, seed):
+    """Decays with exact 0s, exact 1s and 1e-6 mixed in (the model's
+    ``exp(-exp(decay_raw))`` is 0 in float32 once decay_raw > ~4.6)."""
+    m = np.random.default_rng(seed).random(w.shape)
+    w = w.copy()
+    w[m < 0.2] = 0.0
+    w[(m >= 0.2) & (m < 0.4)] = 1.0
+    w[(m >= 0.4) & (m < 0.5)] = 1e-6
+    return w
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_ref_wkv6_chunked_is_exact_at_zero_decay(chunk):
+    """Decays of exactly 0: the Pallas kernel's log(0) gives NaN
+    (ROADMAP C3), the step-by-step recurrence and the chunked form (which
+    multiplies decays and never takes their logarithm) stay finite and
+    agree."""
+    args = _wkv_inputs(2, 81, 2, 16, 16, seed=chunk)
+    args[3] = _zero_decays(args[3], seed=chunk)
+    jargs, targs = _both(args)
+    y_p, _ = wkv6_pallas(*jargs, chunk=chunk, interpret=True)
+    assert not np.isfinite(np.asarray(y_p)).all()
+    y_j, sf_j = jax_ref.ref_wkv6(*jargs)
+    for y, sf in (ref.ref_wkv6_chunked(*targs, chunk=chunk),
+                  ref.ref_wkv6(*targs)):
+        assert bool(torch.isfinite(y).all() and torch.isfinite(sf).all())
+        _close(y, y_j, 1e-5)
+        _close(sf, sf_j, 1e-5)
+
+
+@pytest.mark.parametrize("b,s,h,impl,seg", [
+    (8, 1, 32, "serial", 0), (8, 4, 32, "serial", 0),
+    (8, 8, 32, "chunked", 0), (8, 32, 32, "chunked", 0),
+    (8, 512, 32, "chunked", 0), (8, 2048, 32, "chunked", 0),
+    (4, 2048, 32, "chunked", 0), (2, 64, 32, "chunked", 0),
+    (1, 127, 32, "chunked", 0), (2, 128, 32, "split", 32),
+    (1, 2048, 32, "split", 256), (1, 1000, 3, "split", 16)])
+def test_wkv6_instantiation_follows_length_and_grid(b, s, h, impl, seg):
+    """A decode step and prefills under 8 steps take the serial kernel;
+    the chunked one takes over from S 8, and the split one from S 128
+    while B x H blocks fill at most half of the 132 SMs (rwkv6's B 1 x S
+    2048 forward, not B 4 or 8), in segments of a multiple of 16 steps
+    that give its emitting grid at most two blocks an SM."""
+    from repro_torch.kernels.wkv6 import split_steps, wkv6_impl
+
+    assert wkv6_impl(b, s, h) == impl
+    if seg:
+        assert split_steps(b, s, h) == seg
+        assert b * h * -(-s // seg) <= 2 * 132
 
 
 def test_ref_wkv6_keeps_bfloat16_outputs_and_a_float32_state():

@@ -10,7 +10,7 @@ is held to the same plain version on the card (``test_torch_cuda.py``,
 
 Tolerances: float32 within 1e-5 of max(1, |ref|) (the JAX kernel sweep's
 tolerance; both sides run the same float32 recurrence in another
-operation order).
+operation order, ``ref_vtrace_segmented`` reassociated as a scan).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +85,36 @@ def test_vtrace_matches_the_quadratic_oracle(clips):
     for got in (naive_vtrace(**_torch(x), **kw), vtrace(**_torch(x), **kw)):
         _close(got.vs, want.vs)
         _close(got.advantages, want.advantages)
+
+
+@pytest.mark.parametrize("clips", CLIPS, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("seg", [1, 7, 32])
+@pytest.mark.parametrize("b,t", [(3, 1), (4, 13), (2, 225), (2, 1100)])
+def test_ref_vtrace_segmented_matches_jax(b, t, seg, clips):
+    """The card's time-parallel algebra (tiles of 32 x seg steps, a
+    lane's segment composed as an affine map, a scan over the lanes, the
+    segments re-run) against the JAX recurrence, ragged tiles included."""
+    rho_bar, c_bar, lam = clips
+    x = _inputs(b, t, seed=b + t + seg)
+    kw = dict(rho_bar=rho_bar, c_bar=c_bar, lam=lam)
+    want = jax_vtrace(**{k: jnp.asarray(v) for k, v in x.items()}, **kw)
+    vs, adv = ref.ref_vtrace_segmented(
+        *[torch.from_numpy(x[k]) for k in NAMES], **kw, seg=seg)
+    _close(vs, want.vs)
+    _close(adv, want.advantages)
+
+
+def test_ref_vtrace_segmented_at_all_dones_and_no_dones():
+    """Zero discounts everywhere (every map constant) and none (the maps
+    chain through every tile edge)."""
+    for disc in (0.0, 0.99):
+        x = _inputs(3, 300, seed=8)
+        x["discounts"] = np.full_like(x["discounts"], disc)
+        want = jax_vtrace(**{k: jnp.asarray(v) for k, v in x.items()})
+        vs, adv = ref.ref_vtrace_segmented(
+            *[torch.from_numpy(x[k]) for k in NAMES], seg=3)
+        _close(vs, want.vs)
+        _close(adv, want.advantages)
 
 
 def test_impala_pg_advantage_matches_jax():
