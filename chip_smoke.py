@@ -151,6 +151,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
     attention in the kernel's place is as far from the CPU at S 1100:
     ``tests/test_torch_cuda.py``'s hymba logits-gap test.)
 
+19. serve-producer RLVR: ``repro_torch.launch.train rlvr --full-width
+    --producer serve --forced-lag 2 --controller
+    "tv_gate:delta=0.05,mode=downweight"`` in-process, cut as phase 7 is
+    (2 warmup steps, one phase of 2 minibatches): every item's tokens
+    carry the one version ``resolve_lagged(-2)`` gave when it was
+    produced; the three paged kernels launched; ``fused_logprob_bwd``
+    once a learner step, ``fused_logprob`` once a learner step and once
+    a TV-gate scoring, ``flash_attention`` once a layer for each no-grad
+    forward (scorings and eval prefills); finite warmup loss, tv,
+    weights and grad norms, and the params moved.  Generation tokens/s
+    over the ``produce`` spans, learner step ms, the engine's swaps,
+    each item's lag; then one more minibatch timed and one profiled
+    (device idle share).
+20. swap parity: 2 layers at full width, dense weights scaled x3, one
+    engine over a ``PolicyStore`` (``swap_interval=1``) on ``cpu``
+    (plain path) and on ``cuda`` (kernels), a second policy published
+    before step 4: greedy and sampled (the same Gumbel noise on both)
+    give equal token streams, equal per-token versions (a request spans
+    the swap) and one swap each, each engine serving the ring's own
+    tensors (no copy); log_beta within 1e-4.
+
 Then one JSON line of every kernel's numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -2086,6 +2107,202 @@ def hymba_parity_phase(torch):
     emit(**rec)
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-20: RLVR through the serve engine
+# ---------------------------------------------------------------------------
+
+SERVE_RLVR_ARGS = [
+    "rlvr", "--full-width", "--device", "cuda", "--warmup-steps", "2",
+    "--n-minibatches", "2", "--phases", "1", "--producer", "serve",
+    "--forced-lag", "2", "--controller", "tv_gate:delta=0.05,mode=downweight"]
+
+
+def serve_rlvr_phase(torch):
+    """``train rlvr --full-width --producer serve --forced-lag 2`` with the
+    TV gate, cut as phase 7 is; then one more minibatch, timed, and one
+    profiled."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.runtime import ServeRolloutProducer
+    from repro_torch.utils.tree import tree_leaves
+
+    args = launcher.build_parser().parse_args(SERVE_RLVR_ARGS)
+    tracer = Tracer(detail="spans")
+    items = []
+    put = ServeRolloutProducer._put
+
+    def recording_put(self, mb, **meta):
+        # The store has not moved since this minibatch was produced
+        # (phase-locked), so this is the version the lag resolved to.
+        items.append((sorted(set(np.asarray(mb.versions).ravel().tolist())),
+                      self.store.resolve_lagged(-self.version_offset),
+                      self.engine.version))
+        put(self, mb, **meta)
+
+    torch.cuda.reset_peak_memory_stats()
+    ServeRolloutProducer._put = recording_put
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, res, warm_loss = launcher.run(args, tracer)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        ServeRolloutProducer._put = put
+    cfg, hp, engine = trainer.bundle.cfg, trainer.hp, trainer.engine
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size) == (24, 896, 14, 2, 4864, 151936),
+          f"serve rlvr phase is not full width: {cfg}")
+    steps = len(res.phase_logs)
+    check(steps == hp.n_minibatches and trainer.nonfinite_skipped == 0,
+          f"{steps} learner steps logged of {hp.n_minibatches}")
+    check(len(items) == steps and all(
+        got == [want] and want == served for got, want, served in items),
+        f"items' versions against resolve_lagged(-2): {items}")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the serve-producer path")
+    # One backward a learner step; one forward a learner step and one a
+    # TV-gate scoring (every item is scored once, none dropped).
+    check(launches["fused_logprob_bwd"] == steps
+          and launches["fused_logprob"] == 2 * steps,
+          f"log-prob kernels launched {launches['fused_logprob']} / "
+          f"{launches['fused_logprob_bwd']} times in {steps} learner steps")
+    # flash: each TV scoring's forward and each eval generate's prefill,
+    # once a layer; the engine's prefill is paged.
+    forwards = steps + 1 + len(res.eval_accuracy)
+    check(launches["flash_attention"] == cfg.n_layers * forwards,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"for {forwards} no-grad forwards of {cfg.n_layers} layers")
+    gnorm = trainer.metrics.histogram("train_grad_norm").summary()
+    check(math.isfinite(warm_loss) and all(
+        math.isfinite(l.tv) and math.isfinite(l.weight)
+        for l in res.phase_logs) and math.isfinite(gnorm["max"]),
+        "non-finite warmup loss, tv, weight or grad norm")
+    # The init (v0, which the engine still holds) against the trained
+    # params; and the RL phase alone (v1, the warm-started base).
+    moved = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(trainer.state.params), tree_leaves(engine.params)))
+    moved_rl = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(trainer.state.params),
+        tree_leaves(trainer.store.get(1))))
+    check(moved > 0, "serve rlvr phase: the params did not move")
+    produce = _span_seconds(tracer, "produce")
+    tokens_out = engine.stats.tokens_out
+    step = trainer.metrics.histogram("train_step_s").summary()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # One more minibatch through the engine: wall, then device time.
+    produce_one = trainer.regime._produce_minibatch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    produce_one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, rows = profile_kernels(produce_one)
+    emit(phase="serve_rlvr", config=cfg.name, layers=cfg.n_layers,
+         seconds=seconds, warmup_loss=warm_loss,
+         eval_accuracy=res.eval_accuracy, learner_steps=steps,
+         learner_step_p50_ms=step["p50"] * 1e3,
+         learner_step_mean_ms=step["mean"] * 1e3,
+         minibatches_generated=len(produce), tokens_out=tokens_out,
+         generation_tokens_per_s=tokens_out / sum(produce),
+         swaps=engine.stats.swaps,
+         forced_versions=[want for _, want, _ in items],
+         item_lag=[l.staleness for l in res.phase_logs],
+         tv=[l.tv for l in res.phase_logs],
+         weight=[l.weight for l in res.phase_logs],
+         mean_reward=[l.mean_reward for l in res.phase_logs],
+         grad_norm_max=gnorm["max"], max_param_change=moved,
+         max_param_change_rl=moved_rl, peak_memory_gib=peak,
+         launches=launches)
+    emit(phase="serve_rlvr_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+         kernel_launches=sum(n for _, _, n in rows), top_kernels=rows[:8])
+    return launches
+
+
+SWAP_PUBLISH_AT = 4         # the step before which v1 is published
+
+
+def swap_parity_phase(torch):
+    """2 layers at full width over a ``PolicyStore``, ``swap_interval=1``,
+    one publish mid-generation: the CPU's plain path against the card's
+    kernels, greedy and sampled on the same Gumbel noise."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.mathgen import MathTaskDataset
+    from repro_torch.data.tokenizer import get_tokenizer
+    from repro_torch.models.registry import build
+    from repro_torch.rollout.sampler import gumbel_noise, sample
+    from repro_torch.runtime import PolicyStore
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.tree import tree_leaves, tree_to
+
+    cfg = get_config("qwen2.5-0.5b").replace(n_layers=2)
+    bundle = build(cfg)
+    policies = [_scale_dense(bundle.init(torch.Generator().manual_seed(s)))
+                for s in (0, 1)]
+    tok = get_tokenizer()
+    toks, _, _ = MathTaskDataset(prompt_len=32, seed=1).sample_batch(4)
+    prompts = [row[row != tok.pad_id] for row in toks]
+    rec = dict(phase="swap_parity", config=cfg.name, layers=cfg.n_layers,
+               publish_at_step=SWAP_PUBLISH_AT, tol=1e-4)
+    for mode, temperature in (("greedy", 0.0), ("sampled", 1.0)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            store = PolicyStore(tree_to(policies[0], dev), capacity=2)
+            eng = ServeEngine(bundle, store=store, swap_interval=1,
+                              num_blocks=128, block_size=8, max_batch=4,
+                              decode_chunk=4, prefill_chunk=16,
+                              dispatch_budget=32, temperature=temperature,
+                              seed=2, device=dev)
+            noise = torch.Generator().manual_seed(5)
+            eng._sample = lambda logits, e=eng, g=noise: sample(
+                logits, e._temperature, e._top_p,
+                gumbel_noise(logits.shape, g, "cpu").to(logits.device))
+            for i, p in enumerate(prompts):
+                eng.submit(p, (8, 16, 24, 16)[i], request_id=i)
+            trajs, step = {}, 0
+            while eng.has_work and step < 1000:
+                if step == SWAP_PUBLISH_AT:
+                    store.publish(tree_to(policies[1], dev))
+                trajs.update({t.request_id: t for t in eng.step()})
+                step += 1
+            ring = {t.untyped_storage().data_ptr()
+                    for t in tree_leaves(store.buffer.stacked)}
+            check({t.untyped_storage().data_ptr()
+                   for t in tree_leaves(eng.params)} <= ring,
+                  f"swap parity/{mode}: the {dev} engine serves a copy")
+            out[dev] = (trajs, eng.stats.swaps)
+        (want, w_swaps), (got, g_swaps) = out["cpu"], out["cuda"]
+        check(sorted(want) == sorted(got) == [0, 1, 2, 3],
+              f"swap parity/{mode}: not every request retired")
+        check(w_swaps == g_swaps == 1,
+              f"swap parity/{mode}: swaps {w_swaps} / {g_swaps}")
+        worst = 0.0
+        for rid, w in want.items():
+            g = got[rid]
+            check(g.tokens.tolist() == w.tokens.tolist()
+                  and g.versions.tolist() == w.versions.tolist(),
+                  f"swap parity/{mode}: request {rid} differs: "
+                  f"{g.tokens} v{g.versions} / {w.tokens} v{w.versions}")
+            worst = max(worst, float(abs(g.log_beta - w.log_beta).max()))
+        check(worst <= 1e-4,
+              f"swap parity/{mode}: log_beta differs by {worst}")
+        crossing = sum(len(set(t.versions.tolist())) > 1
+                       for t in want.values())
+        check(crossing > 0, f"swap parity/{mode}: no request spans the swap")
+        rec[mode] = dict(
+            tokens=sum(t.num_tokens for t in want.values()),
+            requests_spanning_swap=crossing,
+            distinct_tokens=len({int(x) for t in want.values()
+                                 for x in t.tokens}),
+            log_beta_max_abs_err=worst)
+    emit(**rec)
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -2327,6 +2544,8 @@ def main() -> int:
     hymba = hymba_serve_phase(torch)
     launches.update({k: hymba[k] for k in ("flash_attention", "ssm_scan")})
     hymba_parity_phase(torch)
+    serve_rlvr_phase(torch)
+    swap_parity_phase(torch)
 
     rows = []
     for name, source, replaces in KERNELS:

@@ -11,21 +11,27 @@ classic RL (§5.1) and forward-lag RLVR (§5.2).
       --algorithm grpo_vaco --n-minibatches 4 --phases 10 \\
       [--full-width] [--device cpu]
 
+  # RLVR with the ServeEngine as the rollout producer: real per-token
+  # {version, log_beta} provenance under a scripted 2-back lag
+  PYTHONPATH=src python -m repro_torch.launch.train rlvr \\
+      --producer serve --forced-lag 2 \\
+      --controller "tv_gate:delta=0.05,mode=downweight" --phases 10
+
 Same flags, defaults and printout as ``repro.launch.train`` for the
 parts ported, plus ``--device``.  ``rl`` runs all five algorithms and
 all five envs under the ``backward_mixture`` and ``forward_n`` runtimes.
-``rlvr`` runs the legacy producer (``ForwardLagGenerator``) under
-``forward_n``; ``--full-width`` trains ``get_config("qwen2.5-0.5b")``
-(24 layers, vocab 151936) instead of ``reduced_config``.  Weights are a
-random init from ``--seed``.  Both take the ``pass_through``,
-``max_lag`` and ``tv_gate`` controllers (``rlvr`` also
-``tv_gate_tokenwise``).
+``rlvr`` runs the legacy producer (``ForwardLagGenerator``) or the serve
+engine (``--producer serve``, ``--forced-lag``, ``--request-deadline``)
+under ``forward_n``; ``--full-width`` trains
+``get_config("qwen2.5-0.5b")`` (24 layers, vocab 151936) instead of
+``reduced_config``.  Weights are a random init from ``--seed``.  Both
+take the ``pass_through``, ``max_lag`` and ``tv_gate`` controllers
+(``rlvr`` also ``tv_gate_tokenwise``).
 
 Not ported yet (each exits with a message): ``--runtime threaded``, the
 controllers ``gac``, ``stable_async`` and ``asympo``, and
-``--checkpoint-dir``; for ``rlvr`` also ``--producer serve``,
-``--forced-lag``, ``--fault-plan``, ``--watchdog-restarts``,
-``--request-deadline`` and ``--guard-checkpoint-dir``, attention-free
+``--checkpoint-dir``; for ``rlvr`` also ``--fault-plan``,
+``--watchdog-restarts`` and ``--guard-checkpoint-dir``, attention-free
 archs (``--arch rwkv6-1.6b``: the ``wkv6`` kernel has no backward yet)
 and hybrid ones (``--arch hymba-1.5b``: nor has ``ssm_scan``).
 As in the JAX launcher, ``--metrics-out`` writes nothing for ``rl``.
@@ -42,12 +48,9 @@ _NOT_PORTED = (
     ("--checkpoint-dir", lambda a: a.checkpoint_dir),
 )
 _NOT_PORTED_RLVR = (
-    ("--producer serve", lambda a: a.producer == "serve"),
     ("--fault-plan", lambda a: a.fault_plan),
     ("--watchdog-restarts", lambda a: a.watchdog_restarts > 0),
-    ("--request-deadline", lambda a: a.request_deadline is not None),
     ("--guard-checkpoint-dir", lambda a: a.guard_checkpoint_dir),
-    ("--forced-lag", lambda a: a.forced_lag is not None),
 )
 _CONTROLLERS_NOT_PORTED = ("gac", "stable_async", "asympo")
 
@@ -235,6 +238,9 @@ def build_trainer(args, tracer: Any = None):
         warmup_steps=args.warmup_steps, delta=args.delta,
         runtime=args.runtime,
         controller=_resolve_controller(args, delta=args.delta),
+        producer=args.producer, forced_lag=args.forced_lag,
+        engine_max_batch=args.engine_max_batch,
+        request_deadline_s=args.request_deadline,
         finiteness_guard=not args.no_finiteness_guard)
     if args.max_new_tokens is not None:
         hp_kwargs["max_new_tokens"] = args.max_new_tokens

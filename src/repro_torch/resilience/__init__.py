@@ -5,8 +5,8 @@ inert ``FaultInjector``.
 Fault injection and producer supervision are not ported yet: an injector
 with a non-empty plan raises.  The inert one keeps the hook surface
 the ported runtime calls (``active``, ``stall``, ``poison``,
-``fired_counts``), so it calls them unconditionally, as in the JAX
-package.
+``crash_if``, ``fired_counts``), so it calls them unconditionally, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -40,6 +40,9 @@ class FaultInjector:
 
     def poison(self, site: str, params: Any, **ctx: Any) -> Tuple[Any, bool]:
         return params, False
+
+    def crash_if(self, site: str, **ctx: Any) -> None:
+        pass
 
 
 NULL_INJECTOR = FaultInjector("")

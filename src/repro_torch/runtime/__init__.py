@@ -1,8 +1,8 @@
 """Asynchronous actor-learner runtime (port of ``repro.runtime`` for the
 RLVR and classic-RL learners): the versioned ``PolicyStore``, the
 staleness-tagged ``TrajectoryQueue`` with its lag controllers, the
-``backward_mixture`` and ``forward_n`` regimes and the env-rollout
-producers."""
+``backward_mixture`` and ``forward_n`` regimes, the env-rollout
+producers and the phase-locked ``ServeRolloutProducer``."""
 from repro_torch.runtime.admission import (
     AdmissionDecision,
     AdmissionPolicy,
@@ -33,6 +33,7 @@ from repro_torch.runtime.regimes import (REGIMES, BackwardMixtureRegime,
                                          ForwardNRegime,
                                          FrozenRolloutProducer, LagRegime,
                                          MixtureRolloutProducer, make_regime)
+from repro_torch.runtime.serve_producer import ServeRolloutProducer
 
 __all__ = [
     "AdmissionDecision", "AdmissionPolicy", "LagController",
@@ -43,5 +44,5 @@ __all__ = [
     "SnapshotMeta", "StaleVersionError", "QueueClosed", "TrajectoryItem",
     "TrajectoryQueue", "REGIMES", "BackwardMixtureRegime", "ForwardNRegime",
     "FrozenRolloutProducer", "LagRegime", "MixtureRolloutProducer",
-    "make_regime",
+    "make_regime", "ServeRolloutProducer",
 ]

@@ -20,6 +20,17 @@ they emit EOS or reach ``max_new_tokens``; preemption recomputes KV
 (re-prefill over prompt + emitted tokens) and never retracts tokens.
 Every emitted token carries its ``log_beta`` and policy version.
 
+**In-flight weight swap.**  Over a ``runtime.PolicyStore`` the engine
+reads the store's newest version every ``swap_interval`` steps, at the
+head of :meth:`step`: between rounds, never inside a decode chunk or a
+varlen round, so a request's ``versions`` is a step function across the
+swap.  The swap is a host-side pointer change: the store lives on the
+engine's device and the engine generates from the store's own tensors
+under a hold (``PolicyStore.hold``), which keeps them intact when later
+publishes overwrite their ring slot.  ``swap_interval=0`` never polls:
+weights then move only by :meth:`set_version` (the forced-lag serve
+producer).
+
 **Device.**  The engine runs on ``cuda`` unless ``device="cpu"`` is
 passed; without CUDA and without ``device="cpu"`` it raises.  On CUDA
 the paged kernels are the hand-written CUDA ones; on the CPU their plain
@@ -31,8 +42,8 @@ come back in one copy when the chunk ends.  A varlen round also ends in
 one copy.
 
 Not ported yet, and refused with ``NotImplementedError``:
-``speculate_k > 0``, ``prefix_cache=True``, ``mesh``, ``store`` (in-flight
-weight swap) and ``chunked_prefill=False``.
+``speculate_k > 0``, ``prefix_cache=True``, ``mesh`` and
+``chunked_prefill=False``.
 """
 from __future__ import annotations
 
@@ -51,9 +62,11 @@ from repro_torch.models.transformer import paged_arch_unsupported, tree_to
 from repro_torch.obs.perfetto import trace_annotation
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
+from repro_torch.resilience import NULL_INJECTOR, FaultInjector
 from repro_torch.rollout.sampler import gumbel_noise, sample
 from repro_torch.serve.paged_cache import make_allocator
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+from repro_torch.utils.tree import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -137,6 +150,7 @@ class ServeEngine:
         max_seq_len: int = 256,
         decode_chunk: int = 1,
         store: Any = None,
+        swap_interval: int = 1,
         temperature: float = 1.0,
         top_p: float = 1.0,
         seed: int = 0,
@@ -149,16 +163,18 @@ class ServeEngine:
         tracer: Optional[Tracer] = None,
         metrics: Optional[MetricsRegistry] = None,
         annotate: bool = False,
+        injector: Optional[FaultInjector] = None,
         request_deadline_s: Optional[float] = None,
         device: Any = None,
     ) -> None:
         """Arguments follow the JAX ``ServeEngine``; ``device`` picks
-        ``cuda`` (default) or ``cpu``.  ``annotate=True`` wraps each
-        dispatch in ``torch.profiler.record_function``."""
+        ``cuda`` (default) or ``cpu``.  ``store`` (a
+        ``runtime.PolicyStore`` on that device) replaces ``params``: the
+        engine starts from its newest version.  ``annotate=True`` wraps
+        each dispatch in ``torch.profiler.record_function``."""
         for flag, on in (("speculate_k > 0", speculate_k > 0),
                          ("prefix_cache=True", bool(prefix_cache)),
                          ("mesh", mesh is not None),
-                         ("store (in-flight weight swap)", store is not None),
                          ("chunked_prefill=False", not chunked_prefill)):
             if on:
                 raise NotImplementedError(
@@ -166,9 +182,18 @@ class ServeEngine:
         reason = paged_arch_unsupported(bundle.cfg)
         if bundle.decode_step_paged is None or reason is not None:
             raise ValueError(f"{bundle.cfg.name}: {reason}")
-        if params is None:
-            raise ValueError("need params")
+        if params is None and store is None:
+            raise ValueError("need params or a PolicyStore")
         self.device = resolve_device(device)
+        if store is not None:
+            where = tree_leaves(store.buffer.stacked)[0].device
+            if where != torch.empty(0, device=self.device).device:
+                raise ValueError(
+                    f"the PolicyStore's snapshots are on {where}, the "
+                    f"engine runs on {self.device}; build the store on "
+                    "the engine's device (a swap copies no weights)")
+        self.store = store
+        self.injector = injector if injector is not None else NULL_INJECTOR
         self.bundle = bundle
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -180,10 +205,15 @@ class ServeEngine:
         self._h_inter_token = self.metrics.histogram("serve_inter_token_s")
         self._h_queue_wait = self.metrics.histogram("serve_queue_wait_s")
         self._h_latency = self.metrics.histogram("serve_request_latency_s")
+        self._h_swap_stale = self.metrics.histogram("serve_swap_to_stale_s")
+        self._swap_mono: Optional[float] = None   # last in-flight swap
         self._ann = (trace_annotation if annotate
                      else (lambda name: contextlib.nullcontext()))
-        self.params = tree_to(params, self.device)
-        self.version = 0
+        self.swap_interval = max(int(swap_interval), 0)
+        if store is not None:
+            self.params, self.version = store.hold()
+        else:
+            self.params, self.version = tree_to(params, self.device), 0
         self.block_size = block_size
         max_blocks_per_request = -(-max_seq_len // block_size)
         self.allocator = make_allocator(num_blocks, block_size, 1,
@@ -231,6 +261,34 @@ class ServeEngine:
     def has_work(self) -> bool:
         return self.scheduler.has_work
 
+    # -- in-flight weight swap ------------------------------------------------
+
+    def set_version(self, version: int) -> None:
+        """Generate from the store's ``version`` from the next dispatch
+        on, holding it (and dropping the hold on the version before)."""
+        params, version = self.store.hold(version)
+        self.store.unhold(self.version)
+        self.params, self.version = params, version
+
+    def _maybe_swap(self) -> None:
+        if self.store is None or not self.swap_interval:
+            return
+        if self.stats.steps % self.swap_interval != 0:
+            return
+        params, version = self.store.hold()
+        old = self.version
+        self.store.unhold(old)
+        if version == old:
+            return
+        self.params, self.version = params, version
+        self.stats.swaps += 1
+        # Swap-to-first-stale-token latency: armed here, observed by the
+        # next _record (whose token carries the new version).
+        self._swap_mono = time.monotonic()
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("swap", tid="engine", old=old, new=version)
+
     # -- internals -----------------------------------------------------------
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
@@ -265,14 +323,20 @@ class ServeEngine:
         else:
             self._h_inter_token.observe(now - req.last_emit_time)
         req.last_emit_time = now
+        if self._swap_mono is not None:
+            # First token after an in-flight swap.
+            self._h_swap_stale.observe(now - self._swap_mono)
+            self._swap_mono = None
         req.tokens.append(tok)
         req.log_beta.append(lp)
         req.versions.append(self.version)
         self.stats.tokens_out += 1
         tr = self.tracer
         if tr.full:
+            lag = (self.store.version - self.version
+                   if self.store is not None else 0)
             tr.instant("token", tid="tokens", rid=req.request_id,
-                       v=self.version, lag=0, tok=tok)
+                       v=self.version, lag=lag, tok=tok)
         if tok == EOS:
             self._finish(req, "eos", finished)
         elif len(req.tokens) >= req.max_new_tokens:
@@ -471,6 +535,7 @@ class ServeEngine:
         returns newly finished trajectories."""
         finished: List[ServedTrajectory] = []
         tr = self.tracer
+        self._maybe_swap()
         self.stats.steps += 1
         # Deadline sweep before scheduling: expired waiting requests are
         # never admitted, expired running ones free their slot and pages.
@@ -507,6 +572,9 @@ class ServeEngine:
             tr.counter("serve_load", waiting=float(len(sched.waiting)),
                        running=float(len(sched.running)))
             tr.counter("pool_free", free=float(self.allocator.num_free))
+            if self.store is not None:
+                tr.counter("policy_lag",
+                           lag=float(self.store.version - self.version))
         if self._chunked_round(finished):
             return finished
         if not self._active.any():

@@ -17,12 +17,16 @@ functional, as in JAX: each step builds new parameter and optimizer
 tensors and never writes the old ones, so the finiteness guard keeps the
 previous state by reference, and the store copies what it publishes.
 
-Ported: the legacy producer (``ForwardLagGenerator``) with the
-``forward_n`` runtime and the ``pass_through``/``max_lag``/``tv_gate``/
-``tv_gate_tokenwise`` controllers.  The serve producer, the threaded
-regime, fault injection, the watchdog and checkpoints are not ported
-yet: their hyperparameters are absent, and ``make_regime`` raises for
-another runtime.
+Two producers feed the queue: the legacy ``ForwardLagGenerator`` under
+the ``forward_n`` runtime, and (``producer="serve"``) the continuous-
+batching ``ServeEngine`` over the trainer's ``PolicyStore`` through the
+phase-locked ``ServeRolloutProducer``, whose items carry the engine's
+per-token ``{version, log_beta}``; ``forced_lag=k`` makes it generate
+from the learner's k-back snapshot.  The controllers are
+``pass_through``/``max_lag``/``tv_gate``/``tv_gate_tokenwise``.  The
+threaded regime, fault injection, the watchdog and checkpoints are not
+ported yet: their hyperparameters are absent, and ``make_regime`` and
+the serve producer raise for another runtime.
 """
 from __future__ import annotations
 
@@ -45,10 +49,11 @@ from repro_torch.resilience import NULL_INJECTOR, tree_all_finite
 from repro_torch.rollout.async_engine import (ForwardLagGenerator,
                                               RLVRMinibatch)
 from repro_torch.rollout.sampler import score_tokens
-from repro_torch.runtime import (PolicyStore, TrajectoryQueue,
-                                 make_controller, make_regime,
-                                 parse_controller_spec, spec_from_legacy)
-from repro_torch.serve.engine import resolve_device
+from repro_torch.runtime import (PolicyStore, ServeRolloutProducer,
+                                 TrajectoryQueue, make_controller,
+                                 make_regime, parse_controller_spec,
+                                 spec_from_legacy)
+from repro_torch.serve.engine import ServeEngine, resolve_device
 from repro_torch.utils.tree import tree_grads, tree_to, tree_trainable
 
 
@@ -81,6 +86,18 @@ class RLVRHyperparams:
     admission_mode: str = "drop"
     get_timeout: float = 300.0
     max_refills: int = 50
+    # --- producer ---
+    producer: str = "legacy"      # legacy (ForwardLagGenerator) | serve
+    # serve producer: force generation from the learner's k-back
+    # snapshot (None = track the freshest swapped-in weights).
+    forced_lag: Optional[int] = None
+    engine_num_blocks: int = 64   # serve producer: paged-pool size
+    engine_block_size: int = 8
+    engine_max_batch: int = 8
+    engine_swap_interval: int = 1
+    # Serve producer: per-request wall-clock budget; timed-out requests
+    # retire with finish_reason="timeout" and release their pages.
+    request_deadline_s: Optional[float] = None
     # Quarantine non-finite publishes and skip+restore non-finite
     # learner steps (restores the last finite state).
     finiteness_guard: bool = True
@@ -235,9 +252,36 @@ class RLVRTrainer:
             maxsize=0, admission=self.controller, tracer=self.tracer,
             registry=self.metrics, injector=self.injector,
             fallback_max_lag=hp.max_lag)
-        self.regime = make_regime(
-            hp.runtime, self.store, self.queue,
-            self.generator.generate_minibatch, forward_n=hp.n_minibatches)
+        self.engine = None
+        if hp.producer == "serve":
+            self.engine = ServeEngine(
+                bundle, store=self.store,
+                num_blocks=hp.engine_num_blocks,
+                block_size=hp.engine_block_size,
+                max_batch=hp.engine_max_batch,
+                max_seq_len=dataset.prompt_len + hp.max_new_tokens,
+                swap_interval=hp.engine_swap_interval,
+                temperature=hp.temperature, seed=seed + 2,
+                tracer=self.tracer, metrics=self.metrics,
+                injector=self.injector,
+                request_deadline_s=hp.request_deadline_s,
+                device=self.device)
+            self.regime = ServeRolloutProducer(
+                self.store, self.queue, self.engine, dataset,
+                prompts_per_minibatch=hp.prompts_per_minibatch,
+                completions_per_prompt=hp.completions_per_prompt,
+                max_new_tokens=hp.max_new_tokens,
+                version_offset=hp.forced_lag,
+                threaded=(hp.runtime == "threaded"),
+                injector=self.injector)
+        elif hp.producer == "legacy":
+            self.regime = make_regime(
+                hp.runtime, self.store, self.queue,
+                self.generator.generate_minibatch,
+                forward_n=hp.n_minibatches)
+        else:
+            raise ValueError(
+                f"unknown producer {hp.producer!r} (legacy|serve)")
         self._regime_started = False
 
     def _score_latest(self, payload: RLVRMinibatch) -> torch.Tensor:

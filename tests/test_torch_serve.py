@@ -194,7 +194,7 @@ def test_scheduler_copy_makes_reference_decisions():
 
 @pytest.mark.parametrize("option", [
     dict(speculate_k=2), dict(prefix_cache=True), dict(mesh=object()),
-    dict(store=object()), dict(chunked_prefill=False)])
+    dict(chunked_prefill=False)])
 def test_unported_options_raise(weights, option):
     with pytest.raises(NotImplementedError):
         ServeEngine(build(CFG), weights[1], device="cpu", **option)

@@ -331,8 +331,7 @@ def test_launcher_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["rl", "--runtime", "threaded"], ["rlvr", "--producer", "serve"],
-    ["rlvr", "--runtime", "threaded"],
+    ["rl", "--runtime", "threaded"], ["rlvr", "--runtime", "threaded"],
     ["rlvr", "--controller", "gac"], ["rlvr", "--fault-plan", "x"],
     ["rlvr", "--checkpoint-dir", "out"]])
 def test_launcher_refuses_unported_options(argv):
