@@ -172,6 +172,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
     the swap) and one swap each, each engine serving the ring's own
     tensors (no copy); log_beta within 1e-4.
 
+21. threaded classic RL: ``train rl --runtime threaded`` in-process at
+    the paper's scale (500 actors x 1000 steps, VACO) for 3 phases with
+    K 4 and K 1, beside ``backward_mixture`` at K 4: every consumed
+    item's ``log_beta`` within 1e-5 (of max(1, |ref|)) of its actions
+    re-scored, step by step, under a copy of the version it is stamped
+    with, and further than that from the version next to it (the check
+    against torn weights, able to tell versions apart); ``vtrace`` once
+    a phase; the producer thread joined, no producer error.  Consumed
+    env steps per second of each run to its last eval (and the
+    producer's own rate), the lag histogram.
+22. threaded serve-producer RLVR: ``train rlvr --full-width --producer
+    serve --runtime threaded --controller
+    "tv_gate:delta=0.05,mode=downweight"`` in-process (2 warmup steps,
+    one phase of 3 minibatches, in-flight swaps every round, rewards
+    drawn from a seed so every learner step moves the weights): every
+    token whose whole history (prompt prefill, earlier tokens) ran under
+    one version within 1e-4 of its re-scoring on a copy of that version
+    and further from the version before; at least one trajectory spans
+    two versions (a swap changes the weights, not the KV cache, so a
+    spanning request's later tokens are not re-scorable by one
+    version); the kernels launched as in phase 19; the thread joined.
+    Generation tokens/s, learner step p50, swaps, lags, peak memory;
+    then one more minibatch timed and profiled (device idle share).
+23. figure harnesses: each ``repro_torch.experiments`` runner's ``main``
+    on a reduced grid (fig3 at 500 x 1000: pendulum, vaco and ppo, K 1
+    and 4, 1 seed, 3 phases; fig4, fig11 and the ablations at their own
+    scale, pendulum, 1 seed, 2 phases; fig5 ``--full-width`` with N 1
+    and 2, 1 phase, 4 warmup steps): each report finite with its
+    reference's keys, its kernel launched.
+
 Then one JSON line of every kernel's numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -2303,6 +2333,460 @@ def swap_parity_phase(torch):
     emit(**rec)
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-23: the threaded runtime and the figure harnesses
+# ---------------------------------------------------------------------------
+
+THREADED_RL_PHASES = 3
+LOG_BETA_TOL = 1e-5          # phase 21, of max(1, |rescored|)
+RESCORE_TOL = 1e-4           # phase 22
+
+
+def _producer_threads():
+    import threading
+
+    return [t.name for t in threading.enumerate() if t.is_alive() and
+            t.name in ("runtime-producer", "engine-producer",
+                       "serve-producer")]
+
+
+class _Recorder:
+    """Patches the store, the regime class and the serve engine for one
+    run: a copy of every version the store starts with or publishes (the
+    learner's side, taken on the learner's stream when it publishes),
+    every item the learner consumes and the regime it came from; the ids
+    of the requests the engine is given, in order, and the versions each
+    request's prompt rows were prefilled under."""
+
+    def __init__(self, torch, regime_cls):
+        from repro_torch.runtime import PolicyStore
+        from repro_torch.serve import ServeEngine
+        from repro_torch.utils.tree import tree_map
+
+        self.versions, self.items, self.regimes = {}, [], []
+        self.submitted, self.prefill_versions = [], {}
+        self._undo = []
+        clone = lambda tree: tree_map(torch.clone, tree)
+        init, publish = PolicyStore.__init__, PolicyStore.publish
+        next_item = regime_cls.next_item
+        submit, chunked_round = ServeEngine.submit, ServeEngine._chunked_round
+
+        def recording_init(store, params, *a, **k):
+            init(store, params, *a, **k)
+            self.versions[0] = clone(params)
+
+        def recording_publish(store, params, **meta):
+            version = publish(store, params, **meta)
+            self.versions[version] = clone(params)
+            return version
+
+        def recording_next_item(regime, *a, **k):
+            item = next_item(regime, *a, **k)
+            if regime not in self.regimes:
+                self.regimes.append(regime)
+            if item is not None:
+                self.items.append(item)
+            return item
+
+        def recording_submit(engine, *a, **k):
+            req = submit(engine, *a, **k)
+            self.submitted.append(req.request_id)
+            return req
+
+        def recording_chunked_round(engine, finished):
+            pending = [(r, r.num_prefilled) for r in engine.scheduler.running
+                       if not r.prefill_done]
+            out = chunked_round(engine, finished)
+            for r, before in pending:
+                if r.num_prefilled > before:
+                    self.prefill_versions.setdefault(
+                        r.request_id, set()).add(engine.version)
+            return out
+
+        for cls, name, fn in ((PolicyStore, "__init__", recording_init),
+                              (PolicyStore, "publish", recording_publish),
+                              (regime_cls, "next_item", recording_next_item),
+                              (ServeEngine, "submit", recording_submit),
+                              (ServeEngine, "_chunked_round",
+                               recording_chunked_round)):
+            self._undo.append((cls, name, cls.__dict__.get(name)))
+            setattr(cls, name, fn)
+
+    def close(self):
+        for cls, name, fn in self._undo:
+            if fn is None:
+                delattr(cls, name)       # it was inherited
+            else:
+                setattr(cls, name, fn)
+
+
+def _span_end_s(tracer, name):
+    """When the last sync span called ``name`` ended, in seconds from the
+    tracer's start."""
+    return max(e.ts for e in tracer.events()
+               if e.name == name and e.ph == "E") / 1e9
+
+
+def _rl_run(torch, capacity, runtime):
+    """``train rl`` at the paper's scale for THREADED_RL_PHASES phases,
+    recorded (``_Recorder``); returns (result, recorder, seconds,
+    launches, produce spans, learner spans, seconds to the end of the
+    last phase's eval: the run's wall without the threaded producer's
+    shutdown, which waits for the rollout in progress)."""
+    from repro_torch import kernels
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.runtime import LagRegime
+
+    args = launcher.build_parser().parse_args([
+        "rl", "--device", "cuda", "--n-actors", str(RL_ACTORS),
+        "--rollout-steps", str(RL_STEPS), "--buffer-capacity",
+        str(capacity), "--phases", str(THREADED_RL_PHASES),
+        "--runtime", runtime])
+    rec = _Recorder(torch, LagRegime)
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        tracer = Tracer(detail="spans")    # its clock starts with the run
+        t0 = time.perf_counter()
+        res = launcher.run_rl(args, tracer)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        rec.close()
+    return (res, rec, seconds, launches, _span_seconds(tracer, "produce"),
+            _span_seconds(tracer, "learner_step"),
+            _span_end_s(tracer, "eval"))
+
+
+def _rescore_rollout(torch, params, batch):
+    """``log_beta`` of a rollout's actions under ``params``, step by step
+    as the actors ran (the params stacked per actor)."""
+    from repro_torch.models.mlp_policy import policy_dist
+    from repro_torch.utils.tree import tree_map
+
+    n, steps = batch.log_beta.shape
+    stacked = tree_map(lambda x: x[None].expand(n, *x.shape), params)
+    out = torch.empty_like(batch.log_beta)
+    with torch.no_grad():
+        for t in range(steps):
+            out[:, t] = policy_dist(stacked, batch.obs[:, t]).log_prob(
+                batch.actions[:, t])
+    return out
+
+
+def threaded_rl_phase(torch):
+    """``train rl --runtime threaded`` at the paper's scale (500 actors x
+    1000 steps, VACO) with K 4 and K 1, beside ``backward_mixture`` at K
+    4 for the same phases: every consumed item's ``log_beta`` against
+    its actions re-scored under a copy of the version it is stamped with
+    (the check against torn weights; re-scored under another version it
+    must miss, or the check could not tell versions apart), ``vtrace``
+    once a phase, the producer thread joined and no producer error."""
+    recs = []
+    for runtime, capacity in (("backward_mixture", 4), ("threaded", 4),
+                              ("threaded", 1)):
+        res, rec, seconds, launches, produce, learn, loop_s = _rl_run(
+            torch, capacity, runtime)
+        tag = f"threaded rl/{runtime}/K{capacity}"
+        check(len(res.returns) == THREADED_RL_PHASES and all(
+            math.isfinite(r) for r in res.returns) and all(
+            math.isfinite(v) for m in res.metrics for v in m.values()),
+            f"{tag}: returns {res.returns} or metrics not finite")
+        check(launches["vtrace"] == THREADED_RL_PHASES,
+              f"{tag}: vtrace launched {launches['vtrace']} times in "
+              f"{THREADED_RL_PHASES} phases")
+        worst, checked, wrong = 0.0, 0, math.inf
+        if runtime == "threaded":
+            regime = rec.regimes[0]
+            check(regime.error is None and not regime.running
+                  and not _producer_threads(),
+                  f"{tag}: producer error {regime.error!r} or a live "
+                  f"thread {_producer_threads()}")
+            check(len(rec.items) == THREADED_RL_PHASES,
+                  f"{tag}: {len(rec.items)} items consumed")
+            for item in rec.items:
+                batch, v = item.payload, item.behavior_version
+                for other in (v, v + 1 if v == 0 else v - 1):
+                    want = _rescore_rollout(torch, rec.versions[other],
+                                            batch)
+                    err = ((batch.log_beta - want).abs()
+                           / want.abs().clamp(min=1.0)).max().item()
+                    if other == v:
+                        worst, checked = max(worst, err), checked + 1
+                    else:
+                        wrong = min(wrong, err)
+            check(worst <= LOG_BETA_TOL,
+                  f"{tag}: log_beta {worst} from its stamped version's "
+                  "re-scoring (torn weights?)")
+            check(wrong > LOG_BETA_TOL,
+                  f"{tag}: a neighbouring version re-scores within "
+                  f"{wrong}: the check cannot tell versions apart")
+        queue = res.runtime_stats["queue"]
+        env_steps = RL_ACTORS * RL_STEPS
+        recs.append(dict(
+            runtime=runtime, buffer_capacity=capacity,
+            phases=THREADED_RL_PHASES, seconds=seconds, loop_s=loop_s,
+            consumed_env_steps_per_s=THREADED_RL_PHASES * env_steps
+            / loop_s,
+            produced_env_steps_per_s=len(produce) * env_steps / sum(produce),
+            items_produced=len(produce), produce_s=produce,
+            learner_phase_ms=[x * 1e3 for x in learn],
+            lag_histogram=queue["lag_histogram"], puts=queue["puts"],
+            admitted=queue["admitted"], returns=res.returns,
+            items_checked=checked, log_beta_max_rel_err=worst,
+            other_version_min_rel_err=None if wrong == math.inf else wrong,
+            launches=launches))
+    base = recs[0]["consumed_env_steps_per_s"]
+    emit(phase="threaded_rl", actors=RL_ACTORS, steps=RL_STEPS,
+         tol=LOG_BETA_TOL, runs=recs,
+         threaded_speedup_k4=recs[1]["consumed_env_steps_per_s"] / base,
+         threaded_speedup_k1=recs[2]["consumed_env_steps_per_s"] / base)
+    return recs[1]["launches"]
+
+
+THREADED_RLVR_ARGS = [
+    "rlvr", "--full-width", "--device", "cuda", "--warmup-steps", "2",
+    "--n-minibatches", "3", "--phases", "1", "--producer", "serve",
+    "--runtime", "threaded", "--controller",
+    "tv_gate:delta=0.05,mode=downweight"]
+
+
+def threaded_serve_rlvr_phase(torch):
+    """``train rlvr --full-width --producer serve --runtime threaded`` with
+    the TV gate (in-flight swaps every round): the producer thread's
+    per-token ``log_beta`` against its version re-scored on a copy of
+    that version, at least one trajectory spanning two versions; then
+    one more minibatch, timed and profiled.
+
+    A swap changes the weights, not the KV cache: a token after the
+    swap in a request that spans it attends over keys and values the
+    old version wrote, which no single version's forward reproduces.  So
+    the tokens re-scored are those whose whole history ran under their
+    own version: every prompt row prefilled, and every token before it
+    produced, under that version (``_Recorder``).  Those include the
+    first tokens after each swap of the requests admitted at it."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.rollout.sampler import score_tokens
+    from repro_torch.runtime import ServeRolloutProducer
+
+    args = launcher.build_parser().parse_args(THREADED_RLVR_ARGS)
+    tracer = Tracer(detail="spans")
+    torch.cuda.reset_peak_memory_stats()
+    rec = _Recorder(torch, ServeRolloutProducer)
+    # Rewards drawn from a seed (the random init earns none): nonzero
+    # advantages, so each learner step publishes different weights.
+    produce_mb, draws = (ServeRolloutProducer._produce_minibatch,
+                         torch.Generator().manual_seed(5))
+
+    def seeded_rewards(self):
+        mb = produce_mb(self)
+        rewards = torch.rand(mb.rewards.shape, generator=draws) < 0.5
+        return mb._replace(rewards=rewards.float().to(mb.rewards.device))
+
+    ServeRolloutProducer._produce_minibatch = seeded_rewards
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, res, warm_loss = launcher.run(args, tracer)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        ServeRolloutProducer._produce_minibatch = produce_mb
+        rec.close()
+    cfg, hp, engine = trainer.bundle.cfg, trainer.hp, trainer.engine
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (24, 896, 151936),
+          f"threaded serve rlvr phase is not full width: {cfg}")
+    steps = len(res.phase_logs)
+    check(steps == hp.n_minibatches and trainer.nonfinite_skipped == 0,
+          f"{steps} learner steps logged of {hp.n_minibatches}")
+    regime = trainer.regime
+    check(regime.error is None and not regime.running
+          and not _producer_threads(),
+          f"threaded serve rlvr: producer error {regime.error!r} or a live "
+          f"thread {_producer_threads()}")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the threaded serve path")
+    check(launches["fused_logprob_bwd"] == steps
+          and launches["fused_logprob"] == 2 * steps,
+          f"log-prob kernels launched {launches['fused_logprob']} / "
+          f"{launches['fused_logprob_bwd']} times in {steps} learner steps")
+    forwards = steps + 1 + len(res.eval_accuracy)
+    check(launches["flash_attention"] == cfg.n_layers * forwards,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"for {forwards} no-grad forwards of {cfg.n_layers} layers")
+    # Every token whose history ran under one version, re-scored on it.
+    prompt_len = trainer.dataset.prompt_len
+    rows = hp.prompts_per_minibatch * hp.completions_per_prompt
+    worst, spanning, by_version, checked = 0.0, 0, {}, {}
+    wrong = math.inf
+    check(len(rec.items) == steps, f"{len(rec.items)} items consumed")
+    for j, item in enumerate(rec.items):
+        # Minibatches are produced and consumed in order (the gate only
+        # downweights), row i from the i-th request submitted for it.
+        rids = rec.submitted[j * rows:(j + 1) * rows]
+        mb = item.payload
+        versions = np.asarray(mb.versions)
+        valid = mb.gen.mask.cpu().numpy() > 0
+        check(int(versions.min()) == item.behavior_version,
+              "an item's tag is not its oldest token version")
+        sel = np.zeros_like(valid)
+        for i, rid in enumerate(rids):
+            seen = versions[i][valid[i]]
+            prefill = rec.prefill_versions[rid]
+            spanning += len(prefill | set(seen.tolist())) > 1
+            if seen.size and prefill == {int(seen[0])}:
+                run = np.cumprod(versions[i] == seen[0]).astype(bool)
+                sel[i] = valid[i] & run
+        log_beta = mb.gen.log_beta.cpu().numpy()
+        for v in sorted(set(versions[valid].tolist())):
+            by_version[v] = by_version.get(v, 0) + int(
+                (valid & (versions == v)).sum())
+            mine = sel & (versions == v)
+            if not mine.any():
+                continue
+            # Its own version, then the one before it, which must miss.
+            for other in (v, v - 1):
+                with torch.no_grad():
+                    log_pi, _, _ = score_tokens(
+                        trainer.bundle, rec.versions[other], mb.gen.tokens,
+                        prompt_len)
+                err = float(np.abs(log_pi.cpu().numpy()[mine]
+                                   - log_beta[mine]).max())
+                if other == v:
+                    worst = max(worst, err)
+                else:
+                    wrong = min(wrong, err)
+            checked[v] = checked.get(v, 0) + int(mine.sum())
+    check(sum(checked.values()) > 0 and len(checked) > 1,
+          f"threaded serve rlvr: tokens re-scored by version {checked}")
+    check(worst <= RESCORE_TOL,
+          f"threaded serve rlvr: log_beta {worst} from its version's "
+          "re-scoring")
+    check(spanning > 0, "threaded serve rlvr: no trajectory spans two "
+          f"versions (tokens by version {by_version})")
+    check(wrong > RESCORE_TOL,
+          f"threaded serve rlvr: the version before re-scores within "
+          f"{wrong}: the check cannot tell versions apart")
+    produce = _span_seconds(tracer, "produce")
+    step = trainer.metrics.histogram("train_step_s").summary()
+    gnorm = trainer.metrics.histogram("train_grad_norm").summary()
+    check(gnorm["min"] > 0, f"threaded serve rlvr: a zero gradient {gnorm}")
+    check(math.isfinite(warm_loss) and math.isfinite(gnorm["max"]) and all(
+        math.isfinite(l.tv) and math.isfinite(l.weight)
+        for l in res.phase_logs), "non-finite warmup loss, tv or weight")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    produce_one = regime._produce_minibatch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    produce_one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, rows = profile_kernels(produce_one)
+    emit(phase="threaded_serve_rlvr", config=cfg.name, layers=cfg.n_layers,
+         seconds=seconds, warmup_loss=warm_loss,
+         eval_accuracy=res.eval_accuracy, learner_steps=steps,
+         learner_step_p50_ms=step["p50"] * 1e3,
+         learner_step_mean_ms=step["mean"] * 1e3,
+         minibatches_generated=len(produce), produce_s=produce,
+         tokens_out=engine.stats.tokens_out,
+         generation_tokens_per_s=engine.stats.tokens_out / sum(produce),
+         swaps=engine.stats.swaps,
+         item_lag=[l.staleness for l in res.phase_logs],
+         item_versions=[[item.behavior_version, item.behavior_version_newest]
+                        for item in rec.items],
+         lag_histogram=res.runtime_stats["queue"]["lag_histogram"],
+         tokens_by_version=by_version, tokens_rescored=checked,
+         trajectories_spanning=spanning, preemptions=engine.stats.preemptions,
+         log_beta_max_abs_err=worst, tol=RESCORE_TOL,
+         version_before_min_abs_err=wrong,
+         tv=[l.tv for l in res.phase_logs],
+         weight=[l.weight for l in res.phase_logs],
+         grad_norm_max=gnorm["max"], peak_memory_gib=peak,
+         launches=launches)
+    emit(phase="threaded_serve_rlvr_profile", wall_ms=wall_ms,
+         device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+         kernel_launches=sum(n for _, _, n in rows), top_kernels=rows[:8])
+    return launches
+
+
+def _finite_report(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_finite_report(v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(_finite_report(v) for v in tree)
+    if isinstance(tree, float):
+        return math.isfinite(tree)
+    return tree is None or isinstance(tree, (int, str))
+
+
+HARNESSES = (
+    # (module, argv, top-level keys of its report, kernel that must run)
+    ("fig3_backward_lag",
+     ["--envs", "pendulum", "--algorithms", "vaco", "ppo", "--capacities",
+      "1", "4", "--seeds", "0", "--phases", "3", "--n-actors",
+      str(RL_ACTORS), "--rollout-steps", str(RL_STEPS)],
+     {"K=1", "K=4", "_raw", "_seconds"}, "vtrace"),
+    ("fig4_sample_efficiency",
+     ["--envs", "pendulum", "--seeds", "0", "--phases", "2"],
+     {"vaco", "ppo", "spo", "impala"}, "vtrace"),
+    ("fig11_tv_tracking", ["--envs", "pendulum", "--seeds", "0",
+                           "--phases", "2"],
+     {"vaco", "ppo", "ppo_kl"}, "vtrace"),
+    ("ablation_delta", ["--envs", "pendulum", "--seeds", "0", "--phases",
+                        "2"],
+     {f"delta={d}" for d in (0.05, 0.1, 0.2, 0.4)}, "vtrace"),
+    ("ablation_rho", ["--envs", "pendulum", "--seeds", "0", "--phases",
+                      "2"],
+     {f"rho={r}" for r in (1.0, 2.0, 8.0)}, "vtrace"),
+    ("ablation_realignment", ["--envs", "pendulum", "--seeds", "0",
+                              "--phases", "2"],
+     {"K=4", "K=16"}, "vtrace"),
+    ("fig5_rlvr_forward_lag",
+     ["--full-width", "--minibatches", "1", "2", "--phases", "1",
+      "--warmup-steps", "4"],
+     {"grpo", "grpo_vaco"}, "fused_logprob_bwd"),
+)
+
+
+def harness_phase(torch):
+    """The figure runners (``repro_torch.experiments``) on reduced grids:
+    fig3 at the paper's collection scale, the rest at their own, fig5 at
+    full width; each report finite, with its keys, its kernel launched."""
+    import importlib
+
+    from repro_torch import kernels
+
+    out_dir = ROOT / "build" / "harnesses"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    total = {}
+    for name, argv, keys, kernel in HARNESSES:
+        mod = importlib.import_module(f"repro_torch.experiments.{name}")
+        out = out_dir / f"{name}.json"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        check(mod.main(argv + ["--device", "cuda", "--out", str(out)]) == 0,
+              f"{name}: main failed")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        report = json.loads(out.read_text())
+        check(set(report) == keys, f"{name}: report keys {sorted(report)}")
+        check(_finite_report(report), f"{name}: non-finite report")
+        check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        emit(phase="harness", runner=name, argv=argv, seconds=seconds,
+             report=report, launches=launches)
+    return total
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -2546,6 +3030,9 @@ def main() -> int:
     hymba_parity_phase(torch)
     serve_rlvr_phase(torch)
     swap_parity_phase(torch)
+    threaded_rl_phase(torch)
+    threaded_serve_rlvr_phase(torch)
+    harness_phase(torch)
 
     rows = []
     for name, source, replaces in KERNELS:

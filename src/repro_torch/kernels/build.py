@@ -110,14 +110,17 @@ class Kernel:
     are ``c_void_p`` so ctypes passes them at full width.  Calling the
     object launches the kernel on the given arguments, raises if the
     launcher returns a CUDA error, and only then adds one to
-    ``launches``.  :meth:`launch` does the same on a device's current
-    stream, which it appends as the last argument."""
+    ``launches`` (under a lock: a producer thread and the learner may
+    launch one kernel at once).  :meth:`launch` does the same on a
+    device's current stream (the calling thread's), which it appends as
+    the last argument."""
 
     def __init__(self, name: str, argtypes) -> None:
         self.name = name
         self.launches = 0
         self._argtypes = list(argtypes)
         self._fn = None
+        self._count_lock = threading.Lock()
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -126,7 +129,8 @@ class Kernel:
             fn.restype = ctypes.c_int
             self._fn = fn
         check(self._fn(*args), self.name)
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
     def launch(self, device, *args) -> None:
         """Launch on the current stream of CUDA ``device``, making it the

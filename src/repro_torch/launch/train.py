@@ -17,18 +17,25 @@ classic RL (§5.1) and forward-lag RLVR (§5.2).
       --producer serve --forced-lag 2 \\
       --controller "tv_gate:delta=0.05,mode=downweight" --phases 10
 
+  # either, with a producer thread: lag from timing, a bounded queue
+  PYTHONPATH=src python -m repro_torch.launch.train rl --runtime threaded
+  PYTHONPATH=src python -m repro_torch.launch.train rlvr \\
+      --producer serve --runtime threaded \\
+      --controller "tv_gate:delta=0.05,mode=downweight"
+
 Same flags, defaults and printout as ``repro.launch.train`` for the
 parts ported, plus ``--device``.  ``rl`` runs all five algorithms and
-all five envs under the ``backward_mixture`` and ``forward_n`` runtimes.
-``rlvr`` runs the legacy producer (``ForwardLagGenerator``) or the serve
-engine (``--producer serve``, ``--forced-lag``, ``--request-deadline``)
-under ``forward_n``; ``--full-width`` trains
+all five envs under the ``backward_mixture``, ``forward_n`` and
+``threaded`` runtimes.  ``rlvr`` runs the legacy producer
+(``ForwardLagGenerator``) or the serve engine (``--producer serve``,
+``--forced-lag``, ``--request-deadline``) under ``forward_n`` or
+``threaded``; ``--full-width`` trains
 ``get_config("qwen2.5-0.5b")`` (24 layers, vocab 151936) instead of
 ``reduced_config``.  Weights are a random init from ``--seed``.  Both
 take the ``pass_through``, ``max_lag`` and ``tv_gate`` controllers
 (``rlvr`` also ``tv_gate_tokenwise``).
 
-Not ported yet (each exits with a message): ``--runtime threaded``, the
+Not ported yet (each exits with a message): the
 controllers ``gac``, ``stable_async`` and ``asympo``, and
 ``--checkpoint-dir``; for ``rlvr`` also ``--fault-plan``,
 ``--watchdog-restarts`` and ``--guard-checkpoint-dir``, attention-free
@@ -44,7 +51,6 @@ import sys
 from typing import Any, List, Optional
 
 _NOT_PORTED = (
-    ("--runtime threaded", lambda a: a.runtime == "threaded"),
     ("--checkpoint-dir", lambda a: a.checkpoint_dir),
 )
 _NOT_PORTED_RLVR = (
@@ -241,6 +247,7 @@ def build_trainer(args, tracer: Any = None):
         producer=args.producer, forced_lag=args.forced_lag,
         engine_max_batch=args.engine_max_batch,
         request_deadline_s=args.request_deadline,
+        queue_maxsize=args.queue_maxsize,
         finiteness_guard=not args.no_finiteness_guard)
     if args.max_new_tokens is not None:
         hp_kwargs["max_new_tokens"] = args.max_new_tokens

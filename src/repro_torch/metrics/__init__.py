@@ -1,3 +1,13 @@
+from repro_torch.metrics.aggregate import (
+    aggregate_metrics,
+    auc,
+    iqm,
+    mean,
+    median,
+    minmax_normalize,
+    optimality_gap,
+    stratified_bootstrap_ci,
+)
 from repro_torch.metrics.runtime_metrics import (
     LagHistogram,
     RuntimeQueueStats,
@@ -8,6 +18,14 @@ from repro_torch.metrics.runtime_metrics import (
 )
 
 __all__ = [
+    "aggregate_metrics",
+    "auc",
+    "iqm",
+    "mean",
+    "median",
+    "minmax_normalize",
+    "optimality_gap",
+    "stratified_bootstrap_ci",
     "LagHistogram",
     "RuntimeQueueStats",
     "collect_runtime_stats",

@@ -1,6 +1,7 @@
 """Resilience hooks, as far as the learner's defaults reach (port of
-``repro.resilience``): the finiteness guard's ``tree_all_finite`` and an
-inert ``FaultInjector``.
+``repro.resilience``): the finiteness guard's ``tree_all_finite``, an
+inert ``FaultInjector`` and the ``RestartContext`` a threaded producer's
+loop body takes.
 
 Fault injection and producer supervision are not ported yet: an injector
 with a non-empty plan raises.  The inert one keeps the hook surface
@@ -10,7 +11,8 @@ the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -48,6 +50,17 @@ class FaultInjector:
 NULL_INJECTOR = FaultInjector("")
 
 
+@dataclasses.dataclass(frozen=True)
+class RestartContext:
+    """Handed to a producer's loop body on (re)entry (a copy of
+    ``repro.resilience.supervision.RestartContext``): ``attempt`` is 0 on
+    the first run and n after the n-th restart, which only supervision
+    makes."""
+
+    attempt: int = 0
+    last_error: Optional[BaseException] = None
+
+
 def tree_all_finite(tree: Any) -> bool:
     """True iff every floating-point leaf of the tree is fully finite
     (one host sync for the whole tree)."""
@@ -58,4 +71,5 @@ def tree_all_finite(tree: Any) -> bool:
     return bool(torch.stack(flags).all())
 
 
-__all__ = ["FaultInjector", "NULL_INJECTOR", "tree_all_finite"]
+__all__ = ["FaultInjector", "NULL_INJECTOR", "RestartContext",
+           "tree_all_finite"]

@@ -26,6 +26,7 @@ from repro_torch.rollout.sampler import (GenerationResult, NoiseFn, generate,
                                          gumbel_noise)
 from repro_torch.runtime.policy_store import PolicyStore
 from repro_torch.runtime.regimes import MixtureRolloutProducer
+from repro_torch.serve.engine import resolve_device
 
 
 class SimulatedAsyncActors:
@@ -41,7 +42,7 @@ class SimulatedAsyncActors:
         buffer_capacity: int,
         rollout_steps: int,
         seed: int = 0,
-        device: Any = "cpu",
+        device: Any = None,
         draws: Optional[Draws] = None,
     ) -> None:
         self.env = env
@@ -92,7 +93,8 @@ class ForwardLagGenerator:
         temperature: float = 1.0,
         seed: int = 0,
         version_fn: Optional[Callable[[], int]] = None,
-        device: Any = "cpu",
+        device: Any = None,
+        eval_seed: Optional[int] = None,
     ) -> None:
         self.bundle = bundle
         self.dataset = dataset
@@ -101,8 +103,14 @@ class ForwardLagGenerator:
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
         self.version_fn = version_fn
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        # A generator serves one thread: under the threaded regime the
+        # producer thread generates and the learner evaluates, so eval
+        # then draws from a chain of its own (``eval_seed``).
+        self._eval_generator = (
+            None if eval_seed is None else
+            torch.Generator(device=self.device).manual_seed(eval_seed))
 
     def _noise(self) -> NoiseFn:
         """The noise source of one generate call (one per call, as the
@@ -110,13 +118,19 @@ class ForwardLagGenerator:
         return lambda t, shape: gumbel_noise(shape, self._generator,
                                              self.device)
 
+    def _eval_noise(self) -> NoiseFn:
+        if self._eval_generator is None:
+            return self._noise()
+        return lambda t, shape: gumbel_noise(shape, self._eval_generator,
+                                             self.device)
+
     def _generate(self, params: Any, prompts: np.ndarray,
-                  temperature: float) -> GenerationResult:
+                  temperature: float, noise: NoiseFn) -> GenerationResult:
         return generate(
             self.bundle, params,
             torch.as_tensor(prompts, device=self.device),
             max_new_tokens=self.max_new_tokens, temperature=temperature,
-            noise=self._noise())
+            noise=noise)
 
     def generate_minibatch(self, params: Any) -> RLVRMinibatch:
         """Sample prompts, generate grouped completions, verify rewards."""
@@ -128,7 +142,8 @@ class ForwardLagGenerator:
         # Group: repeat each prompt G times (GRPO groups contiguous).
         toks_np = np.repeat(toks_np, self.group_size, axis=0)
         answers = [a for a in answers for _ in range(self.group_size)]
-        gen = self._generate(params, toks_np, self.temperature)
+        gen = self._generate(params, toks_np, self.temperature,
+                             self._noise())
         comp_np = gen.completion.cpu().numpy()
         rewards = torch.tensor(
             [verify(tok.decode(row), ans)
@@ -144,7 +159,7 @@ class ForwardLagGenerator:
         """Greedy-decode exact-match accuracy on the held-out set
         (temperature 1e-4, as the reference decodes it)."""
         toks_np, _, answers = self.dataset.eval_batch(n)
-        gen = self._generate(params, toks_np, 1e-4)
+        gen = self._generate(params, toks_np, 1e-4, self._eval_noise())
         comp = gen.completion.cpu().numpy()
         hits = [verify(self.dataset.tok.decode(row), ans)
                 for row, ans in zip(comp, answers)]

@@ -1,8 +1,9 @@
 """Asynchronous actor-learner runtime (port of ``repro.runtime`` for the
 RLVR and classic-RL learners): the versioned ``PolicyStore``, the
-staleness-tagged ``TrajectoryQueue`` with its lag controllers, the
-``backward_mixture`` and ``forward_n`` regimes, the env-rollout
-producers and the phase-locked ``ServeRolloutProducer``."""
+staleness-tagged ``TrajectoryQueue`` with its lag controllers, the four
+lag regimes (``backward_mixture``, ``forward_n``, ``threaded``,
+``threaded_engine``), the env-rollout producers and the phase-locked or
+threaded ``ServeRolloutProducer``."""
 from repro_torch.runtime.admission import (
     AdmissionDecision,
     AdmissionPolicy,
@@ -30,9 +31,11 @@ from repro_torch.runtime.policy_store import (
 from repro_torch.runtime.queue import (QueueClosed, TrajectoryItem,
                                        TrajectoryQueue)
 from repro_torch.runtime.regimes import (REGIMES, BackwardMixtureRegime,
+                                         EngineThreadedRegime,
                                          ForwardNRegime,
                                          FrozenRolloutProducer, LagRegime,
-                                         MixtureRolloutProducer, make_regime)
+                                         MixtureRolloutProducer,
+                                         ThreadedRegime, make_regime)
 from repro_torch.runtime.serve_producer import ServeRolloutProducer
 
 __all__ = [
@@ -42,7 +45,8 @@ __all__ = [
     "make_controller", "parse_controller_spec", "register_controller",
     "spec_from_legacy", "PolicyStore", "QuarantinedVersionError",
     "SnapshotMeta", "StaleVersionError", "QueueClosed", "TrajectoryItem",
-    "TrajectoryQueue", "REGIMES", "BackwardMixtureRegime", "ForwardNRegime",
-    "FrozenRolloutProducer", "LagRegime", "MixtureRolloutProducer",
-    "make_regime", "ServeRolloutProducer",
+    "TrajectoryQueue", "REGIMES", "BackwardMixtureRegime",
+    "EngineThreadedRegime", "ForwardNRegime", "FrozenRolloutProducer",
+    "LagRegime", "MixtureRolloutProducer", "ThreadedRegime", "make_regime",
+    "ServeRolloutProducer",
 ]

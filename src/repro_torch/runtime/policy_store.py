@@ -15,7 +15,23 @@ other read.  JAX arrays are immutable, so there a reference is enough.
 Here ``publish`` copies a pinned or held version out of its slot before
 it overwrites the slot, and re-points the tree it handed out at the
 copy in place: one params copy, only while a pin or hold outlives its
-slot.
+slot.  That is safe for readers on the publisher's thread only: a
+reader on another thread may have taken a leaf's tensor before the
+re-point and launch on it after the overwrite (torn weights: some
+layers of one version, the rest of the next).
+
+**Readers on another thread** (the threaded regimes' producers) take a
+:meth:`snapshot` instead: a private copy of one version, made under the
+store's lock, so no publish lands between its first leaf and its last.
+A publish never waits on the host.  On CUDA the copy and the ring's
+writes may run on different streams, and their order is kept on the
+device: each publish records an event on its stream after writing the
+slot, and a snapshot's stream waits on the last such event before
+copying; each snapshot records an event on its stream after copying,
+and a publish's stream waits on the last such event of every reader
+stream before it overwrites a slot.  That wait covers the copy (a
+params-sized read, ~1.3 ms for qwen2.5-0.5b float32) and the work the
+reader queued before it, never the produce step that follows it.
 """
 from __future__ import annotations
 
@@ -33,7 +49,7 @@ from repro_torch.core.policy_lag import (PolicyBuffer, buffer_init,
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.resilience import (NULL_INJECTOR, FaultInjector,
                                     tree_all_finite)
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -89,6 +105,12 @@ class PolicyStore:
         self.registry = registry
         self._quarantined: set = set()
         self._publish_calls = 0
+        # CUDA: the last ring write of each publisher stream and the last
+        # snapshot copy of each reader stream, by stream handle.
+        self.device = tree_leaves(self._buffer.stacked)[0].device
+        self._writes: Dict[int, Any] = {}
+        self._reads: Dict[int, Any] = {}
+        self._record_locked(self._writes)
 
     # -- publication ---------------------------------------------------------
 
@@ -112,12 +134,14 @@ class PolicyStore:
                 meta = dict(meta, quarantined=True, poisoned=poisoned)
             else:
                 slot = self._buffer.head
+                self._wait_locked(self._reads)
                 if self._buffer.count == self._buffer.capacity:
                     # The ring is full: ``slot`` holds the oldest version.
                     self._keep_evicted_locked(
                         int(self._slot_versions[slot]), slot)
                 self._buffer = buffer_push(self._buffer, params)
                 self._slot_versions[slot] = self._version
+                self._record_locked(self._writes)
             self._history[version] = SnapshotMeta(
                 version, time.time(), dict(meta))
         tr = self.tracer
@@ -251,6 +275,56 @@ class PolicyStore:
         own = tree_map(torch.clone, buffer_slot(self._buffer, slot))
         for tree in trees.values():
             _repoint(tree, own)
+
+    # -- private copies (readers on another thread) ---------------------------
+
+    @torch.no_grad()
+    def snapshot(self, version: Optional[int] = None,
+                 out: Any = None) -> Tuple[Any, int]:
+        """A private copy of ``version``'s params (None: the newest
+        serveable one) and that version, for a reader on another thread
+        than the publisher: no later publish reaches it.  Copied under
+        the store's lock, into ``out`` in place when given (a tree of
+        the params' shapes that only the caller reads), else into new
+        tensors.  A held version is found too (the serve engine's
+        weights, when it leaves its hold)."""
+        with self._lock:
+            if version is None:
+                version = self._latest_serveable_locked()
+            held = self._held.get(version)
+            src = held[0] if held else self._get_locked(version)
+            self._wait_locked(self._writes)
+            if out is None:
+                out = tree_map(torch.clone, src)
+            else:
+                tree_map(lambda o, s: o.copy_(s), out, src)
+            self._record_locked(self._reads)
+        return out, version
+
+    def latest_version(self) -> int:
+        """The newest serveable version (what :meth:`latest` would
+        return), without touching any params."""
+        with self._lock:
+            return self._latest_serveable_locked()
+
+    def _record_locked(self, table: Dict[int, Any]) -> None:
+        """CUDA: mark the current stream's work so far in ``table``."""
+        if self.device.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(self.device)
+        event = torch.cuda.Event()
+        event.record(stream)
+        table[stream.cuda_stream] = event
+
+    def _wait_locked(self, table: Dict[int, Any]) -> None:
+        """CUDA: order the current stream after the other streams' work
+        marked in ``table`` (a device-side wait; the host goes on)."""
+        if self.device.type != "cuda" or not table:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        for handle, event in table.items():
+            if handle != stream.cuda_stream:
+                stream.wait_event(event)
 
     # -- pinning (long-lived readers, e.g. speculative-decode drafts) --------
 

@@ -1,4 +1,4 @@
-"""Lag regimes (port of ``repro.runtime.regimes``): schedules of one
+"""Lag regimes (port of ``repro.runtime.regimes``): four drivers of one
 ``PolicyStore``/``TrajectoryQueue`` runtime.
 
 * ``backward_mixture`` (§5.1 / Fig. 1 left): each ``fill()`` samples one
@@ -7,26 +7,64 @@
 * ``forward_n`` (§5.2): each ``fill()`` freezes ``store.latest()`` and
   produces N items from it; the learner then takes N updates, so item k
   is consumed with forward lag k (generate-N/train-N).
+* ``threaded``: a producer thread generates from the newest snapshot
+  while the learner consumes; lag comes from timing, not a schedule.
+  The bounded queue gives backpressure.
+* ``threaded_engine``: the producer thread drives a ``ServeEngine``
+  whose in-flight swaps let one trajectory span learner publishes.
 
 Producers are plain callables, so the same regimes drive classic-RL env
 rollouts and RLVR generation.  ``MixtureRolloutProducer`` is the legacy
 ``SimulatedAsyncActors``'s collect; ``FrozenRolloutProducer`` is its
-single-policy counterpart for ``forward_n``.  The threaded and engine
-regimes are not ported yet.
+single-policy counterpart for ``forward_n`` and ``threaded``.  Each runs
+on ``cuda`` unless the caller passes ``device="cpu"``.
+
+**The producer thread and the device.**  The store's ring is written in
+place, so the threaded producers never read it directly: each produced
+item (and each engine swap) starts from ``PolicyStore.snapshot``, a
+private copy of one version taken under the store's lock, which no later
+publish reaches (no torn weights).  On CUDA the thread runs on a stream
+of its own, so its kernels overlap the learner's on the card:
+
+* the thread's stream first waits on the stream that called ``start``
+  (whatever was built there, an engine's KV pool, is ready); an env
+  producer makes its env states at its first call, on the thread, so
+  the thread's stream owns them;
+* the snapshot and the publishes order themselves by events
+  (``PolicyStore``), on the device, without a host wait;
+* an item crosses the queue complete: the thread waits for its own
+  stream before ``put``, and marks every tensor of the item as used by
+  the consumer's stream (``record_stream``), so the caching allocator
+  does not hand the memory back to the producer while the learner still
+  reads it;
+* ``stop`` joins the thread and waits for its stream, so anything the
+  thread used may be freed after it.
+
+Random draws: the producer's chain (``Draws``, the engine's generator)
+is used by the producer thread alone, and the learner keeps its own.
+
+Producer supervision (``supervisor=``) is not ported yet (Queue A 6);
+``_restart_meta`` and the restart floor, which only supervision
+triggers, are.
 """
 from __future__ import annotations
 
+import threading
 import warnings
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.policy_lag import PolicyBuffer, buffer_sample
 from repro_torch.envs.base import Env
+from repro_torch.resilience import (NULL_INJECTOR, FaultInjector,
+                                    RestartContext)
 from repro_torch.rollout.env_rollout import (Draws, collect_rollout,
                                              default_draws, init_env_states)
 from repro_torch.runtime.policy_store import PolicyStore
-from repro_torch.runtime.queue import TrajectoryQueue
+from repro_torch.runtime.queue import QueueClosed, TrajectoryQueue
+from repro_torch.serve.engine import resolve_device
 from repro_torch.utils.tree import tree_map
 
 
@@ -40,8 +78,10 @@ class _RolloutProducer:
     (whose first split seeds the env states, as the JAX producer's first
     key does) and persistent env states.
 
-    ``draws`` replaces the default ``torch.Generator`` chain seeded with
-    ``seed`` on ``device`` (tests replay the JAX key chain through it).
+    ``device`` is ``cuda`` unless the caller asks for the CPU; ``draws``
+    replaces the default ``torch.Generator`` chain seeded with ``seed``
+    on it (tests replay the JAX key chain through it).  The env states
+    are made at the first call, on the thread that produces.
     Subclasses define ``_collect(policy_source, env_states, draws) ->
     (env_states, *outputs)``."""
 
@@ -53,16 +93,17 @@ class _RolloutProducer:
         n_actors: int,
         rollout_steps: int,
         seed: int = 0,
-        device: Any = "cpu",
+        device: Any = None,
         draws: Optional[Draws] = None,
     ) -> None:
         self.env = env
         self.policy_apply = policy_apply
         self.n_actors = n_actors
         self.rollout_steps = rollout_steps
+        self.device = resolve_device(device)
         self._draws = draws if draws is not None else default_draws(
-            seed, device)
-        self._env_states = init_env_states(env, self._next_draws(), n_actors)
+            seed, self.device)
+        self._env_states = None
 
     def _collect(self, policy_source: Any, env_states: Any, draws: Draws):
         raise NotImplementedError
@@ -72,6 +113,10 @@ class _RolloutProducer:
         return d
 
     def __call__(self, policy_source: Any):
+        if self._env_states is None:
+            # The chain's first split, as the JAX producer's first key.
+            self._env_states = init_env_states(
+                self.env, self._next_draws(), self.n_actors)
         self._env_states, *outputs = self._collect(
             policy_source, self._env_states, self._next_draws())
         return outputs[0] if len(outputs) == 1 else tuple(outputs)
@@ -96,8 +141,9 @@ class MixtureRolloutProducer(_RolloutProducer):
 class FrozenRolloutProducer(_RolloutProducer):
     """Env rollout where every actor runs one frozen policy.
 
-    ``producer(params) -> RolloutBatch``, for the forward_n regime, where
-    lag comes from the schedule rather than a snapshot mixture."""
+    ``producer(params) -> RolloutBatch``, for the forward_n and threaded
+    regimes, where lag comes from the schedule or the timing rather than
+    a snapshot mixture."""
 
     def _collect(self, params, env_states, draws):
         n = self.n_actors
@@ -219,16 +265,310 @@ class ForwardNRegime(LagRegime):
                            learner_version=version)
 
 
-def make_regime(name: str, store: PolicyStore, queue: TrajectoryQueue,
-                producer: Callable, *, forward_n: int = 4) -> LagRegime:
-    """Factory used by the trainers and runners (``--runtime``)."""
+# ---------------------------------------------------------------------------
+# Threaded regimes
+# ---------------------------------------------------------------------------
+
+
+def _refuse_supervisor(supervisor: Any) -> None:
+    if supervisor is not None:
+        raise NotImplementedError(
+            "producer supervision is not ported to the PyTorch runtime yet "
+            "(Queue A 6)")
+
+
+def _record_stream(payload: Any, stream: Any) -> None:
+    """Mark every tensor in ``payload`` (nested tuples, lists, dicts) as
+    used by ``stream``."""
+    if isinstance(payload, torch.Tensor):
+        if payload.is_cuda:
+            payload.record_stream(stream)
+    elif isinstance(payload, dict):
+        for v in payload.values():
+            _record_stream(v, stream)
+    elif isinstance(payload, (tuple, list)):
+        for v in payload:
+            _record_stream(v, stream)
+
+
+class ThreadedProduction:
+    """A producer thread for a regime: ``start``/``stop``, the queue
+    closed when production ends, a crash kept and re-raised by
+    ``next_item``, and the thread's CUDA stream (module docstring).
+    Subclasses define ``_run(ctx)``; ``_hand_over`` finishes an item
+    before it is put."""
+
+    thread_name = "runtime-producer"
+
+    def _init_thread(self, max_items: Optional[int]) -> None:
+        self.max_items = max_items
+        self.produced = 0
+        self.restarts = 0
+        self.error: Optional[BaseException] = None
+        self._stop_event = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._stream = self._consumer = None
+        self._version_at_crash: Optional[int] = None
+        self._restart_floor: Optional[int] = None
+
+    def start(self) -> None:
+        device = self.store.device
+        if device.type == "cuda":
+            self._consumer = torch.cuda.current_stream(device)
+            self._stream = torch.cuda.Stream(device)
+            self._stream.wait_stream(self._consumer)
+        self._thread = threading.Thread(
+            target=self._loop, name=self.thread_name, daemon=True)
+        self._thread.start()
+
+    def _before_run(self) -> None:
+        """On the thread, on its stream, before the first item."""
+
+    def _hand_over(self, payload: Any) -> Any:
+        """An item, complete on the device and usable by the consumer's
+        stream."""
+        if self._stream is not None:
+            self._stream.synchronize()
+            _record_stream(payload, self._consumer)
+        return payload
+
+    def _loop(self) -> None:
+        try:
+            with torch.cuda.stream(self._stream):
+                self._before_run()
+                self._run(RestartContext())
+        except BaseException as e:   # surface producer crashes, don't hang
+            self.error = e
+        finally:
+            # End of production (finite run, stop, or crash): the learner
+            # drains what is left, then get() returns None at once.
+            self.queue.close()
+
+    def next_item(self, learner_version, *, timeout=None, max_refills=50):
+        item = LagRegime.next_item(self, learner_version, timeout=timeout,
+                                   max_refills=max_refills)
+        if item is None and self.error is not None:
+            raise RuntimeError(
+                f"{self.name} producer crashed") from self.error
+        return item
+
+    def stop(self, join_timeout: float = 30.0) -> None:
+        self._stop_event.set()
+        self.queue.close()
+        if self._thread is not None:
+            self._thread.join(timeout=join_timeout)
+        if self._stream is not None:
+            self._stream.synchronize()
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+
+class ThreadedRegime(ThreadedProduction, LagRegime):
+    """Real producer thread: generate from the newest snapshot while the
+    learner consumes.  ``fill()`` is a no-op: production is continuous.
+    Each item is produced from ``store.snapshot()``, a private copy of
+    the newest version, and stamped with that version."""
+
+    name = "threaded"
+    phase_locked = False
+
+    def __init__(
+        self,
+        store: PolicyStore,
+        queue: TrajectoryQueue,
+        producer: Callable[[Any], Any],
+        *,
+        max_items: Optional[int] = None,
+        injector: FaultInjector = NULL_INJECTOR,
+        supervisor: Any = None,
+    ) -> None:
+        _refuse_supervisor(supervisor)
+        super().__init__(store, queue)
+        self.producer = producer
+        self.injector = injector
+        self._init_thread(max_items)
+
+    def _restart_meta(self, ctx: RestartContext, version: int) -> tuple:
+        """(behavior_version_oldest, meta) for the first item a restarted
+        incarnation publishes: conservative provenance spanning the
+        outage, so span-aware admission sees the true worst case."""
+        oldest = version
+        meta = {}
+        if ctx.attempt > 0:
+            meta = {"restart": True, "restart_attempt": ctx.attempt}
+            if self._restart_floor is not None:
+                oldest = min(self._restart_floor, version)
+                self._restart_floor = None
+        return oldest, meta
+
+    def _run(self, ctx: RestartContext) -> None:
+        restart_pending = ctx.attempt > 0
+        if restart_pending:
+            # The crash-time version, before the loop overwrites it.
+            self._restart_floor = self._version_at_crash
+        while not self._stop_event.is_set() and (
+            self.max_items is None or self.produced < self.max_items
+        ):
+            # A restarted incarnation takes whatever is newest *now*.
+            params, version = self.store.snapshot()
+            self._version_at_crash = version
+            self.injector.crash_if(
+                "producer", at_step=self.produced, producer=self.name)
+            with self.tracer.span("produce", pid="runtime",
+                                  tid="producer", version=version):
+                payload = self._hand_over(_stamp_versions(
+                    self.producer(params), version))
+            del params
+            oldest, meta = (
+                self._restart_meta(ctx, version)
+                if restart_pending else (version, {}))
+            try:
+                self.queue.put(
+                    payload,
+                    behavior_version=oldest,
+                    learner_version=self.store.version,
+                    behavior_version_newest=(
+                        version if oldest != version else None),
+                    **meta,
+                )
+            except QueueClosed:
+                break
+            restart_pending = False
+            self.produced += 1
+
+
+class EngineThreadedRegime(ThreadedRegime):
+    """Producer thread driving a continuous-batching ServeEngine.
+
+    The plain :class:`ThreadedRegime` takes one snapshot per produced
+    item, so a trajectory is homogeneous in its behavior policy.  Here
+    the *engine* swaps weights between rounds, so one trajectory can
+    span learner publishes: the intra-trajectory lag the tokenwise TV
+    gate is built for.  Each queue item is one ``ServedTrajectory``; its
+    ``behavior_version`` is the trajectory's *oldest* token version and
+    the per-token versions ride in ``meta``.  The engine generates from
+    private copies (``ServeEngine.use_private_weights``).
+
+    ``request_fn() -> (prompt, max_new_tokens) | None`` feeds the engine;
+    None means the request stream is exhausted.  The thread keeps ~2
+    batches of requests in flight so a freed slot always has a
+    candidate."""
+
+    name = "threaded_engine"
+    phase_locked = False
+    thread_name = "engine-producer"
+
+    def __init__(
+        self,
+        store: PolicyStore,
+        queue: TrajectoryQueue,
+        engine: Any,              # serve.ServeEngine bound to `store`
+        *,
+        request_fn: Callable[[], Optional[tuple]],
+        max_items: Optional[int] = None,
+        injector: FaultInjector = NULL_INJECTOR,
+        supervisor: Any = None,
+    ) -> None:
+        if engine.store is not store:
+            raise ValueError(
+                "engine must share the regime's PolicyStore (its "
+                "in-flight swaps are how learner publishes reach the "
+                "actor)")
+        super().__init__(store, queue, producer=None, max_items=max_items,
+                         injector=injector, supervisor=supervisor)
+        self.engine = engine
+        self.request_fn = request_fn
+        self._source_dry = False
+
+    def _backlog(self) -> int:
+        sched = self.engine.scheduler
+        return len(sched.waiting) + len(sched.running)
+
+    def _feed(self) -> None:
+        target = 2 * self.engine.max_batch
+        while not self._source_dry and self._backlog() < target:
+            item = self.request_fn()
+            if item is None:
+                self._source_dry = True
+                return
+            prompt, max_new_tokens = item
+            self.engine.submit(prompt, max_new_tokens)
+
+    def _before_run(self) -> None:
+        self.engine.use_private_weights()
+
+    def _run(self, ctx: RestartContext) -> None:
+        restart_pending = ctx.attempt > 0
+        if restart_pending:
+            # The current store version for new tokens; the in-flight
+            # requests keep their stale provenance (the recovery spike).
+            self.engine.set_version(self.store.latest_version())
+        while not self._stop_event.is_set() and (
+            self.max_items is None or self.produced < self.max_items
+        ):
+            self.injector.crash_if(
+                "producer", at_step=self.produced, producer=self.name)
+            self._feed()
+            if not self.engine.has_work:
+                break    # stream dry and everything drained
+            for traj in self.engine.step():
+                self._version_at_crash = int(traj.behavior_version)
+                meta = {}
+                if restart_pending:
+                    meta = {"restart": True,
+                            "restart_attempt": ctx.attempt}
+                try:
+                    self.queue.put(
+                        traj,
+                        behavior_version=traj.behavior_version,
+                        learner_version=self.store.version,
+                        behavior_version_newest=int(
+                            traj.versions.max()
+                        ) if traj.versions.size else None,
+                        versions=traj.versions.tolist(),
+                        request_id=traj.request_id,
+                        finish_reason=traj.finish_reason,
+                        **meta,
+                    )
+                except QueueClosed:
+                    return
+                restart_pending = False
+                self.produced += 1
+
+
+def make_regime(
+    name: str,
+    store: PolicyStore,
+    queue: TrajectoryQueue,
+    producer: Callable,
+    *,
+    forward_n: int = 4,
+    max_items: Optional[int] = None,
+    engine: Any = None,
+    injector: FaultInjector = NULL_INJECTOR,
+    supervisor: Any = None,
+) -> LagRegime:
+    """Factory used by the trainers, runners and launchers (``--runtime``).
+
+    For ``threaded_engine``, ``producer`` is the request source
+    (``request_fn``) and ``engine`` the ServeEngine bound to ``store``.
+    ``max_items``, ``injector`` and ``supervisor`` apply to the threaded
+    regimes only; ``supervisor`` is not ported yet and raises."""
     if name == "backward_mixture":
         return BackwardMixtureRegime(store, queue, producer)
     if name == "forward_n":
         return ForwardNRegime(store, queue, producer, n_items=forward_n)
-    if name in REGIMES:
-        raise NotImplementedError(
-            f"lag regime {name!r} is not ported to the PyTorch runtime yet")
+    if name == "threaded":
+        return ThreadedRegime(store, queue, producer, max_items=max_items,
+                              injector=injector, supervisor=supervisor)
+    if name == "threaded_engine":
+        if engine is None:
+            raise ValueError("threaded_engine regime requires engine=")
+        return EngineThreadedRegime(
+            store, queue, engine, request_fn=producer, max_items=max_items,
+            injector=injector, supervisor=supervisor)
     raise ValueError(f"unknown lag regime {name!r}")
 
 

@@ -21,11 +21,21 @@ the engine's ``log_beta`` disagree with ``score_tokens``'s ``log_pi`` on
 the same weights.  With the padded prompt the realignment ratio is 1 for
 fresh data, which the TV gate's calibration assumes.
 
-``fill()`` produces one minibatch synchronously, deterministic at a
-fixed seed.  ``version_offset=k`` makes the engine generate from the
-learner's ``k``-back snapshot (clamped to what the store still holds),
-an exact, scripted lag with real engine provenance.  The threaded mode
-(Queue A 3) and producer supervision (Queue A 6) are not ported yet.
+Two modes:
+
+* **phase-locked** (default): ``fill()`` produces one minibatch
+  synchronously, deterministic at a fixed seed.  ``version_offset=k``
+  makes the engine generate from the learner's ``k``-back snapshot
+  (clamped to what the store still holds), an exact, scripted lag with
+  real engine provenance.
+* **threaded**: a producer thread keeps generating while the learner
+  consumes, from the freshest weights the engine swaps in (or, with
+  ``version_offset``, the k-back version taken before each minibatch);
+  lag comes from real timing.  The engine generates from private copies
+  of the store's versions and the thread runs on a CUDA stream of its
+  own (``runtime.regimes``, "The producer thread and the device").
+
+Producer supervision (``supervisor=``, Queue A 6) is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,16 +46,19 @@ import torch
 
 from repro_torch.data.mathgen import verify
 from repro_torch.data.tokenizer import PAD
-from repro_torch.resilience import NULL_INJECTOR, FaultInjector
+from repro_torch.resilience import (NULL_INJECTOR, FaultInjector,
+                                    RestartContext)
 from repro_torch.runtime.policy_store import PolicyStore
-from repro_torch.runtime.queue import TrajectoryQueue
-from repro_torch.runtime.regimes import LagRegime
+from repro_torch.runtime.queue import QueueClosed, TrajectoryQueue
+from repro_torch.runtime.regimes import (LagRegime, ThreadedProduction,
+                                         _refuse_supervisor)
 
 
-class ServeRolloutProducer(LagRegime):
+class ServeRolloutProducer(ThreadedProduction, LagRegime):
     """Drive RLVR generation through a continuous-batching ServeEngine."""
 
     name = "serve"
+    thread_name = "serve-producer"
 
     def __init__(
         self,
@@ -59,15 +72,11 @@ class ServeRolloutProducer(LagRegime):
         max_new_tokens: int,
         version_offset: Optional[int] = None,
         threaded: bool = False,
+        max_items: Optional[int] = None,
         injector: FaultInjector = NULL_INJECTOR,
         supervisor: Any = None,
     ) -> None:
-        if threaded:
-            raise NotImplementedError(
-                "the threaded serve producer is not ported yet (Queue A 3)")
-        if supervisor is not None:
-            raise NotImplementedError(
-                "producer supervision is not ported yet (Queue A 6)")
+        _refuse_supervisor(supervisor)
         if engine.store is not store:
             raise ValueError(
                 "engine must share the producer's PolicyStore (weight "
@@ -79,8 +88,9 @@ class ServeRolloutProducer(LagRegime):
         self.group_size = completions_per_prompt
         self.max_new_tokens = max_new_tokens
         self.version_offset = version_offset
+        self.phase_locked = not threaded
         self.injector = injector
-        self.produced = 0
+        self._init_thread(max_items)
         self._last_timeouts = 0
         if version_offset is not None:
             if version_offset < 0:
@@ -107,6 +117,7 @@ class ServeRolloutProducer(LagRegime):
         self.injector.crash_if(
             "producer", at_step=self.produced, producer=self.name)
         self._apply_forced_lag()
+        self._version_at_crash = int(self.engine.version)
         tok = self.dataset.tok
         prompt_len = self.dataset.prompt_len
         n_new = self.max_new_tokens
@@ -171,9 +182,15 @@ class ServeRolloutProducer(LagRegime):
 
     def _put(self, mb: Any, **meta: Any) -> None:
         versions = np.asarray(mb.versions)
+        oldest = int(versions.min())
+        if meta.get("restart") and self._restart_floor is not None:
+            # A restarted producer's first batch spans the outage, so
+            # admission measures the worst-case staleness.
+            oldest = min(oldest, self._restart_floor)
+            self._restart_floor = None
         self.queue.put(
             mb,
-            behavior_version=int(versions.min()),
+            behavior_version=oldest,
             learner_version=self.store.version,
             behavior_version_newest=int(versions.max()),
             producer="serve",
@@ -181,5 +198,42 @@ class ServeRolloutProducer(LagRegime):
             **meta,
         )
 
+    # -- phase-locked mode ---------------------------------------------------
+
     def fill(self) -> None:
         self._put(self._produce_minibatch())
+
+    # -- threaded mode -------------------------------------------------------
+
+    def start(self) -> None:
+        if not self.phase_locked:
+            super().start()
+
+    def _before_run(self) -> None:
+        self.engine.use_private_weights()
+
+    def _run(self, ctx: RestartContext) -> None:
+        restart_pending = ctx.attempt > 0
+        if restart_pending:
+            # The version generation ran at when the crash hit: the
+            # floor of the first recovered batch's span.
+            self._restart_floor = self._version_at_crash
+            if self.version_offset is None:
+                # Forced lag takes its version per minibatch anyway.
+                self.engine.set_version(self.store.latest_version())
+        while not self._stop_event.is_set() and (
+            self.max_items is None or self.produced < self.max_items
+        ):
+            mb = self._hand_over(self._produce_minibatch())
+            meta = ({"restart": True, "restart_attempt": ctx.attempt}
+                    if restart_pending else {})
+            try:
+                self._put(mb, **meta)
+            except QueueClosed:
+                break
+            restart_pending = False
+            self.produced += 1
+
+    def stop(self, join_timeout: float = 30.0) -> None:
+        if not self.phase_locked:
+            super().stop(join_timeout)

@@ -29,7 +29,11 @@ engine's device and the engine generates from the store's own tensors
 under a hold (``PolicyStore.hold``), which keeps them intact when later
 publishes overwrite their ring slot.  ``swap_interval=0`` never polls:
 weights then move only by :meth:`set_version` (the forced-lag serve
-producer).
+producer).  An engine stepped on another thread than the publisher's
+(the threaded regimes) calls :meth:`use_private_weights` first: from
+then on a swap copies the version into the engine's own buffers under
+the store's lock (``PolicyStore.snapshot``), since a hold re-points its
+tree in place, which is safe only on the publisher's thread.
 
 **Device.**  The engine runs on ``cuda`` unless ``device="cpu"`` is
 passed; without CUDA and without ``device="cpu"`` it raises.  On CUDA
@@ -210,6 +214,7 @@ class ServeEngine:
         self._ann = (trace_annotation if annotate
                      else (lambda name: contextlib.nullcontext()))
         self.swap_interval = max(int(swap_interval), 0)
+        self._private = False
         if store is not None:
             self.params, self.version = store.hold()
         else:
@@ -263,9 +268,25 @@ class ServeEngine:
 
     # -- in-flight weight swap ------------------------------------------------
 
+    def use_private_weights(self) -> None:
+        """Generate from a private copy of the store's versions from now
+        on, on the thread that steps the engine: the held version is
+        copied once into buffers of the engine's own, and each later
+        swap copies into them in place."""
+        if self.store is None or self._private:
+            return
+        params, _ = self.store.snapshot(self.version)
+        self.store.unhold(self.version)
+        self.params, self._private = params, True
+
     def set_version(self, version: int) -> None:
         """Generate from the store's ``version`` from the next dispatch
-        on, holding it (and dropping the hold on the version before)."""
+        on, holding it (and dropping the hold on the version before), or
+        copying it into the private buffers."""
+        if self._private:
+            _, version = self.store.snapshot(version, out=self.params)
+            self.version = version
+            return
         params, version = self.store.hold(version)
         self.store.unhold(self.version)
         self.params, self.version = params, version
@@ -275,12 +296,18 @@ class ServeEngine:
             return
         if self.stats.steps % self.swap_interval != 0:
             return
-        params, version = self.store.hold()
         old = self.version
-        self.store.unhold(old)
+        if self._private:
+            # Copy only when there is something newer to copy.
+            if self.store.latest_version() == old:
+                return
+            _, version = self.store.snapshot(out=self.params)
+        else:
+            self.params, version = self.store.hold()
+            self.store.unhold(old)
         if version == old:
             return
-        self.params, self.version = params, version
+        self.version = version
         self.stats.swaps += 1
         # Swap-to-first-stale-token latency: armed here, observed by the
         # next _record (whose token carries the new version).

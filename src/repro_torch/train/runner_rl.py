@@ -4,7 +4,7 @@ of ``repro.train.runner_rl``).
 Composes the actor-learner runtime:
 
     PolicyStore (versioned snapshot ring)
-      -> lag regime producer (backward_mixture | forward_n)
+      -> lag regime producer (backward_mixture | forward_n | threaded)
       -> TrajectoryQueue (staleness tags + admission control)
       -> make_train_phase (algorithm update)
       -> store.publish (new version)
@@ -14,9 +14,12 @@ Everything runs on ``cfg.device``: ``cuda`` unless the caller asks for
 the CPU.  Random draws follow the JAX runner's key chain: the runner's
 own chain from ``seed``, the producer's from ``seed + 1``
 (``rollout.env_rollout.Draws``; ``make_draws`` replaces the default
-``torch.Generator`` chains).  The paper runs 500 envs x 1000 steps
-(``--n-actors 500 --rollout-steps 1000``); the defaults are smaller.
-The threaded regime is not ported yet.
+``torch.Generator`` chains).  ``threaded`` runs a producer thread (on a
+CUDA stream of its own) against the consuming learner over a bounded
+queue (``queue_maxsize``); its production is finite (4 items a phase)
+and the thread is joined when the run ends.  The paper runs 500 envs x
+1000 steps (``--n-actors 500 --rollout-steps 1000``); the defaults are
+smaller.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ class AsyncRLRunConfig:
     seed: int = 0
     hp: RLHyperparams = field(default_factory=RLHyperparams)
     # --- runtime ---
-    runtime: str = "backward_mixture"  # backward_mixture | forward_n
+    runtime: str = "backward_mixture"  # backward_mixture|forward_n|threaded
     forward_n: int = 4                 # items per frozen policy (forward_n)
     queue_maxsize: int = 4             # producer backpressure (threaded)
     # Lag controller, "name:key=val,..." (see runtime.controllers); wins
@@ -131,15 +134,20 @@ def run_async_rl(
             mode=cfg.admission_mode)
     admission = make_controller(
         spec, tv_fn=_make_tv_fn(store) if spec.name == "tv_gate" else None)
-    queue = TrajectoryQueue(maxsize=0, admission=admission, tracer=tracer)
+    queue = TrajectoryQueue(
+        maxsize=cfg.queue_maxsize if cfg.runtime == "threaded" else 0,
+        admission=admission, tracer=tracer)
     producer_cls = (MixtureRolloutProducer
                     if cfg.runtime == "backward_mixture"
                     else FrozenRolloutProducer)
     producer = producer_cls(
         env, act, n_actors=cfg.n_actors, rollout_steps=cfg.rollout_steps,
-        draws=make_draws(cfg.seed + 1, device))
+        device=device, draws=make_draws(cfg.seed + 1, device))
+    # Threaded production is finite: leave headroom over total_phases so
+    # admission drops don't starve the learner, which stops on its own.
     regime = make_regime(cfg.runtime, store, queue, producer,
-                         forward_n=cfg.forward_n)
+                         forward_n=cfg.forward_n,
+                         max_items=4 * cfg.total_phases)
 
     def det_policy(p, obs):
         return policy_dist(p, obs).mean
@@ -153,7 +161,7 @@ def run_async_rl(
         while phase < cfg.total_phases:
             item = regime.next_item(store.version, timeout=cfg.get_timeout)
             if item is None:
-                break  # everything dropped
+                break  # producer exhausted / everything dropped
             draws, d_train, d_eval = draws.split(3)
             with tracer.span("learner_step", pid="train", tid="learner",
                              lag=item.lag, weight=float(item.weight)):
@@ -184,10 +192,15 @@ def run_grid(
     algorithms: List[str],
     buffer_capacities: List[int],
     seeds: List[int],
+    *,
+    params: Optional[Callable[[str, int], Any]] = None,
+    make_draws: Optional[Callable[[int, torch.device], Draws]] = None,
     **run_kwargs,
 ) -> Dict[str, Dict[int, np.ndarray]]:
     """Fig. 3-style grid. Returns {alg: {K: scores [envs, seeds]}} of final
-    returns (mean of last 3 eval points for stability)."""
+    returns (mean of last 3 eval points for stability).  ``params(env,
+    seed)`` and ``make_draws`` reach every ``run_async_rl`` (its seams;
+    None: the seeded init and draws)."""
     out: Dict[str, Dict[int, np.ndarray]] = {}
     for alg in algorithms:
         out[alg] = {}
@@ -198,7 +211,9 @@ def run_grid(
                     res = run_async_rl(AsyncRLRunConfig(
                         env_name=env_name, algorithm=alg,
                         buffer_capacity=cap, seed=seed, **run_kwargs,
-                    ))
+                    ), params=(None if params is None
+                               else params(env_name, seed)),
+                        make_draws=make_draws)
                     scores[i, j] = float(np.mean(res.returns[-3:]))
             out[alg][cap] = scores
     return out

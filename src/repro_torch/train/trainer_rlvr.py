@@ -1,6 +1,5 @@
 """RLVR trainer (§5.2): GRPO with PPO-clip vs GRPO with VACO filtering
-(port of ``repro.train.trainer_rlvr`` for the default producer and
-runtime).
+(port of ``repro.train.trainer_rlvr``).
 
 Protocol (paper App. C.2): each phase freezes the policy as beta,
 generates N minibatches of grouped completions, labels them with the
@@ -17,16 +16,19 @@ functional, as in JAX: each step builds new parameter and optimizer
 tensors and never writes the old ones, so the finiteness guard keeps the
 previous state by reference, and the store copies what it publishes.
 
-Two producers feed the queue: the legacy ``ForwardLagGenerator`` under
-the ``forward_n`` runtime, and (``producer="serve"``) the continuous-
-batching ``ServeEngine`` over the trainer's ``PolicyStore`` through the
-phase-locked ``ServeRolloutProducer``, whose items carry the engine's
-per-token ``{version, log_beta}``; ``forced_lag=k`` makes it generate
-from the learner's k-back snapshot.  The controllers are
-``pass_through``/``max_lag``/``tv_gate``/``tv_gate_tokenwise``.  The
-threaded regime, fault injection, the watchdog and checkpoints are not
-ported yet: their hyperparameters are absent, and ``make_regime`` and
-the serve producer raise for another runtime.
+Two producers feed the queue: the legacy ``ForwardLagGenerator`` and
+(``producer="serve"``) the continuous-batching ``ServeEngine`` over the
+trainer's ``PolicyStore`` through the ``ServeRolloutProducer``, whose
+items carry the engine's per-token ``{version, log_beta}``;
+``forced_lag=k`` makes it generate from the learner's k-back snapshot.
+Either runs phase-locked (``runtime="forward_n"``) or on a producer
+thread (``runtime="threaded"``, a bounded queue of ``queue_maxsize``),
+where lag comes from timing; there the producer thread and the
+learner's eval draw from separate generator chains, and :meth:`close`
+(which :meth:`train` calls) joins the thread.  The controllers are
+``pass_through``/``max_lag``/``tv_gate``/``tv_gate_tokenwise``.  Fault
+injection, the watchdog and checkpoints are not ported yet: their
+hyperparameters are absent.
 """
 from __future__ import annotations
 
@@ -76,8 +78,9 @@ class RLVRHyperparams:
     warmup_lr: float = 3e-3
     warmup_batch: int = 64
     # --- runtime ---
-    runtime: str = "forward_n"    # forward_n (threaded: not ported yet)
+    runtime: str = "forward_n"    # forward_n | threaded
     store_capacity: int = 4       # policy snapshot ring size
+    queue_maxsize: int = 4        # producer backpressure (threaded)
     # Lag controller: a "name:key=val,..." spec (see runtime.controllers).
     # None falls back to the legacy admission triple below.
     controller: Optional[str] = None
@@ -225,7 +228,9 @@ class RLVRTrainer:
             temperature=hp.temperature,
             seed=seed + 1,
             version_fn=lambda: self.store.version,
-            device=self.device)
+            device=self.device,
+            eval_seed=(seed + 3 if hp.runtime == "threaded"
+                       and hp.producer == "legacy" else None))
         self._update = make_update_step(bundle, hp, dataset.prompt_len)
         self._warmup = make_warmup_step(bundle, hp)
         self.injector = NULL_INJECTOR
@@ -249,7 +254,8 @@ class RLVRTrainer:
             spec, tv_fn=tv_fn, token_tv_fn=token_tv_fn)
         self.controller_spec = spec
         self.queue = TrajectoryQueue(
-            maxsize=0, admission=self.controller, tracer=self.tracer,
+            maxsize=hp.queue_maxsize if hp.runtime == "threaded" else 0,
+            admission=self.controller, tracer=self.tracer,
             registry=self.metrics, injector=self.injector,
             fallback_max_lag=hp.max_lag)
         self.engine = None
@@ -278,7 +284,8 @@ class RLVRTrainer:
             self.regime = make_regime(
                 hp.runtime, self.store, self.queue,
                 self.generator.generate_minibatch,
-                forward_n=hp.n_minibatches)
+                forward_n=hp.n_minibatches, max_items=None,
+                injector=self.injector)
         else:
             raise ValueError(
                 f"unknown producer {hp.producer!r} (legacy|serve)")
@@ -337,6 +344,8 @@ class RLVRTrainer:
         return loss
 
     def close(self) -> None:
+        """Stop the producer (threaded regime: join its thread) and close
+        the queue."""
         self.regime.stop()
 
     # -- finiteness guard ----------------------------------------------------

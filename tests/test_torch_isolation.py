@@ -42,6 +42,12 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.models.ssm" in mods
     assert "repro_torch.kernels.flash_attention" in mods
     assert "repro_torch.kernels.ssm_scan" in mods
+    assert "repro_torch.metrics.aggregate" in mods
+    assert "repro_torch.configs.hparams" in mods
+    for name in ("fig3_backward_lag", "fig4_sample_efficiency",
+                 "fig11_tv_tracking", "fig5_rlvr_forward_lag",
+                 "ablation_delta", "ablation_rho", "ablation_realignment"):
+        assert f"repro_torch.experiments.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -128,7 +134,52 @@ def test_rl_runner_and_launcher_raise_when_cuda_is_absent(monkeypatch):
         train.main(["rl", "--n-actors", "2", "--rollout-steps", "4"])
 
 
-@pytest.mark.parametrize("flag", [["--runtime", "threaded"],
+def test_producers_raise_when_cuda_is_absent(monkeypatch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.mathgen import MathTaskDataset
+    from repro_torch.envs import make_env, wrap_autoreset
+    from repro_torch.models.mlp_policy import act, mlp_policy_init
+    from repro_torch.models.registry import build
+    from repro_torch.rollout.async_engine import (ForwardLagGenerator,
+                                                  SimulatedAsyncActors)
+    from repro_torch.runtime import (FrozenRolloutProducer,
+                                     MixtureRolloutProducer)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = wrap_autoreset(make_env("pendulum"))
+    params = mlp_policy_init(torch.Generator().manual_seed(0), 3, 1)
+    kw = dict(n_actors=2, rollout_steps=4)
+    bundle = build(reduced_config("qwen2.5-0.5b", vocab=64))
+    ds = MathTaskDataset(prompt_len=16, pool_size=64)
+    gkw = dict(prompts_per_minibatch=1, completions_per_prompt=1,
+               max_new_tokens=1)
+    makers = (lambda **d: MixtureRolloutProducer(env, act, **kw, **d),
+              lambda **d: FrozenRolloutProducer(env, act, **kw, **d),
+              lambda **d: SimulatedAsyncActors(env, act, params,
+                                               buffer_capacity=2, **kw, **d),
+              lambda **d: ForwardLagGenerator(bundle, ds, **gkw, **d))
+    for make in makers:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        make(device="cpu")                   # asked for: fine
+
+
+def test_experiment_runners_raise_when_cuda_is_absent(monkeypatch):
+    from repro_torch.experiments import (fig3_backward_lag,
+                                         fig5_rlvr_forward_lag)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fig3_backward_lag.main(["--envs", "pendulum", "--algorithms", "vaco",
+                                "--capacities", "1", "--seeds", "0",
+                                "--phases", "1", "--n-actors", "2",
+                                "--rollout-steps", "4"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fig5_rlvr_forward_lag.main(["--minibatches", "1", "--phases", "1",
+                                    "--warmup-steps", "0"])
+
+
+@pytest.mark.parametrize("flag", [["--controller", "gac"],
                                   ["--checkpoint-dir", "out"]])
 def test_rl_launcher_refuses_unported_flags(flag):
     from repro_torch.launch import train

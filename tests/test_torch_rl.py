@@ -274,7 +274,7 @@ def _mixture_actors(name="pendulum", n=4, steps=16, cap=4):
                                buffer_capacity=cap, rollout_steps=steps,
                                seed=11)
     ta = SimulatedAsyncActors(env, act, p, n_actors=n, buffer_capacity=cap,
-                              rollout_steps=steps,
+                              rollout_steps=steps, device="cpu",
                               draws=JaxDraws(jax.random.PRNGKey(11), name))
     rng = np.random.default_rng(12)
     for _ in range(cap - 1):

@@ -122,9 +122,11 @@ def test_serve_producer_refuses_what_is_not_ported():
     (_, _), (prod, q) = _producer_pair(version_offset=None)
     kw = dict(prompts_per_minibatch=1, completions_per_prompt=1,
               max_new_tokens=1)
-    with pytest.raises(NotImplementedError, match="A 3"):
-        ServeRolloutProducer(prod.store, q, prod.engine, prod.dataset,
-                             threaded=True, **kw)
+    # The threaded mode is ported (tests/test_torch_threaded.py): it
+    # builds, and starts no thread until start().
+    threaded = ServeRolloutProducer(prod.store, q, prod.engine,
+                                    prod.dataset, threaded=True, **kw)
+    assert not threaded.phase_locked and not threaded.running
     with pytest.raises(NotImplementedError, match="A 6"):
         ServeRolloutProducer(prod.store, q, prod.engine, prod.dataset,
                              supervisor=object(), **kw)

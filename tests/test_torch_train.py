@@ -331,7 +331,8 @@ def test_launcher_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["rl", "--runtime", "threaded"], ["rlvr", "--runtime", "threaded"],
+    ["rl", "--controller", "stable_async"],
+    ["rlvr", "--watchdog-restarts", "1"],
     ["rlvr", "--controller", "gac"], ["rlvr", "--fault-plan", "x"],
     ["rlvr", "--checkpoint-dir", "out"]])
 def test_launcher_refuses_unported_options(argv):
