@@ -201,12 +201,40 @@ Phases, each printing one JSON line (any failure exits non-zero):
     scale, pendulum, 1 seed, 2 phases; fig5 ``--full-width`` with N 1
     and 2, 1 phase, 4 warmup steps): each report finite with its
     reference's keys, its kernel launched.
+24. the learner controllers: ``train rlvr --full-width --producer serve
+    --forced-lag 2`` in-process (2 warmup steps, 3 minibatches, rewards
+    drawn from a seed) under ``gac``, ``stable_async:var_max=0.5`` and
+    ``asympo``: GAC's cosine of every stale step within 1e-5 of a
+    float64 one of the same gradients and anchor on the host; the loss
+    weights and ``item.meta`` recomputed on the CPU by fresh controllers
+    from the same arrays, equal (plumbing and determinism: their parity
+    with JAX is ``tests/test_torch_controllers.py``'s);
+    ``fused_logprob`` once a step (twice, and ``flash_attention`` once a
+    layer more, under ``stable_async``'s scoring), its backward once.
+    Then on one more minibatch: the learner step timed, and with GAC's
+    transform between its halves; ``_score_log_pi``'s ``fused_logprob``
+    within 1e-5 of the plain version on the same logits.
+25. chaos: the threaded serve producer at full width under the chaos
+    bench's plan, read from ``results/BENCH_chaos.json`` (a producer
+    crash, a 7.5 s engine stall past the 3 s request deadline, a NaN
+    publish, a queue stall, a poisoned learner step), watchdog 2, 5
+    phases x 3 minibatches, beside a fault-free run of the same seed
+    from one warm start: it completes; no page, refcount or thread
+    leaks; no quarantined version put or consumed; restarts 1, timeouts
+    >= 1, quarantined 1, non-finite 1; the final evals reported, not
+    gated.
+26. checkpoints: phase 24's last params saved by ``train rlvr
+    --checkpoint-dir`` (1.98 GB) and served by ``launch.serve
+    --checkpoint --full-width``: leaves bit-equal, greedy tokens equal
+    to the in-memory params'; a reduced-width ``learner_nan`` run on the
+    card restores from ``--guard-checkpoint-dir``.
 
 Then one JSON line of every kernel's numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -2787,6 +2815,550 @@ def harness_phase(torch):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phases 24-26: the learner controllers, the chaos plan, checkpoints
+# ---------------------------------------------------------------------------
+
+CONTROLLER_ARGS = [
+    "rlvr", "--full-width", "--device", "cuda", "--warmup-steps", "2",
+    "--n-minibatches", "3", "--phases", "1", "--producer", "serve",
+    "--forced-lag", "2"]
+CONTROLLER_SPECS = ("gac", "stable_async:var_max=0.5", "asympo")
+GAC_COS_TOL = 1e-5           # against a float64 cosine of the same grads
+SCORE_TOL = 1e-5             # fused_logprob vs the plain version
+TIMED_STEPS = 5
+
+
+def _seeded_serve_rewards(torch, seed):
+    """``ServeRolloutProducer._produce_minibatch`` with rewards drawn from
+    a seed (a random init earns none: the advantages, and so every
+    gradient, would be zero); returns the undo."""
+    from repro_torch.runtime import ServeRolloutProducer
+
+    produce, draws = (ServeRolloutProducer._produce_minibatch,
+                      torch.Generator().manual_seed(seed))
+
+    def seeded(self):
+        mb = produce(self)
+        rewards = torch.rand(mb.rewards.shape, generator=draws) < 0.5
+        return mb._replace(rewards=rewards.float().to(mb.rewards.device))
+
+    ServeRolloutProducer._produce_minibatch = seeded
+    return lambda: setattr(ServeRolloutProducer, "_produce_minibatch",
+                           produce)
+
+
+def _cos64_host(torch, a, b):
+    """The cosine of two trees of one structure in float64 on the host,
+    one leaf at a time."""
+    from repro_torch.utils.tree import tree_leaves
+
+    dot = na = nb = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        dot += float(torch.dot(x.reshape(-1), y.reshape(-1)))
+        na += float(torch.dot(x.reshape(-1), x.reshape(-1)))
+        nb += float(torch.dot(y.reshape(-1), y.reshape(-1)))
+    return dot / math.sqrt(na * nb) if na * nb > 0 else 0.0
+
+
+class _ControllerRecorder:
+    """Patches the three learner controllers' hooks for one run: GAC's
+    reported cosine and scale with the gradients and anchor it compared
+    (kept by reference: neither is written after, so the timed step
+    copies nothing; ``gac_rows`` adds the float64 cosine after the run),
+    and each ``loss_weights`` call's arrays, output and ``item.meta``."""
+
+    def __init__(self, torch):
+        import numpy as np
+        from repro_torch.runtime import controllers as ctl
+
+        self.torch = torch
+        self.cos, self.weights = [], []
+        self._undo = []
+        gac = ctl.GradientAlignmentController.transform_gradients
+
+        def recording_transform(ctrl, item, grads):
+            stale = ctrl._anchor is not None and item.lag > ctrl.fresh_lag
+            anchor = ctrl._anchor
+            out, info = gac(ctrl, item, grads)
+            if stale:
+                self.cos.append((info["gac_cos"], (grads, anchor),
+                                 info["gac_scale"]))
+            return out, info
+
+        self._patch(ctl.GradientAlignmentController, "transform_gradients",
+                    recording_transform)
+        for cls in (ctl.StableAsyncController, ctl.AsymPOController):
+            hook = cls.loss_weights
+
+            def recording_weights(ctrl, item, hook=hook, **kw):
+                w = hook(ctrl, item, **kw)
+                self.weights.append((ctrl, item.lag, {
+                    k: None if v is None else np.array(v)
+                    for k, v in kw.items()}, w, dict(item.meta)))
+                return w
+
+            self._patch(cls, "loss_weights", recording_weights)
+
+    def _patch(self, cls, name, fn):
+        self._undo.append((cls, name, cls.__dict__[name]))
+        setattr(cls, name, fn)
+
+    def gac_rows(self):
+        """``(cos, float64 cos, scale)`` of each stale GAC step, the
+        float64 one from the same trees copied to the host."""
+        rows = [(c, _cos64_host(self.torch, *trees), scale)
+                for c, trees, scale in self.cos]
+        self.cos = []
+        return rows
+
+    def close(self):
+        for cls, name, fn in self._undo:
+            setattr(cls, name, fn)
+
+
+def _timed_ms(torch, fn, n):
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)[len(out) // 2]
+
+
+def _step_timings(torch, trainer, mb):
+    """One state, one minibatch: the learner step as the trainer runs it
+    (the split step's halves back to back) timed, and under ``gac`` the
+    same step with the controller's transform of a stale item between
+    the halves (a copy of the controller: its anchor is replaced, never
+    written, so the run's is left as it was)."""
+    import copy
+    import types
+
+    from repro_torch.core.losses import group_advantages
+
+    state = trainer.state
+    adv = group_advantages(mb.rewards, trainer.hp.completions_per_prompt)
+    args = (mb.gen.tokens, mb.gen.log_beta, mb.gen.mask, adv)
+    grad_step, apply_step = trainer._grad_step, trainer._apply_step
+    step_ms = _timed_ms(torch, lambda: apply_step(
+        state, grad_step(state, *args)[0]), TIMED_STEPS)
+    gac_ms = None
+    if trainer.controller.needs_gradients:
+        stale = types.SimpleNamespace(lag=2, meta={})
+
+        def gac_step():
+            ctrl = copy.copy(trainer.controller)
+            grads, _ = grad_step(state, *args)
+            grads, info = ctrl.transform_gradients(stale, grads)
+            return apply_step(state, grads)
+
+        gac_ms = _timed_ms(torch, gac_step, TIMED_STEPS)
+    return step_ms, gac_ms
+
+
+def _score_check(torch, trainer, mb):
+    """``_score_log_pi`` (the no-grad forward through flash and the
+    ``fused_logprob`` kernel) against the plain log-prob on the same
+    logits, and against the plain forward (grad enabled: the plain
+    attention) and plain log-prob."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.logprobs import fused_logprob_cuda
+    from repro_torch.utils.tree import tree_trainable
+
+    p_len = trainer.dataset.prompt_len
+    tokens = mb.gen.tokens
+    b, n_new = mb.gen.mask.shape
+    got = trainer._score_log_pi(tokens)
+    with torch.no_grad():
+        logits = trainer.bundle.forward(trainer.state.params,
+                                        tokens).logits[:, p_len - 1:-1]
+    x = logits.reshape(b * n_new, -1).contiguous()
+    t = tokens[:, p_len:].reshape(-1).to(torch.int32).contiguous()
+    kernel, _, _ = fused_logprob_cuda(x, t)
+    plain = ref.ref_logprobs_from_logits(x, t)
+    kernel_err = (kernel - plain).abs().max().item()
+    path_err = (got.reshape(-1) - kernel).abs().max().item()
+    with torch.enable_grad():       # trainable leaves: the einsum path
+        plain_logits = trainer.bundle.forward(
+            tree_trainable(trainer.state.params),
+            tokens).logits[:, p_len - 1:-1].detach()
+    plain_all = ref.ref_logprobs_from_logits(
+        plain_logits.reshape(b * n_new, -1).contiguous(), t)
+    forward_err = (got.reshape(-1) - plain_all).abs().max().item()
+    return kernel_err, path_err, forward_err
+
+
+def controllers_phase(torch):
+    """``train rlvr --full-width --producer serve --forced-lag 2`` under
+    ``gac``, ``stable_async:var_max=0.5`` and ``asympo`` (2 warmup steps,
+    3 minibatches, seeded rewards): GAC's cosine against float64,
+    ``_score_log_pi`` against the plain version, the loss weights
+    recomputed on the CPU, launch counts a step, the step timed.  Returns the last run's trainer (phase 26 saves its params)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.tracer import NULL_TRACER
+    from repro_torch.runtime import controllers as ctl
+
+    trainer = None
+    for spec in CONTROLLER_SPECS:
+        # A trainer sits in a reference cycle (its registry's producer
+        # closes over it): collect it before the next one is built.
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        held_gib = torch.cuda.memory_allocated() / 2 ** 30
+        name = spec.split(":")[0]
+        args = launcher.build_parser().parse_args(
+            CONTROLLER_ARGS + ["--controller", spec])
+        undo = _seeded_serve_rewards(torch, 5)
+        rec = _ControllerRecorder(torch)
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer, res, warm_loss = launcher.run(args, NULL_TRACER)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        finally:
+            rec.close()
+        cfg, hp = trainer.bundle.cfg, trainer.hp
+        check((cfg.n_layers, cfg.d_model, cfg.vocab_size)
+              == (24, 896, 151936), f"controllers phase: not full width")
+        steps = len(res.phase_logs)
+        check(steps == hp.n_minibatches and trainer.nonfinite_skipped == 0,
+              f"{spec}: {steps} learner steps of {hp.n_minibatches}")
+        check(trainer.controller.name == name, f"{spec}: built "
+              f"{trainer.controller.name}")
+        # (GAC may scale a stale step's gradient to zero.)
+        gnorm = trainer.metrics.histogram("train_grad_norm").summary()
+        check(gnorm["max"] > 0 and math.isfinite(gnorm["max"])
+              and math.isfinite(warm_loss), f"{spec}: grad norms {gnorm}")
+        # Launches a learner step: the loss's log-prob forward and its
+        # backward; stable_async scores log_pi once more (a no-grad
+        # forward, flash once a layer); the evals' prefills run flash.
+        extra = steps if name == "stable_async" else 0
+        forwards = extra + 1 + len(res.eval_accuracy)
+        check(launches["fused_logprob"] == steps + extra
+              and launches["fused_logprob_bwd"] == steps
+              and launches["flash_attention"] == cfg.n_layers * forwards,
+              f"{spec}: launches {launches} for {steps} steps")
+        cos_rows, weight_rows = rec.gac_rows(), list(rec.weights)
+        if name == "gac":
+            # The first item is fresh (no anchor yet), the others stale.
+            check(len(cos_rows) == steps - 1, f"gac: {cos_rows}")
+            for got_cos, exact, _ in cos_rows:
+                check(abs(got_cos - exact) <= GAC_COS_TOL,
+                      f"gac cosine {got_cos} against float64 {exact}")
+        else:
+            check(len(weight_rows) == steps, f"{spec}: {len(weight_rows)} "
+                  "loss_weights calls")
+            for ctrl, lag, kw, w, meta in weight_rows:
+                fresh = (ctl.StableAsyncController(
+                    c_max=ctrl.c_max, c_min=ctrl.c_min,
+                    var_max=ctrl.var_max) if name == "stable_async" else
+                    ctl.AsymPOController(
+                        pos_scale=ctrl.pos_scale, neg_scale=ctrl.neg_scale,
+                        pos_decay=ctrl.pos_decay))
+                item = type("Item", (), {"lag": lag, "meta": {}})()
+                again = fresh.loss_weights(item, **kw)
+                check(np.array_equal(again, w)
+                      and item.meta == {name: meta[name]},
+                      f"{spec}: CPU recomputation differs: {item.meta} "
+                      f"against {meta}")
+                if name == "stable_async":
+                    check(kw["log_pi"] is not None
+                          and kw["log_pi"].shape == kw["log_beta"].shape,
+                          "stable_async got no log_pi")
+        # One more minibatch (seeded rewards): step timings, scoring.
+        try:
+            mb = trainer.regime._produce_minibatch()
+        finally:
+            undo()
+        step_ms, gac_ms = _step_timings(torch, trainer, mb)
+        kernel_err, path_err, forward_err = _score_check(torch, trainer, mb)
+        check(kernel_err <= SCORE_TOL and path_err == 0.0,
+              f"{spec}: _score_log_pi kernel {kernel_err} from the plain "
+              f"version, {path_err} from the kernel")
+        step = trainer.metrics.histogram("train_step_s").summary()
+        emit(phase="controllers", controller=spec, config=cfg.name,
+             seconds=seconds, learner_steps=steps,
+             allocated_before_gib=held_gib,
+             learner_step_p50_ms=step["p50"] * 1e3,
+             learner_step_mean_ms=step["mean"] * 1e3,
+             step_p50_ms=step_ms, gac_step_p50_ms=gac_ms,
+             fused_logprob_per_step=launches["fused_logprob"] / steps,
+             flash_per_step=(launches["flash_attention"]
+                             - cfg.n_layers * (1 + len(res.eval_accuracy)))
+             / steps,
+             gac=[{"cos": c, "cos_f64": e, "scale": s}
+                  for c, e, s in cos_rows],
+             meta=[m for *_, m in weight_rows],
+             score_kernel_vs_plain=kernel_err,
+             score_vs_plain_forward=forward_err,
+             item_lag=[l.staleness for l in res.phase_logs],
+             mean_reward=[l.mean_reward for l in res.phase_logs],
+             grad_norm_max=gnorm["max"], launches=launches)
+        del mb
+    return trainer
+
+
+CHAOS_BENCH = ROOT / "results" / "BENCH_chaos.json"
+CHAOS_FULL_WIDTH = True
+CHAOS_DEVICE = "cuda"
+CHAOS_WATCHDOG = 2
+CHAOS_JOIN_S = 10.0
+
+
+def _chaos_parts():
+    """The chaos bench's configuration (its committed ``config``, read):
+    the plan, the deadline, the phases, the seed; the port's model at
+    full width and the bench's run shape."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.mathgen import MathTaskDataset
+    from repro_torch.data.tokenizer import get_tokenizer
+    from repro_torch.models.registry import build
+
+    config = json.loads(CHAOS_BENCH.read_text())["config"]
+    cfg = (get_config("qwen2.5-0.5b") if CHAOS_FULL_WIDTH else
+           reduced_config("qwen2.5-0.5b", vocab=get_tokenizer().vocab_size))
+    seed = config["seed"]
+
+    def make_ds():
+        return MathTaskDataset(prompt_len=16, level=0, pool_size=256,
+                               seed=seed + 1)
+
+    return config, build(cfg), make_ds
+
+
+def _chaos_hp(config, fault_plan, deadline_s):
+    from repro_torch.train import RLVRHyperparams
+
+    return RLVRHyperparams(
+        algorithm="grpo", lr=1e-3, n_minibatches=3,
+        prompts_per_minibatch=4, completions_per_prompt=4,
+        max_new_tokens=6, warmup_steps=2, producer="serve",
+        runtime="threaded", queue_maxsize=2, controller="pass_through",
+        store_capacity=6, engine_max_batch=8, engine_num_blocks=48,
+        get_timeout=120.0, fault_plan=fault_plan, fault_seed=config["seed"],
+        watchdog_restarts=CHAOS_WATCHDOG, watchdog_backoff_ms=40.0,
+        request_deadline_s=deadline_s, finiteness_guard=True)
+
+
+def _chaos_run(torch, bundle, make_ds, hp, warm, phases, seed):
+    """One threaded serve-producer run from the warm start; what the
+    gates read."""
+    import threading
+
+    import numpy as np
+    from repro_torch.train import RLVRTrainer
+
+    threads = {t.ident for t in threading.enumerate()}
+    tr = RLVRTrainer(bundle, make_ds(), hp, seed=seed, params=warm,
+                     device=CHAOS_DEVICE)
+    tr.store.publish(warm, event="chaos_base")
+    put_versions, consumed_versions = set(), set()
+    put, next_item = tr.queue.put, tr.regime.next_item
+
+    def audited_put(payload, **kw):
+        put_versions.update(np.unique(np.asarray(payload.versions)).tolist())
+        return put(payload, **kw)
+
+    def audited_next_item(*a, **k):
+        item = next_item(*a, **k)
+        if item is not None:
+            consumed_versions.update(
+                np.unique(np.asarray(item.payload.versions)).tolist())
+        return item
+
+    tr.queue.put, tr.regime.next_item = audited_put, audited_next_item
+    t0 = time.perf_counter()
+    res = tr.train(phases, eval_every=10 ** 9)
+    final = tr.evaluate(128)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    tr.close()
+    deadline = time.monotonic() + CHAOS_JOIN_S
+    while True:
+        alive = [t.name for t in threading.enumerate()
+                 if t.ident not in threads and t.is_alive()]
+        if not alive or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    alloc = tr.engine.allocator
+    counters = tr.metrics.counter_values()
+    total = lambda name: int(sum(v for k, v in counters.items()
+                                 if k.split("{")[0] == name))
+    quarantined = tr.store.quarantined_versions()
+    step = tr.metrics.histogram("train_step_s").summary()
+    out = dict(
+        updates=len(res.phase_logs), final_eval=final, wall_s=wall_s,
+        learner_step_p50_ms=step["p50"] * 1e3,
+        restarts=tr.regime.restarts, timeouts=int(tr.engine.stats.timeouts),
+        quarantined=quarantined, nonfinite=tr.nonfinite_skipped,
+        quarantine_put=sorted(put_versions & set(quarantined)),
+        quarantine_consumed=sorted(consumed_versions & set(quarantined)),
+        leaked_pages=alloc.num_blocks - alloc.num_free,
+        leaked_refs=int(sum(alloc._refs)), leaked_threads=alive,
+        producer_error=repr(tr.regime.error) if tr.regime.error else None,
+        faults=tr.injector.fired_counts(),
+        watchdog_restart_total=total("watchdog_restart_total"),
+        restart_admitted_total=total("restart_admitted_total"),
+        request_timeout_total=total("request_timeout_total"),
+        publish_quarantined_total=total("publish_quarantined_total"),
+        learner_nonfinite_total=total("learner_nonfinite_total"),
+        lag_histogram=res.runtime_stats["queue"]["lag_histogram"],
+        mean_reward=float(np.mean([l.mean_reward for l in res.phase_logs]))
+        if res.phase_logs else 0.0)
+    del tr
+    return out
+
+
+def chaos_phase(torch):
+    """The threaded serve producer at full width under the chaos bench's
+    canned plan (a producer crash the watchdog restarts, a 7.5 s engine
+    stall past the 3 s request deadline, a NaN publish, a queue stall, a
+    poisoned learner step), beside a fault-free run of the same seed from
+    the same warm start: completion, leaks, quarantine and fault gates;
+    the final evals reported, not gated."""
+    from repro_torch.train import RLVRTrainer
+
+    config, bundle, make_ds = _chaos_parts()
+    seed, phases = config["seed"], config["phases"]
+    warm_hp = _chaos_hp(config, "", None)
+    warm_tr = RLVRTrainer(bundle, make_ds(), warm_hp, seed=seed,
+                          device=CHAOS_DEVICE)
+    warm_loss = warm_tr.warmup()
+    warm = warm_tr.state.params
+    del warm_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = _chaos_run(torch, bundle, make_ds, warm_hp, warm, phases, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chaos = _chaos_run(
+        torch, bundle, make_ds,
+        _chaos_hp(config, config["fault_plan"],
+                  config["request_deadline_s"]), warm, phases, seed)
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = phases * warm_hp.n_minibatches
+    emit(phase="chaos", config=bundle.cfg.name, layers=bundle.cfg.n_layers,
+         fault_plan=config["fault_plan"],
+         request_deadline_s=config["request_deadline_s"],
+         watchdog_restarts=CHAOS_WATCHDOG, warmup_loss=warm_loss,
+         baseline=base, chaos=chaos,
+         final_eval_delta=chaos["final_eval"] - base["final_eval"])
+    for name, run in (("baseline", base), ("chaos", chaos)):
+        check(run["producer_error"] is None,
+              f"chaos {name}: producer error {run['producer_error']}")
+        check(run["leaked_pages"] == 0 and run["leaked_refs"] == 0
+              and not run["leaked_threads"],
+              f"chaos {name}: leaked pages {run['leaked_pages']}, refs "
+              f"{run['leaked_refs']}, threads {run['leaked_threads']}")
+    # Every item is consumed once: only the skipped non-finite step
+    # makes no update (the crashed round restarts before its item).
+    check(base["updates"] == full
+          and chaos["updates"] == full - chaos["nonfinite"],
+          f"chaos: updates {base['updates']} / {chaos['updates']} of {full}")
+    check(not base["quarantined"] and base["restarts"] == 0,
+          f"chaos: the fault-free run quarantined or restarted: {base}")
+    check(not chaos["quarantine_put"] and not chaos["quarantine_consumed"],
+          f"chaos: a quarantined version was served: {chaos}")
+    check(chaos["restarts"] == 1 and chaos["watchdog_restart_total"] == 1
+          and chaos["restart_admitted_total"] == 1,
+          f"chaos: restarts {chaos['restarts']}")
+    check(chaos["timeouts"] >= 1, "chaos: the stall timed out no request")
+    check(len(chaos["quarantined"]) == 1
+          and chaos["publish_quarantined_total"] == 1,
+          f"chaos: quarantined {chaos['quarantined']}")
+    check(chaos["nonfinite"] == 1 and chaos["learner_nonfinite_total"] == 1,
+          f"chaos: non-finite steps {chaos['nonfinite']}")
+
+
+CHECKPOINT_DIR = ROOT / "build" / "checkpoints"
+SERVE_CKPT_ARGS = ["--engine", "static", "--full-width", "--device", "cuda",
+                   "--temperature", "0", "--batch", "8",
+                   "--max-new-tokens", "8"]
+GUARD_ARGS = [
+    "rlvr", "--device", "cuda", "--warmup-steps", "2", "--n-minibatches",
+    "3", "--phases", "1", "--fault-plan", "learner_nan:at_step=2"]
+
+
+def checkpoint_phase(torch, trainer):
+    """Phase 24's last trainer's params saved by ``train rlvr
+    --checkpoint-dir`` and served by ``launch.serve --checkpoint
+    --full-width``: the loaded leaves bit-equal, greedy tokens identical
+    to serving the in-memory params; then a reduced-width ``learner_nan``
+    run whose guard restores from ``--guard-checkpoint-dir``."""
+    import shutil
+
+    from repro_torch.checkpoint import latest_checkpoint
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.tracer import NULL_TRACER
+    from repro_torch.rollout.sampler import generate
+    from repro_torch.utils.tree import tree_leaves
+
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    args = launcher.build_parser().parse_args(
+        CONTROLLER_ARGS + ["--checkpoint-dir", str(CHECKPOINT_DIR / "rlvr")])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = launcher.save_params(args, trainer)
+    save_s = time.perf_counter() - t0
+    size = Path(path).stat().st_size
+    sargs = serve_launcher.build_parser().parse_args(
+        SERVE_CKPT_ARGS + ["--checkpoint", path])
+    t0 = time.perf_counter()
+    static = serve_launcher.prepare_static(sargs)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(static.params), tree_leaves(trainer.state.params)))
+    check(equal, "checkpoint phase: loaded leaves differ from the saved")
+    loaded, dt = serve_launcher.run_static(static)
+    serve_launcher.report_static(static, loaded, dt)
+    # The launcher's own draws: a generator seeded from --seed, as
+    # prepare_static seeds each call's.
+    draws = torch.Generator(device=static.device).manual_seed(sargs.seed + 2)
+    memory = generate(static.bundle, trainer.state.params, static.prompts,
+                      draws, max_new_tokens=sargs.max_new_tokens,
+                      temperature=sargs.temperature, top_p=sargs.top_p)
+    check(torch.equal(loaded.completion, memory.completion),
+          "checkpoint phase: greedy tokens from the loaded checkpoint "
+          "differ from the in-memory params'")
+    del static, loaded, memory
+    # The guard's checkpoint restore, at reduced width on the card.
+    guard_dir = CHECKPOINT_DIR / "guard"
+    gargs = launcher.build_parser().parse_args(
+        GUARD_ARGS + ["--guard-checkpoint-dir", str(guard_dir)])
+    t0 = time.perf_counter()
+    gtr, gres, _ = launcher.run(gargs, NULL_TRACER)
+    torch.cuda.synchronize()
+    guard_s = time.perf_counter() - t0
+    counters = gtr.metrics.counter_values("learner_nonfinite_total")
+    check(counters == {"learner_nonfinite_total{restored=checkpoint}": 1.0}
+          and gtr.nonfinite_skipped == 1 and len(gres.phase_logs) == 2,
+          f"checkpoint phase: guard restore {counters}")
+    check(all(bool(torch.isfinite(x).all())
+              for x in tree_leaves(gtr.state.params)),
+          "checkpoint phase: the restored params are not finite")
+    newest = latest_checkpoint(str(guard_dir))
+    emit(phase="checkpoint", path=str(Path(path).relative_to(ROOT)),
+         bytes=size, save_s=save_s, serve_prepare_s=load_s,
+         save_gb_per_s=size / save_s / 1e9, greedy_tokens_identical=True,
+         tokens=int(sargs.batch * sargs.max_new_tokens),
+         guard_counters=counters, guard_newest=Path(newest).name,
+         guard_seconds=guard_s, guard_config=gtr.bundle.cfg.name)
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -3033,6 +3605,11 @@ def main() -> int:
     threaded_rl_phase(torch)
     threaded_serve_rlvr_phase(torch)
     harness_phase(torch)
+    gc.collect()                  # the earlier phases' trainers (cycles)
+    torch.cuda.empty_cache()
+    trainer = controllers_phase(torch)
+    chaos_phase(torch)
+    checkpoint_phase(torch, trainer)
 
     rows = []
     for name, source, replaces in KERNELS:

@@ -19,15 +19,20 @@ attention-free and hybrid archs as the reference's engine does.
 vocab 151936; rwkv6-1.6b: 24 layers, d 2048, vocab 65536; hymba-1.5b:
 32 layers, d 1600, vocab 32001) instead of ``reduced_config``; the math
 tokenizer's ids fit in every vocab.
-Weights are a random init from ``--seed``.
+Weights are a random init from ``--seed``, or the checkpoint
+``--checkpoint`` names (``repro_torch.checkpoint``, the format
+``repro.checkpoint`` writes; e.g. what ``train rlvr --checkpoint-dir``
+saved), loaded into that init's structure.  SIGINT/SIGTERM flush the
+trace and metrics before exiting.
 
 Not ported yet (each exits with a message): ``--controller``,
 ``--speculate``, ``--prefix-cache``, ``--mesh``, ``--runtime
-versioned``, ``--checkpoint`` and ``--no-chunked-prefill``.
+versioned`` and ``--no-chunked-prefill``.
 """
 from __future__ import annotations
 
 import argparse
+import signal
 import sys
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -40,7 +45,6 @@ _NOT_PORTED = (
     ("--prefix-cache", lambda a: a.prefix_cache),
     ("--mesh", lambda a: a.mesh),
     ("--runtime versioned", lambda a: a.runtime == "versioned"),
-    ("--checkpoint", lambda a: a.checkpoint),
     ("--no-chunked-prefill", lambda a: a.no_chunked_prefill),
 )
 
@@ -115,7 +119,8 @@ def _where(device: torch.device) -> str:
 
 def _model(args: argparse.Namespace):
     """``(device, bundle, params, dataset)`` from ``args``: the config,
-    its random init from ``--seed`` on the device, the math prompts."""
+    its random init from ``--seed`` on the device (or ``--checkpoint``
+    loaded into it), the math prompts."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.mathgen import MathTaskDataset
     from repro_torch.data.tokenizer import get_tokenizer
@@ -128,6 +133,11 @@ def _model(args: argparse.Namespace):
     bundle = build(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = bundle.init(gen, device=device)
+    if args.checkpoint:
+        from repro_torch.checkpoint import load_checkpoint
+
+        params, step, meta = load_checkpoint(args.checkpoint, params)
+        print(f"loaded checkpoint step={step} meta={meta}")
     ds = MathTaskDataset(prompt_len=32, level=args.level, seed=args.seed + 1)
     return device, bundle, params, ds
 
@@ -279,11 +289,15 @@ def report(args: argparse.Namespace, engine: Any, trajs: List[Any],
               f"{t.finish_reason}, gold {ans}, reward {r})")
 
 
-def serve(args: argparse.Namespace, tracer: Any = None
+def serve(args: argparse.Namespace, tracer: Any = None,
+          flush_state: Optional[dict] = None
           ) -> Tuple[Any, List[Any], float]:
     """Build, serve and report; returns ``(engine, trajectories,
-    seconds)``."""
+    seconds)``.  ``flush_state["engine"]`` is set as soon as the engine
+    exists (for the signal flush)."""
     engine, meta = prepare(args, tracer)
+    if flush_state is not None:
+        flush_state["engine"] = engine
     trajs, dt = run(args, engine)
     report(args, engine, trajs, dt, meta)
     return engine, trajs, dt
@@ -299,14 +313,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "path yet; use repro.launch.serve for it")
 
     from repro_torch.obs.tracer import make_tracer
+    from repro_torch.resilience import install_flush_handlers
 
     tracer = make_tracer(args.trace_detail if args.trace else "off")
-    engine = None
-    if args.engine == "static":
-        serve_static(args)
-    else:
-        engine, _, _ = serve(args, tracer=tracer)
-    if args.trace:
+
+    def _export_trace() -> None:
+        if not args.trace:
+            return
         from repro_torch.obs.perfetto import (export_perfetto,
                                               export_trace_jsonl)
 
@@ -317,10 +330,33 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"trace: {n} events -> {args.trace} "
               f"(detail={args.trace_detail}, "
               f"ring-dropped={tracer.dropped})")
-    if args.metrics_out and engine is not None:   # as in JAX: continuous
-        engine.metrics.export_jsonl(args.metrics_out)
-        print(f"metrics: snapshot -> {args.metrics_out}")
-    return 0
+
+    # SIGINT/SIGTERM still leave the trace and metrics on disk.
+    flush_state = {"engine": None}
+
+    def _flush(signum: int) -> None:
+        engine = flush_state.get("engine")
+        if engine is not None and args.metrics_out:
+            engine.metrics.export_jsonl(args.metrics_out, signal=signum)
+            print(f"metrics: flushed -> {args.metrics_out}")
+        _export_trace()
+
+    previous = install_flush_handlers(_flush)
+    try:
+        engine = None
+        if args.engine == "static":
+            serve_static(args)
+        else:
+            engine, _, _ = serve(args, tracer, flush_state)
+        _export_trace()
+        if args.metrics_out and engine is not None:   # as in JAX
+            engine.metrics.export_jsonl(args.metrics_out)
+            print(f"metrics: snapshot -> {args.metrics_out}")
+        return 0
+    finally:
+        # The handlers close over this run: put back what was there.
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
 
 
 if __name__ == "__main__":

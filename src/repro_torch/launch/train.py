@@ -23,6 +23,14 @@ classic RL (§5.1) and forward-lag RLVR (§5.2).
       --producer serve --runtime threaded \\
       --controller "tv_gate:delta=0.05,mode=downweight"
 
+  # the threaded serve producer under faults: a crash the watchdog
+  # restarts, a stall past the request deadline, a quarantined publish,
+  # a poisoned learner step rolled back; the params saved at the end
+  PYTHONPATH=src python -m repro_torch.launch.train rlvr \\
+      --producer serve --runtime threaded --controller gac \\
+      --fault-plan "producer_crash:at_step=2;nan_publish:at_publish=4" \\
+      --watchdog-restarts 2 --request-deadline 3 --checkpoint-dir ckpt
+
 Same flags, defaults and printout as ``repro.launch.train`` for the
 parts ported, plus ``--device``.  ``rl`` runs all five algorithms and
 all five envs under the ``backward_mixture``, ``forward_n`` and
@@ -32,34 +40,27 @@ all five envs under the ``backward_mixture``, ``forward_n`` and
 ``threaded``; ``--full-width`` trains
 ``get_config("qwen2.5-0.5b")`` (24 layers, vocab 151936) instead of
 ``reduced_config``.  Weights are a random init from ``--seed``.  Both
-take the ``pass_through``, ``max_lag`` and ``tv_gate`` controllers
-(``rlvr`` also ``tv_gate_tokenwise``).
+take every controller of ``runtime.controllers`` (``rl`` builds the
+queue's; the learner hooks of ``gac``, ``stable_async`` and ``asympo``
+run in ``rlvr``).  ``rlvr`` takes the resilience flags
+(``--fault-plan``, ``--fault-seed``, ``--watchdog-restarts``,
+``--watchdog-backoff-ms``, ``--guard-checkpoint-dir``) and saves the
+trained params under ``--checkpoint-dir``; as in the JAX launcher,
+``rl`` accepts ``--checkpoint-dir`` and writes nothing, and
+``--metrics-out`` writes nothing for ``rl``.  SIGINT/SIGTERM stop the
+producer and flush the trace and metrics before exiting.
 
-Not ported yet (each exits with a message): the
-controllers ``gac``, ``stable_async`` and ``asympo``, and
-``--checkpoint-dir``; for ``rlvr`` also ``--fault-plan``,
-``--watchdog-restarts`` and ``--guard-checkpoint-dir``, attention-free
+Not ported yet (each exits with a message): training attention-free
 archs (``--arch rwkv6-1.6b``: the ``wkv6`` kernel has no backward yet)
 and hybrid ones (``--arch hymba-1.5b``: nor has ``ssm_scan``).
-As in the JAX launcher, ``--metrics-out`` writes nothing for ``rl``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
 from typing import Any, List, Optional
-
-_NOT_PORTED = (
-    ("--checkpoint-dir", lambda a: a.checkpoint_dir),
-)
-_NOT_PORTED_RLVR = (
-    ("--fault-plan", lambda a: a.fault_plan),
-    ("--watchdog-restarts", lambda a: a.watchdog_restarts > 0),
-    ("--guard-checkpoint-dir", lambda a: a.guard_checkpoint_dir),
-)
-_CONTROLLERS_NOT_PORTED = ("gac", "stable_async", "asympo")
-
 
 def _add_runtime_args(p, *, regimes, default_regime,
                       admissions=("pass_through", "max_lag", "tv_gate"),
@@ -69,7 +70,9 @@ def _add_runtime_args(p, *, regimes, default_regime,
                    help="lag regime driving the actor-learner runtime")
     p.add_argument("--controller", default=None, metavar="SPEC",
                    help="lag controller spec 'name:key=val,...', e.g. "
-                        "'tv_gate:delta=0.2,mode=downweight'")
+                        "'tv_gate:delta=0.2,mode=downweight', "
+                        "'stable_async:c_max=2.0'; see "
+                        "repro_torch.runtime.available_controllers()")
     p.add_argument("--admission", default=None, choices=list(admissions),
                    help="DEPRECATED: use --controller 'name:...'")
     p.add_argument("--max-lag", type=int, default=None,
@@ -86,7 +89,7 @@ def _add_runtime_args(p, *, regimes, default_regime,
                    choices=["off", "spans", "full"])
     p.add_argument("--metrics-out", default=None, metavar="PATH",
                    help="append one metrics-registry snapshot as a JSONL "
-                        "line at exit")
+                        "line at exit (flushed early on SIGINT/SIGTERM)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -131,17 +134,30 @@ def build_parser() -> argparse.ArgumentParser:
     rv.add_argument("--max-new-tokens", type=int, default=None,
                     help="completion length (default: hp default)")
     rv.add_argument("--engine-max-batch", type=int, default=8)
-    rv.add_argument("--fault-plan", default="", metavar="PLAN")
-    rv.add_argument("--fault-seed", type=int, default=0)
-    rv.add_argument("--watchdog-restarts", type=int, default=0)
-    rv.add_argument("--watchdog-backoff-ms", type=float, default=50.0)
+    rv.add_argument("--fault-plan", default="", metavar="PLAN",
+                    help="fault-injection plan, ';'-joined "
+                         "'kind:key=val,...' chunks, e.g. "
+                         "'producer_crash:at_step=4;"
+                         "nan_publish:at_publish=7'")
+    rv.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for probabilistic faults + stall jitter")
+    rv.add_argument("--watchdog-restarts", type=int, default=0,
+                    help="supervise threaded producers: restart a "
+                         "crashed producer up to N times with seeded "
+                         "exponential backoff (0 = crash-fast)")
+    rv.add_argument("--watchdog-backoff-ms", type=float, default=50.0,
+                    help="watchdog restart backoff base (doubles per "
+                         "attempt, jittered)")
     rv.add_argument("--request-deadline", type=float, default=None,
                     metavar="SECONDS")
     rv.add_argument("--no-finiteness-guard", action="store_true",
                     help="disable the NaN/Inf firewall (non-finite "
                          "publishes quarantined, non-finite learner "
                          "steps skipped + rolled back)")
-    rv.add_argument("--guard-checkpoint-dir", default=None)
+    rv.add_argument("--guard-checkpoint-dir", default=None,
+                    help="finiteness guard restores from the newest "
+                         "checkpoint here (also written after every "
+                         "finite step) instead of the in-memory copy")
     _add_runtime_args(
         rv, regimes=["forward_n", "threaded"], default_regime="forward_n",
         admissions=("pass_through", "max_lag", "tv_gate",
@@ -172,33 +188,25 @@ def _resolve_controller(args, *, delta):
 
 
 def _refuse_unported(args) -> None:
-    checks = _NOT_PORTED + (_NOT_PORTED_RLVR if args.mode == "rlvr" else ())
-    for flag, on in checks:
-        if on(args):
-            raise SystemExit(f"{flag} is not ported to the PyTorch trainer "
-                             "yet; use repro.launch.train for it")
-    if args.mode == "rlvr":
-        from repro_torch.configs import get_config
+    if args.mode != "rlvr":
+        return
+    from repro_torch.configs import get_config
 
-        cfg = get_config(args.arch)
-        if cfg.attn_free:
-            raise SystemExit(
-                f"train rlvr --arch {args.arch}: training an attention-free "
-                "(rwkv) arch needs a backward of the wkv6 kernel, which is "
-                "not ported yet; the port serves it (repro_torch.launch."
-                "serve --engine static), repro.launch.train trains it")
-        if cfg.hybrid_attn_ssm:
-            raise SystemExit(
-                f"train rlvr --arch {args.arch}: training a hybrid "
-                "attention+SSM arch needs a backward of the ssm_scan kernel "
-                "(and of flash_attention for the attention to leave the "
-                "einsum), which are not ported yet; the port serves it "
-                "(repro_torch.launch.serve --engine static), "
-                "repro.launch.train trains it")
-    name = (args.controller or "").split(":")[0].strip()
-    if name in _CONTROLLERS_NOT_PORTED:
-        raise SystemExit(f"--controller {name} is not ported to the "
-                         "PyTorch trainer yet; use repro.launch.train for it")
+    cfg = get_config(args.arch)
+    if cfg.attn_free:
+        raise SystemExit(
+            f"train rlvr --arch {args.arch}: training an attention-free "
+            "(rwkv) arch needs a backward of the wkv6 kernel, which is "
+            "not ported yet; the port serves it (repro_torch.launch."
+            "serve --engine static), repro.launch.train trains it")
+    if cfg.hybrid_attn_ssm:
+        raise SystemExit(
+            f"train rlvr --arch {args.arch}: training a hybrid "
+            "attention+SSM arch needs a backward of the ssm_scan kernel "
+            "(and of flash_attention for the attention to leave the "
+            "einsum), which are not ported yet; the port serves it "
+            "(repro_torch.launch.serve --engine static), "
+            "repro.launch.train trains it")
 
 
 def run_rl(args, tracer: Any = None):
@@ -248,17 +256,24 @@ def build_trainer(args, tracer: Any = None):
         engine_max_batch=args.engine_max_batch,
         request_deadline_s=args.request_deadline,
         queue_maxsize=args.queue_maxsize,
-        finiteness_guard=not args.no_finiteness_guard)
+        fault_plan=args.fault_plan, fault_seed=args.fault_seed,
+        watchdog_restarts=args.watchdog_restarts,
+        watchdog_backoff_ms=args.watchdog_backoff_ms,
+        finiteness_guard=not args.no_finiteness_guard,
+        guard_checkpoint_dir=args.guard_checkpoint_dir)
     if args.max_new_tokens is not None:
         hp_kwargs["max_new_tokens"] = args.max_new_tokens
     return RLVRTrainer(build(cfg), ds, RLVRHyperparams(**hp_kwargs),
                        seed=args.seed, tracer=tracer, device=args.device)
 
 
-def run(args, tracer: Any = None):
+def run(args, tracer: Any = None, flush_state: Optional[dict] = None):
     """RLVR warmup, train and print, as the JAX launcher does; returns
-    ``(trainer, result, warmup_loss)``."""
+    ``(trainer, result, warmup_loss)``.  ``flush_state["trainer"]`` is set
+    as soon as the trainer exists (for the signal flush)."""
     trainer = build_trainer(args, tracer)
+    if flush_state is not None:
+        flush_state["trainer"] = trainer
     wl = trainer.warmup()
     print(f"[warmup] loss={wl:.4f} acc={trainer.evaluate(128):.3f}")
     res = trainer.train(args.phases, eval_every=max(args.phases // 4, 1))
@@ -281,18 +296,33 @@ def run(args, tracer: Any = None):
     return trainer, res, wl
 
 
+def save_params(args, trainer) -> Optional[str]:
+    """``--checkpoint-dir``: the trained params as ``<phases>.ckpt``, as
+    the JAX launcher saves them; returns the path (None without the
+    flag)."""
+    if not args.checkpoint_dir:
+        return None
+    from repro_torch.checkpoint import save_checkpoint
+
+    path = save_checkpoint(args.checkpoint_dir, args.phases,
+                           trainer.state.params,
+                           meta={"arch": trainer.bundle.cfg.name})
+    print(f"checkpoint: {path}")
+    return path
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
 
     from repro_torch.obs.tracer import make_tracer
+    from repro_torch.resilience import install_flush_handlers
 
     tracer = make_tracer(args.trace_detail if args.trace else "off")
-    if args.mode == "rl":
-        run_rl(args, tracer if args.trace else None)
-    else:
-        trainer, _, _ = run(args, tracer)
-    if args.trace:
+
+    def _export_trace() -> None:
+        if not args.trace:
+            return
         from repro_torch.obs.perfetto import (export_perfetto,
                                               export_trace_jsonl)
 
@@ -303,10 +333,40 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"trace: {n} events -> {args.trace} "
               f"(detail={args.trace_detail}, "
               f"ring-dropped={tracer.dropped})")
-    if args.mode == "rlvr" and args.metrics_out:
-        trainer.metrics.export_jsonl(args.metrics_out)
-        print(f"metrics: snapshot -> {args.metrics_out}")
-    return 0
+
+    # SIGINT/SIGTERM stop the producer and flush the trace and metrics
+    # before exiting: an interrupted run still leaves its telemetry.
+    flush_state = {"trainer": None}
+
+    def _flush(signum: int) -> None:
+        trainer = flush_state.get("trainer")
+        if trainer is not None:
+            try:
+                trainer.close()
+            except Exception:
+                pass
+            if args.metrics_out:
+                trainer.metrics.export_jsonl(args.metrics_out, signal=signum)
+                print(f"metrics: flushed -> {args.metrics_out}")
+        _export_trace()
+
+    previous = install_flush_handlers(_flush)
+    try:
+        if args.mode == "rl":
+            run_rl(args, tracer if args.trace else None)
+            _export_trace()
+            return 0
+        trainer, _, _ = run(args, tracer, flush_state)
+        _export_trace()
+        if args.metrics_out:
+            trainer.metrics.export_jsonl(args.metrics_out)
+            print(f"metrics: snapshot -> {args.metrics_out}")
+        save_params(args, trainer)
+        return 0
+    finally:
+        # The handlers close over this run: put back what was there.
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
 
 
 if __name__ == "__main__":

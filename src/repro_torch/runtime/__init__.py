@@ -14,8 +14,11 @@ from repro_torch.runtime.admission import (
     TVGatedAdmission,
 )
 from repro_torch.runtime.controllers import (
+    AsymPOController,
     ControllerContext,
     ControllerSpec,
+    GradientAlignmentController,
+    StableAsyncController,
     available_controllers,
     make_controller,
     parse_controller_spec,
@@ -41,7 +44,9 @@ from repro_torch.runtime.serve_producer import ServeRolloutProducer
 __all__ = [
     "AdmissionDecision", "AdmissionPolicy", "LagController",
     "MaxLagEviction", "PassThrough", "TokenwiseTVGate", "TVGatedAdmission",
-    "ControllerContext", "ControllerSpec", "available_controllers",
+    "AsymPOController", "ControllerContext", "ControllerSpec",
+    "GradientAlignmentController", "StableAsyncController",
+    "available_controllers",
     "make_controller", "parse_controller_spec", "register_controller",
     "spec_from_legacy", "PolicyStore", "QuarantinedVersionError",
     "SnapshotMeta", "StaleVersionError", "QueueClosed", "TrajectoryItem",

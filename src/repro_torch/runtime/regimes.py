@@ -43,9 +43,17 @@ of its own, so its kernels overlap the learner's on the card:
 Random draws: the producer's chain (``Draws``, the engine's generator)
 is used by the producer thread alone, and the learner keeps its own.
 
-Producer supervision (``supervisor=``) is not ported yet (Queue A 6);
-``_restart_meta`` and the restart floor, which only supervision
-triggers, are.
+Supervision (``supervisor=``, a ``BackoffPolicy``): the thread runs its
+loop body under ``resilience.supervise``, so a crash (an injected
+``producer_crash`` or any other error) costs one restart after a seeded
+backoff instead of ending production; ``QueueClosed`` ends it cleanly.
+The restarted incarnation runs on the same thread and the same stream,
+so whatever the crashed one left queued on the device (its snapshot
+copies and their events) runs first, in stream order, and no publish
+waits on an event nobody will record.  Its first item carries
+``restart`` provenance, with ``behavior_version`` reaching back to the
+version the crash hit (the lag spike admission then measures).  A
+``stop`` during a backoff ends the sleep within 50 ms.
 """
 from __future__ import annotations
 
@@ -58,8 +66,8 @@ import torch
 
 from repro_torch.core.policy_lag import PolicyBuffer, buffer_sample
 from repro_torch.envs.base import Env
-from repro_torch.resilience import (NULL_INJECTOR, FaultInjector,
-                                    RestartContext)
+from repro_torch.resilience import (NULL_INJECTOR, BackoffPolicy,
+                                    FaultInjector, RestartContext, supervise)
 from repro_torch.rollout.env_rollout import (Draws, collect_rollout,
                                              default_draws, init_env_states)
 from repro_torch.runtime.policy_store import PolicyStore
@@ -270,13 +278,6 @@ class ForwardNRegime(LagRegime):
 # ---------------------------------------------------------------------------
 
 
-def _refuse_supervisor(supervisor: Any) -> None:
-    if supervisor is not None:
-        raise NotImplementedError(
-            "producer supervision is not ported to the PyTorch runtime yet "
-            "(Queue A 6)")
-
-
 def _record_stream(payload: Any, stream: Any) -> None:
     """Mark every tensor in ``payload`` (nested tuples, lists, dicts) as
     used by ``stream``."""
@@ -293,15 +294,17 @@ def _record_stream(payload: Any, stream: Any) -> None:
 
 class ThreadedProduction:
     """A producer thread for a regime: ``start``/``stop``, the queue
-    closed when production ends, a crash kept and re-raised by
-    ``next_item``, and the thread's CUDA stream (module docstring).
-    Subclasses define ``_run(ctx)``; ``_hand_over`` finishes an item
-    before it is put."""
+    closed when production ends, supervised restarts, a crash kept and
+    re-raised by ``next_item``, and the thread's CUDA stream (module
+    docstring).  Subclasses define ``_run(ctx)``; ``_hand_over``
+    finishes an item before it is put."""
 
     thread_name = "runtime-producer"
 
-    def _init_thread(self, max_items: Optional[int]) -> None:
+    def _init_thread(self, max_items: Optional[int],
+                     supervisor: Optional[BackoffPolicy]) -> None:
         self.max_items = max_items
+        self.supervisor = supervisor
         self.produced = 0
         self.restarts = 0
         self.error: Optional[BaseException] = None
@@ -336,7 +339,18 @@ class ThreadedProduction:
         try:
             with torch.cuda.stream(self._stream):
                 self._before_run()
-                self._run(RestartContext())
+                if self.supervisor is None:
+                    self._run(RestartContext())
+                else:
+                    self.restarts = supervise(
+                        self._run,
+                        policy=self.supervisor,
+                        name=self.name,
+                        should_stop=self._stop_event.is_set,
+                        clean_exits=(QueueClosed,),
+                        registry=self.queue.registry,
+                        tracer=self.tracer,
+                    )
         except BaseException as e:   # surface producer crashes, don't hang
             self.error = e
         finally:
@@ -382,13 +396,12 @@ class ThreadedRegime(ThreadedProduction, LagRegime):
         *,
         max_items: Optional[int] = None,
         injector: FaultInjector = NULL_INJECTOR,
-        supervisor: Any = None,
+        supervisor: Optional[BackoffPolicy] = None,
     ) -> None:
-        _refuse_supervisor(supervisor)
         super().__init__(store, queue)
         self.producer = producer
         self.injector = injector
-        self._init_thread(max_items)
+        self._init_thread(max_items, supervisor)
 
     def _restart_meta(self, ctx: RestartContext, version: int) -> tuple:
         """(behavior_version_oldest, meta) for the first item a restarted
@@ -469,7 +482,7 @@ class EngineThreadedRegime(ThreadedRegime):
         request_fn: Callable[[], Optional[tuple]],
         max_items: Optional[int] = None,
         injector: FaultInjector = NULL_INJECTOR,
-        supervisor: Any = None,
+        supervisor: Optional[BackoffPolicy] = None,
     ) -> None:
         if engine.store is not store:
             raise ValueError(
@@ -548,14 +561,15 @@ def make_regime(
     max_items: Optional[int] = None,
     engine: Any = None,
     injector: FaultInjector = NULL_INJECTOR,
-    supervisor: Any = None,
+    supervisor: Optional[BackoffPolicy] = None,
 ) -> LagRegime:
     """Factory used by the trainers, runners and launchers (``--runtime``).
 
     For ``threaded_engine``, ``producer`` is the request source
     (``request_fn``) and ``engine`` the ServeEngine bound to ``store``.
     ``max_items``, ``injector`` and ``supervisor`` apply to the threaded
-    regimes only; ``supervisor`` is not ported yet and raises."""
+    regimes only (a phase-locked regime has no thread to crash or
+    watch)."""
     if name == "backward_mixture":
         return BackwardMixtureRegime(store, queue, producer)
     if name == "forward_n":

@@ -34,8 +34,11 @@ Two modes:
   lag comes from real timing.  The engine generates from private copies
   of the store's versions and the thread runs on a CUDA stream of its
   own (``runtime.regimes``, "The producer thread and the device").
-
-Producer supervision (``supervisor=``, Queue A 6) is not ported yet.
+  With ``supervisor=`` a crashed thread restarts after a seeded backoff
+  (``runtime.regimes``, "Supervision").  An injected crash fires as a
+  minibatch starts, before any request is submitted, so the crashed
+  round holds no pages; an engine stall past a request's deadline
+  retires it as ``timeout`` and frees its pages.
 """
 from __future__ import annotations
 
@@ -46,12 +49,11 @@ import torch
 
 from repro_torch.data.mathgen import verify
 from repro_torch.data.tokenizer import PAD
-from repro_torch.resilience import (NULL_INJECTOR, FaultInjector,
-                                    RestartContext)
+from repro_torch.resilience import (NULL_INJECTOR, BackoffPolicy,
+                                    FaultInjector, RestartContext)
 from repro_torch.runtime.policy_store import PolicyStore
 from repro_torch.runtime.queue import QueueClosed, TrajectoryQueue
-from repro_torch.runtime.regimes import (LagRegime, ThreadedProduction,
-                                         _refuse_supervisor)
+from repro_torch.runtime.regimes import LagRegime, ThreadedProduction
 
 
 class ServeRolloutProducer(ThreadedProduction, LagRegime):
@@ -74,9 +76,8 @@ class ServeRolloutProducer(ThreadedProduction, LagRegime):
         threaded: bool = False,
         max_items: Optional[int] = None,
         injector: FaultInjector = NULL_INJECTOR,
-        supervisor: Any = None,
+        supervisor: Optional[BackoffPolicy] = None,
     ) -> None:
-        _refuse_supervisor(supervisor)
         if engine.store is not store:
             raise ValueError(
                 "engine must share the producer's PolicyStore (weight "
@@ -90,7 +91,7 @@ class ServeRolloutProducer(ThreadedProduction, LagRegime):
         self.version_offset = version_offset
         self.phase_locked = not threaded
         self.injector = injector
-        self._init_thread(max_items)
+        self._init_thread(max_items, supervisor)
         self._last_timeouts = 0
         if version_offset is not None:
             if version_offset < 0:

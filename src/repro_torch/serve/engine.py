@@ -564,6 +564,14 @@ class ServeEngine:
         tr = self.tracer
         self._maybe_swap()
         self.stats.steps += 1
+        if self.injector.active:
+            # Straggler injection: a matching stall sleeps here, with the
+            # deadline clock running, which is how a hung slot turns into
+            # a timeout retirement.
+            self.injector.stall("engine_step", at_step=self.stats.steps)
+            for req in self.scheduler.running:
+                self.injector.stall("engine_step", at_step=self.stats.steps,
+                                    slot=int(req.slot))
         # Deadline sweep before scheduling: expired waiting requests are
         # never admitted, expired running ones free their slot and pages.
         for req in self.scheduler.expire():

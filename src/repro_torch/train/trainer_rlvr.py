@@ -25,10 +25,18 @@ Either runs phase-locked (``runtime="forward_n"``) or on a producer
 thread (``runtime="threaded"``, a bounded queue of ``queue_maxsize``),
 where lag comes from timing; there the producer thread and the
 learner's eval draw from separate generator chains, and :meth:`close`
-(which :meth:`train` calls) joins the thread.  The controllers are
-``pass_through``/``max_lag``/``tv_gate``/``tv_gate_tokenwise``.  Fault
-injection, the watchdog and checkpoints are not ported yet: their
-hyperparameters are absent.
+(which :meth:`train` calls) joins the thread.
+
+Every controller of ``runtime.controllers`` runs: one with
+``needs_log_pi`` (``stable_async``) gets the learner's own ``log_pi``,
+scored with no gradient under ``state.params`` before the step; one with
+``needs_gradients`` (``gac``) sees the raw gradient tree between the
+split step's two halves (``make_split_update_step``).  One
+``FaultInjector`` (``fault_plan``) threads through the store, queue,
+producer, engine and the learner step; ``watchdog_restarts > 0``
+supervises a producer thread; the finiteness guard restores the newest
+checkpoint under ``guard_checkpoint_dir`` (written after every finite
+step) or else the last finite state kept in memory.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (latest_checkpoint, load_checkpoint,
+                                    save_checkpoint)
 from repro_torch.core.losses import (GRPOConfig, group_advantages,
                                      grpo_token_loss)
 from repro_torch.core.tv_filter import tv_estimate
@@ -47,7 +57,8 @@ from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.optim import (AdamWConfig, AdamWState, adamw_init,
                                adamw_update, clip_by_global_norm)
-from repro_torch.resilience import NULL_INJECTOR, tree_all_finite
+from repro_torch.resilience import (NULL_INJECTOR, BackoffPolicy,
+                                    FaultInjector, tree_all_finite)
 from repro_torch.rollout.async_engine import (ForwardLagGenerator,
                                               RLVRMinibatch)
 from repro_torch.rollout.sampler import score_tokens
@@ -98,12 +109,24 @@ class RLVRHyperparams:
     engine_block_size: int = 8
     engine_max_batch: int = 8
     engine_swap_interval: int = 1
+    # --- resilience (see repro_torch.resilience) ---
+    # Fault plan spec: ";"-joined "kind:key=val,..." chunks, e.g.
+    # "producer_crash:at_step=40;nan_publish:at_publish=7".  Empty = no
+    # injection (NULL_INJECTOR, an early-out on every hook).
+    fault_plan: str = ""
+    fault_seed: int = 0
+    # Watchdog: >0 supervises threaded producers with bounded-retry
+    # restarts under seeded exponential backoff; 0 = crash-fast.
+    watchdog_restarts: int = 0
+    watchdog_backoff_ms: float = 50.0
     # Serve producer: per-request wall-clock budget; timed-out requests
     # retire with finish_reason="timeout" and release their pages.
     request_deadline_s: Optional[float] = None
     # Quarantine non-finite publishes and skip+restore non-finite
-    # learner steps (restores the last finite state).
+    # learner steps (restores the last finite state, or the newest
+    # checkpoint under `guard_checkpoint_dir` when set).
     finiteness_guard: bool = True
+    guard_checkpoint_dir: Optional[str] = None
 
 
 class RLVRTrainState(NamedTuple):
@@ -112,17 +135,21 @@ class RLVRTrainState(NamedTuple):
     updates: int
 
 
-def make_update_step(bundle, hp: RLVRHyperparams, prompt_len: int):
-    """``update(state, tokens, log_beta, mask, advantages) -> (state,
-    aux)``: one GRPO/VACO learner step (score, loss, gradient, clip,
-    AdamW).  ``aux`` values are 0-d tensors."""
+def make_split_update_step(bundle, hp: RLVRHyperparams, prompt_len: int):
+    """The learner's update split at the gradient boundary, where a
+    controller with ``needs_gradients`` (GAC) transforms the gradients:
+    ``grad_step(state, tokens, log_beta, mask, advantages) -> (grads,
+    aux)`` returns the raw gradient tree, and
+    ``apply_step(state, grads) -> (state, grad_norm)`` clips it and runs
+    AdamW.  ``aux`` values are 0-d tensors."""
     grpo_cfg = GRPOConfig(
         clip_low=hp.clip_low, clip_high=hp.clip_high,
         use_vaco=(hp.algorithm == "grpo_vaco"), delta=hp.delta,
         entropy_coef=hp.entropy_coef)
     opt_cfg = AdamWConfig(lr=hp.lr, weight_decay=hp.weight_decay, eps=1e-8)
 
-    def update(state: RLVRTrainState, tokens, log_beta, mask, advantages):
+    def grad_step(state: RLVRTrainState, tokens, log_beta, mask,
+                  advantages):
         params = tree_trainable(state.params)
         with torch.enable_grad():
             log_pi, entropy, _ = score_tokens(bundle, params, tokens,
@@ -133,12 +160,31 @@ def make_update_step(bundle, hp: RLVRHyperparams, prompt_len: int):
             grads = tree_grads(loss, params)
         aux["token_entropy"] = torch.sum(entropy * mask) / torch.clamp(
             torch.sum(mask), min=1.0)
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux.update(loss=loss.detach())
+        return grads, aux
+
+    def apply_step(state: RLVRTrainState, grads):
         grads, gnorm = clip_by_global_norm(grads, hp.max_grad_norm)
         new_params, opt_state = adamw_update(grads, state.opt_state,
                                              state.params, opt_cfg)
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux.update(loss=loss.detach(), grad_norm=gnorm)
-        return RLVRTrainState(new_params, opt_state, state.updates + 1), aux
+        return RLVRTrainState(new_params, opt_state, state.updates + 1), gnorm
+
+    return grad_step, apply_step
+
+
+def make_update_step(bundle, hp: RLVRHyperparams, prompt_len: int):
+    """``update(state, tokens, log_beta, mask, advantages) -> (state,
+    aux)``: one GRPO/VACO learner step (score, loss, gradient, clip,
+    AdamW), the two halves of :func:`make_split_update_step` in one
+    call.  ``aux`` values are 0-d tensors."""
+    grad_step, apply_step = make_split_update_step(bundle, hp, prompt_len)
+
+    def update(state: RLVRTrainState, tokens, log_beta, mask, advantages):
+        grads, aux = grad_step(state, tokens, log_beta, mask, advantages)
+        state, gnorm = apply_step(state, grads)
+        aux.update(grad_norm=gnorm)
+        return state, aux
 
     return update
 
@@ -231,9 +277,24 @@ class RLVRTrainer:
             device=self.device,
             eval_seed=(seed + 3 if hp.runtime == "threaded"
                        and hp.producer == "legacy" else None))
-        self._update = make_update_step(bundle, hp, dataset.prompt_len)
+        # The update at the gradient boundary: a controller with
+        # ``needs_gradients`` (GAC) transforms the gradients between the
+        # halves, every other step runs them back to back.
+        self._grad_step, self._apply_step = make_split_update_step(
+            bundle, hp, dataset.prompt_len)
         self._warmup = make_warmup_step(bundle, hp)
-        self.injector = NULL_INJECTOR
+        # One shared injector threads through every fault site (store,
+        # queue, producer, engine, learner); the supervisor policy
+        # restarts a crashed producer thread with seeded backoff.  Both
+        # are inert by default.
+        self.injector = (
+            FaultInjector(hp.fault_plan, seed=hp.fault_seed,
+                          registry=self.metrics, tracer=self.tracer)
+            if hp.fault_plan else NULL_INJECTOR)
+        self.supervisor = (
+            BackoffPolicy(base_ms=hp.watchdog_backoff_ms,
+                          max_restarts=hp.watchdog_restarts, seed=seed)
+            if hp.watchdog_restarts > 0 else None)
         self._last_good: Optional[RLVRTrainState] = None
         self._learner_steps = 0
         self.nonfinite_skipped = 0
@@ -279,13 +340,13 @@ class RLVRTrainer:
                 max_new_tokens=hp.max_new_tokens,
                 version_offset=hp.forced_lag,
                 threaded=(hp.runtime == "threaded"),
-                injector=self.injector)
+                injector=self.injector, supervisor=self.supervisor)
         elif hp.producer == "legacy":
             self.regime = make_regime(
                 hp.runtime, self.store, self.queue,
                 self.generator.generate_minibatch,
                 forward_n=hp.n_minibatches, max_items=None,
-                injector=self.injector)
+                injector=self.injector, supervisor=self.supervisor)
         else:
             raise ValueError(
                 f"unknown producer {hp.producer!r} (legacy|serve)")
@@ -299,6 +360,15 @@ class RLVRTrainer:
             log_pi, _, _ = score_tokens(self.bundle, params,
                                         payload.gen.tokens,
                                         self.dataset.prompt_len)
+        return log_pi
+
+    def _score_log_pi(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The learner's own ``log_pi`` of ``tokens`` under
+        ``state.params`` (no gradient), for ``needs_log_pi``
+        controllers."""
+        with torch.no_grad():
+            log_pi, _, _ = score_tokens(self.bundle, self.state.params,
+                                        tokens, self.dataset.prompt_len)
         return log_pi
 
     def _make_tv_fn(self):
@@ -356,14 +426,30 @@ class RLVRTrainer:
             return False
         return tree_all_finite(self.state.params)
 
-    def _skip_nonfinite(self, item: Any) -> None:
-        """Drop the step and restore the last finite state (kept by
-        reference: updates never write a state's tensors)."""
-        self.nonfinite_skipped += 1
-        restored = "none"
+    def _restore_last_good(self) -> str:
+        """Roll the train state back to the newest known-finite point;
+        returns where it came from ("checkpoint" | "memory" | "none").
+        The in-memory state is kept by reference: updates never write a
+        state's tensors."""
+        hp = self.hp
+        if hp.guard_checkpoint_dir:
+            path = latest_checkpoint(hp.guard_checkpoint_dir)
+            if path is not None:
+                like = {"params": self.state.params,
+                        "opt_state": self.state.opt_state}
+                tree, _, _ = load_checkpoint(path, like)
+                self.state = RLVRTrainState(
+                    params=tree["params"], opt_state=tree["opt_state"],
+                    updates=self.state.updates)
+                return "checkpoint"
         if self._last_good is not None:
             self.state = self._last_good
-            restored = "memory"
+            return "memory"
+        return "none"
+
+    def _skip_nonfinite(self, item: Any) -> None:
+        self.nonfinite_skipped += 1
+        restored = self._restore_last_good()
         self.metrics.counter(
             "learner_nonfinite_total", restored=restored).inc()
         if self.tracer.enabled:
@@ -393,29 +479,52 @@ class RLVRTrainer:
             adv = group_advantages(mb.rewards, hp.completions_per_prompt)
             adv = adv * float(item.weight)
             # Controller loss hook: an optional [B, S] per-token multiplier
-            # on the advantage (None for every ported controller).
+            # on the advantage.
+            log_pi = None
+            if ctrl.needs_log_pi:
+                log_pi = self._score_log_pi(mb.gen.tokens).cpu().numpy()
             token_w = ctrl.loss_weights(
                 item, advantages=adv.cpu().numpy(),
                 log_beta=mb.gen.log_beta.cpu().numpy(),
-                mask=mb.gen.mask.cpu().numpy(), log_pi=None)
+                mask=mb.gen.mask.cpu().numpy(), log_pi=log_pi)
             adv_in = (adv if token_w is None else adv[:, None]
                       * torch.as_tensor(token_w, device=adv.device))
             t0 = time.monotonic()
             with self.tracer.span("learner_step", pid="train", tid="learner",
                                   lag=item.lag, weight=float(item.weight)):
-                self.state, aux = self._update(
+                grads, aux = self._grad_step(
                     self.state, mb.gen.tokens, mb.gen.log_beta, mb.gen.mask,
                     adv_in)
+                grad_info = {}
+                if ctrl.needs_gradients:
+                    grads, grad_info = ctrl.transform_gradients(item, grads)
+                self.state, aux["grad_norm"] = self._apply_step(
+                    self.state, grads)
                 names = list(aux)
                 values = torch.stack([aux[k].float() for k in names]).tolist()
-                aux = dict(zip(names, values))
+                aux = dict(zip(names, values), **grad_info)
             self._h_step.observe(time.monotonic() - t0)
             self._h_gnorm.observe(aux["grad_norm"])
             self._learner_steps += 1
+            if self.injector.active:
+                poisoned_params, poisoned = self.injector.poison(
+                    "learner_step", self.state.params,
+                    at_step=self._learner_steps)
+                if poisoned:
+                    self.state = self.state._replace(params=poisoned_params)
             if hp.finiteness_guard and not self._step_finite(aux):
+                # Divergence firewall: drop this update, restore the last
+                # finite state and keep training; the bad step is never
+                # published, so generation cannot see it.
                 self._skip_nonfinite(item)
                 continue
             self._last_good = self.state
+            if hp.guard_checkpoint_dir:
+                save_checkpoint(
+                    hp.guard_checkpoint_dir, self.state.updates,
+                    {"params": self.state.params,
+                     "opt_state": self.state.opt_state},
+                    meta={"source": "finiteness_guard"})
             ctrl.on_learner_step(item, aux)
             self.store.publish(self.state.params)
             frac = aux.get("frac_filtered", aux.get("clip_frac", 0.0))

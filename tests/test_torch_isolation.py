@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the ``repro`` package, its entry points
-refuse to fall back to the CPU silently, and its CUDA-only tests skip
-cleanly on a host without a card."""
+``chip_smoke.py``) imports JAX, the ``repro`` package or ``msgpack`` (the
+checkpoints carry their own codec), its entry points refuse to fall back
+to the CPU silently, and its CUDA-only tests skip cleanly on a host
+without a card."""
 import ast
+import json
 import os
 import pkgutil
 import subprocess
@@ -44,6 +46,10 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.kernels.ssm_scan" in mods
     assert "repro_torch.metrics.aggregate" in mods
     assert "repro_torch.configs.hparams" in mods
+    for name in ("resilience.faults", "resilience.supervision",
+                 "resilience.signals", "checkpoint.checkpoint",
+                 "checkpoint.codec", "runtime.controllers"):
+        assert f"repro_torch.{name}" in mods
     for name in ("fig3_backward_lag", "fig4_sample_efficiency",
                  "fig11_tv_tracking", "fig5_rlvr_forward_lag",
                  "ablation_delta", "ablation_rho", "ablation_realignment"):
@@ -52,8 +58,8 @@ def test_importing_every_module_pulls_in_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro', 'msgpack'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -77,7 +83,8 @@ def _imported_names(path: Path):
 def test_no_file_names_jax_or_repro_in_an_import(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
+            f"{path}: {name}"
 
 
 def test_engine_without_cpu_raises_when_cuda_is_absent(monkeypatch):
@@ -181,11 +188,24 @@ def test_experiment_runners_raise_when_cuda_is_absent(monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--controller", "gac"],
                                   ["--checkpoint-dir", "out"]])
-def test_rl_launcher_refuses_unported_flags(flag):
+def test_rl_launcher_refuses_unported_flags(flag, tmp_path, monkeypatch,
+                                            capsys):
+    """Both flags were refused until the controllers and checkpoints were
+    ported: ``rl`` now runs with them and prints the JAX launcher's keys;
+    as in JAX, ``rl`` accepts ``--checkpoint-dir`` and writes nothing."""
     from repro_torch.launch import train
 
-    with pytest.raises(SystemExit, match="not ported"):
-        train.main(["rl", "--device", "cpu", *flag])
+    monkeypatch.chdir(tmp_path)
+    assert train.main(["rl", "--device", "cpu", "--n-actors", "4",
+                       "--rollout-steps", "8", "--phases", "1",
+                       *flag]) == 0
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):])
+    assert set(report) == {"runtime", "returns", "final_tv",
+                           "runtime_stats"}
+    assert report["runtime_stats"]["queue"]["controller"] == (
+        "gac" if "gac" in flag else "pass_through")
+    assert os.listdir(tmp_path) == []
 
 
 def test_cuda_only_tests_skip_cleanly_without_a_card():

@@ -127,9 +127,6 @@ def test_serve_producer_refuses_what_is_not_ported():
     threaded = ServeRolloutProducer(prod.store, q, prod.engine,
                                     prod.dataset, threaded=True, **kw)
     assert not threaded.phase_locked and not threaded.running
-    with pytest.raises(NotImplementedError, match="A 6"):
-        ServeRolloutProducer(prod.store, q, prod.engine, prod.dataset,
-                             supervisor=object(), **kw)
     other = PolicyStore(prod.store.get(3), capacity=2)
     with pytest.raises(ValueError, match="share"):
         ServeRolloutProducer(other, q, prod.engine, prod.dataset, **kw)

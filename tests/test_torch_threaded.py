@@ -26,8 +26,8 @@ timing (the engine-driven regimes).
 * ``run_async_rl(runtime="threaded")`` and ``train rl|rlvr --runtime
   threaded --device cpu``: they finish, join their thread, and print
   the JAX launcher's JSON keys;
-* a producer crash re-raised by ``next_item``; ``supervisor=`` refused
-  (the port has no supervision yet, Queue A 6).
+* a producer crash re-raised by ``next_item``; ``supervisor=`` taken by
+  every threaded producer (its restarts: ``tests/test_torch_resilience.py``).
 """
 import json
 import threading
@@ -447,21 +447,27 @@ def test_producer_crash_is_reraised_by_next_item(pkg):
 
 
 def test_supervisor_is_refused_naming_its_queue_item():
+    """Supervision was refused until Queue A 6 ported it: every threaded
+    producer now takes a ``BackoffPolicy`` and keeps it, as JAX's do."""
+    from repro_torch.resilience import BackoffPolicy
+
+    policy = BackoffPolicy(base_ms=1, max_restarts=2)
     store = trt.PolicyStore(_params(trt, 0), capacity=2)
     queue = trt.TrajectoryQueue()
-    with pytest.raises(NotImplementedError, match="A 6"):
-        trt.make_regime("threaded", store, queue, lambda p: 0,
-                        supervisor=object())
     eng_store = _store(trt)
     eng = _engine(trt, eng_store)
-    with pytest.raises(NotImplementedError, match="A 6"):
+    made = (
+        trt.make_regime("threaded", store, queue, lambda p: 0,
+                        supervisor=policy),
         trt.make_regime("threaded_engine", eng_store, queue, lambda: None,
-                        engine=eng, supervisor=object())
-    with pytest.raises(NotImplementedError, match="A 6"):
+                        engine=eng, supervisor=policy),
         trt.ServeRolloutProducer(
             eng_store, queue, eng, MathTaskDataset(prompt_len=12,
                                                    pool_size=64),
             prompts_per_minibatch=1, completions_per_prompt=1,
-            max_new_tokens=1, threaded=True, supervisor=object())
+            max_new_tokens=1, threaded=True, supervisor=policy))
+    for regime in made:
+        assert regime.supervisor is policy and regime.restarts == 0
+        assert not regime.running
     assert "threaded" in trt.REGIMES and "threaded_engine" in trt.REGIMES
     assert trt.ThreadedRegime is not None and trt.EngineThreadedRegime

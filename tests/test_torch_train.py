@@ -17,6 +17,7 @@ Tolerances and why:
   becomes a visible (eps-bounded) update difference.
 """
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -333,10 +334,47 @@ def test_launcher_trains_on_the_cpu(capsys):
 @pytest.mark.parametrize("argv", [
     ["rl", "--controller", "stable_async"],
     ["rlvr", "--watchdog-restarts", "1"],
-    ["rlvr", "--controller", "gac"], ["rlvr", "--fault-plan", "x"],
+    ["rlvr", "--controller", "gac"],
+    ["rlvr", "--fault-plan", "learner_nan:at_step=1"],
     ["rlvr", "--checkpoint-dir", "out"]])
-def test_launcher_refuses_unported_options(argv):
+def test_launcher_refuses_unported_options(argv, tmp_path, monkeypatch,
+                                           capsys):
+    """Each option was refused until the controllers, resilience and
+    checkpoints were ported: each now runs on the CPU and prints the JAX
+    launcher's keys; ``--checkpoint-dir`` saves ``<phases>.ckpt`` for
+    ``rlvr``, which ``repro.checkpoint`` loads."""
     from repro_torch.launch import train
 
-    with pytest.raises(SystemExit, match="not ported"):
-        train.main(argv)
+    monkeypatch.chdir(tmp_path)
+    small = (["--n-actors", "4", "--rollout-steps", "8", "--phases", "1"]
+             if argv[0] == "rl" else
+             ["--warmup-steps", "1", "--n-minibatches", "2", "--phases",
+              "1"])
+    assert train.main([argv[0], "--device", "cpu", *small, *argv[1:]]) == 0
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    if argv[0] == "rl":
+        assert set(report) == {"runtime", "returns", "final_tv",
+                               "runtime_stats"}
+        return
+    assert set(report) == {"arch", "algorithm", "runtime", "n_minibatches",
+                           "eval_accuracy", "final_tv", "runtime_stats",
+                           "train_step_ms"}
+    stats = report["runtime_stats"]
+    if "--fault-plan" in argv:      # the step is skipped, not published
+        assert report["train_step_ms"]["count"] == 2
+        assert stats["policy_version"] == 2
+        assert stats["resilience"]["counters"][
+            "learner_nonfinite_total{restored=memory}"] == 1.0
+    else:
+        assert stats["policy_version"] == 3
+    if "--checkpoint-dir" in argv:
+        from repro.checkpoint import load_checkpoint as jax_load
+
+        path = tmp_path / "out" / "1.ckpt"
+        assert f"checkpoint: {path.relative_to(tmp_path)}" in out
+        jparams = jax_build(JCFG).init(jax.random.PRNGKey(0))
+        tree, step, meta = jax_load(str(path), jparams)
+        assert (step, meta) == (1, {"arch": "qwen2.5-0.5b-reduced"})
+    else:
+        assert os.listdir(tmp_path) == []
