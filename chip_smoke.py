@@ -13,8 +13,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    path's full-width shapes (H=14, KV=2, Dh=64, BS=8, M=32, B=4,
    T in {1, 16, 32}) plus ragged edge cases and contexts of up to 239
    keys (four 64-key tiles, global and windowed), and the speculative
-   verify shape (``paged_attention_multi``, B 4 x T 4 at the decode
-   contexts), in float32 and bfloat16; float32 within 2e-5, bfloat16
+   verify shape (``paged_attention_multi``, B 4 x T 4 and T 2 ending at
+   the decode contexts), in float32 and bfloat16; float32 within 2e-5, bfloat16
    within 2e-2, the K/V row write bit-exact.  Times each with CUDA
    events beside the plain version, a library call and its bound.  The
    K/V row write is timed twice: the wrapper called directly with an
@@ -228,8 +228,42 @@ Phases, each printing one JSON line (any failure exits non-zero):
     --checkpoint --full-width``: leaves bit-equal, greedy tokens equal
     to the in-memory params'; a reduced-width ``learner_nan`` run on the
     card restores from ``--guard-checkpoint-dir``.
+27. speculative serve: ``repro_torch.launch.serve --engine continuous
+    --full-width --runtime versioned --speculate 4 --draft version:-1``
+    in-process, greedy, 8 requests x 16 tokens: v0 alone drafts for
+    itself, so acceptance must be exactly 1.0; the verify pass launches
+    the varlen kernel at T 4 (``paged_attention_multi``) once a layer a
+    round.  Then over a store of v0 and v1 = v0's dense weights x 1.01
+    (v1 serves, v0 drafts, pinned): sampled (temperature 1.0, 8
+    requests of 8-32 tokens; acceptance, tokens/s, the draft-lag
+    histogram, T 4 launches, a profiled repeat's idle share; every
+    request retires, no page leaks) and greedy against plain greedy
+    serving of v1 (token agreement; a divergence must sit at a top-2
+    logit gap under 1e-3 of a dense forward).  Then 2 layers at full
+    width, dense x3, a draft of dense x3.3: greedy speculative equal to
+    plain greedy on the CPU and on the card, equal acceptance counts
+    card and CPU; sampled on the same injected draws, equal tokens and
+    counts, log_beta within 1e-4.
+28. prefix cache: ``benchmarks.bench_serve.run_best_of``'s run shape at
+    full width (2 prompts x best-of 4, greedy, unshared and cached
+    engines, a warm pair then 4 pairs): token-exact, and the bench's
+    token counts exactly (``results/BENCH_serve.json``: 56 / 17 prefill
+    rows, 7 copy-on-write copies, hit rates 0.975 / 0.825); the cached
+    engine with ``speculate_k=3`` token-exact too; no page leaks;
+    tokens/s of each.
+29. RLVR through both: phase 19's cell with ``engine_prefix_cache=True``
+    and ``engine_speculate_k=2`` in ``RLVRHyperparams``: prefix hits and
+    fewer prefill rows a minibatch than phase 19's, every token's
+    ``log_beta`` within 1.43e-5 of its re-scoring on v0 (under forced
+    lag every token and its whole history ran under v0), both log-prob
+    kernels once a learner step (the gate's scoring twice); generation
+    tokens/s, acceptance and the learner step p50 beside phase 19's.
+    The draft is the served v0 here, so every draft is accepted: this
+    phase covers the draft pool, the verify shape and the cache, and
+    phase 27's lagged and 2-layer runs cover rejection.
 
-Then one JSON line of every kernel's numbers, the ``nvidia-smi`` line,
+Then one JSON line of every kernel's numbers (``paged_attention_multi``'s
+launches are phase 27's first run's), the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -416,6 +450,7 @@ def _attention_cases():
     # The speculative verify shape (paged_attention_multi, a wrapper over
     # the varlen kernel): T 4 tokens a slot ending at the decode contexts.
     yield "multi_t4", 4, [41, 13, 60, 29], [4, 4, 4, 4], None
+    yield "multi_t2", 2, [43, 15, 62, 31], [2, 2, 2, 2], None
 
 
 def _attention_bound(q, rows, lens, window, n_scalars, esize, dtype):
@@ -526,10 +561,13 @@ def kernel_phase(torch):
                        plain_device_ms=device_ms(plain),
                        library_device_ms=device_ms(lib))
             emit(**rec)
-            # paged_attention_multi runs kernel 3: its error is kernel 3's.
-            key = (name.replace("_multi", "_varlen"), dname)
+            key = (name, dname)
             worst[key] = max(worst.get(key, 0.0), err)
-            if case in ("decode", "varlen_t16"):
+            if name == "paged_attention_multi":
+                # It runs kernel 3: its error is kernel 3's too.
+                k3 = ("paged_attention_varlen", dname)
+                worst[k3] = max(worst.get(k3, 0.0), err)
+            if case in ("decode", "varlen_t16", "multi_t4"):
                 headline[key] = rec
 
         # K/V row write: a decode step's 4 rows and a varlen round's 64.
@@ -2178,7 +2216,8 @@ SERVE_RLVR_ARGS = [
 def serve_rlvr_phase(torch):
     """``train rlvr --full-width --producer serve --forced-lag 2`` with the
     TV gate, cut as phase 7 is; then one more minibatch, timed, and one
-    profiled."""
+    profiled.  Returns the prefill rows a minibatch, the learner step
+    p50 and the generation rate, which phase 29 reports beside its own."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.launch import train as launcher
@@ -2250,6 +2289,7 @@ def serve_rlvr_phase(torch):
     check(moved > 0, "serve rlvr phase: the params did not move")
     produce = _span_seconds(tracer, "produce")
     tokens_out = engine.stats.tokens_out
+    prefill_rows = engine.stats.prefill_tokens / len(produce)
     step = trainer.metrics.histogram("train_step_s").summary()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # One more minibatch through the engine: wall, then device time.
@@ -2267,6 +2307,7 @@ def serve_rlvr_phase(torch):
          learner_step_mean_ms=step["mean"] * 1e3,
          minibatches_generated=len(produce), tokens_out=tokens_out,
          generation_tokens_per_s=tokens_out / sum(produce),
+         prefill_rows_per_minibatch=prefill_rows,
          swaps=engine.stats.swaps,
          forced_versions=[want for _, want, _ in items],
          item_lag=[l.staleness for l in res.phase_logs],
@@ -2279,7 +2320,10 @@ def serve_rlvr_phase(torch):
     emit(phase="serve_rlvr_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
          kernel_launches=sum(n for _, _, n in rows), top_kernels=rows[:8])
-    return launches
+    # Phase 29 runs this cell with the prefix cache and speculation on.
+    return dict(prefill_rows=prefill_rows,
+                learner_step_p50_ms=step["p50"] * 1e3,
+                generation_tokens_per_s=tokens_out / sum(produce))
 
 
 SWAP_PUBLISH_AT = 4         # the step before which v1 is published
@@ -3359,6 +3403,461 @@ def checkpoint_phase(torch, trainer):
     shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-29: speculative decode and the prefix cache
+# ---------------------------------------------------------------------------
+
+SPEC_ARGS = ["--engine", "continuous", "--full-width", "--device", "cuda",
+             "--runtime", "versioned", "--speculate", "4", "--draft",
+             "version:-1", "--temperature", "0", "--requests", "8"]
+SPEC_BUDGETS = (8, 16, 24, 32, 8, 16, 24, 32)   # the lagged-draft runs
+NEAR_TIE = 1e-3              # phase 27: a divergence's top-2 logit gap
+SPEC_DEVICE = "cuda"         # phases 27-29 (a CPU rehearsal sets "cpu")
+
+
+def _prompts(n, seed=1):
+    from repro_torch.data.mathgen import MathTaskDataset
+    from repro_torch.data.tokenizer import get_tokenizer
+
+    tok = get_tokenizer()
+    toks, _, _ = MathTaskDataset(prompt_len=32, level=0,
+                                 seed=seed).sample_batch(n)
+    return [row[row != tok.pad_id] for row in toks]
+
+
+def _serve_timed(torch, eng, prompts, budgets):
+    """Submit, run to the end between device synchronisations; returns
+    ``({request_id: trajectory}, seconds)``."""
+    for i, (p, n) in enumerate(zip(prompts, budgets)):
+        eng.submit(p, n, request_id=i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trajs = eng.run(max_steps=10_000)
+    torch.cuda.synchronize()
+    return {t.request_id: t for t in trajs}, time.perf_counter() - t0
+
+
+def _injected_noise(torch, eng, seed=5):
+    """Draw the engine's sampling and accept noise from one CPU stream,
+    so the card and the CPU take the same draws."""
+    from repro_torch.rollout.sampler import accept_noise, gumbel_noise, sample
+
+    g = torch.Generator().manual_seed(seed)
+    eng._sample = lambda logits: sample(
+        logits, eng._temperature, eng._top_p,
+        gumbel_noise(logits.shape, g, "cpu").to(logits.device))
+    eng._accept_noise = lambda b, k, v: tuple(
+        t.to(eng.device) for t in accept_noise(b, k, v, g, "cpu"))
+
+
+def _spec_parity(torch):
+    """2 layers at full width, dense weights x3, a draft of dense x3.3:
+    greedy speculative against plain greedy serving on the CPU and on the
+    card, then sampled speculative serving card against CPU on the same
+    injected draws."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen2.5-0.5b").replace(n_layers=2)
+    bundle = build(cfg)
+    params = _scale_dense(bundle.init(torch.Generator().manual_seed(0)))
+    draft = _scale_dense(params, 1.1)
+    prompts, budgets = _prompts(4), (4, 8, 16, 8)
+    kw = dict(num_blocks=128, block_size=8, max_batch=4, decode_chunk=4,
+              prefill_chunk=16, dispatch_budget=32, seed=2)
+    out = {}
+    for mode, temperature in (("greedy", 0.0), ("sampled", 1.0)):
+        for dev in ("cpu", "cuda"):
+            for spec in ((4,) if mode == "sampled" else (0, 4)):
+                eng = ServeEngine(bundle, params, temperature=temperature,
+                                  speculate_k=spec, device=dev,
+                                  draft=("params", draft) if spec else None,
+                                  **kw)
+                if mode == "sampled":
+                    _injected_noise(torch, eng)
+                for i, (p, n) in enumerate(zip(prompts, budgets)):
+                    eng.submit(p, n, request_id=i)
+                trajs = {t.request_id: t for t in eng.run(max_steps=1000)}
+                check(sorted(trajs) == [0, 1, 2, 3],
+                      f"spec parity/{mode}/{dev}: not every request retired")
+                out[(mode, dev, spec)] = (trajs, eng.stats)
+    rec = {}
+    for dev in ("cpu", "cuda"):
+        spec, plain = out[("greedy", dev, 4)][0], out[("greedy", dev, 0)][0]
+        for rid in plain:
+            check(spec[rid].tokens.tolist() == plain[rid].tokens.tolist(),
+                  f"spec parity/greedy/{dev}: request {rid} speculative "
+                  f"{spec[rid].tokens} plain {plain[rid].tokens}")
+    for mode in ("greedy", "sampled"):
+        (want, ws), (got, gs) = out[(mode, "cpu", 4)], out[(mode, "cuda", 4)]
+        worst = 0.0
+        for rid, w in want.items():
+            check(got[rid].tokens.tolist() == w.tokens.tolist(),
+                  f"spec parity/{mode}: request {rid} cuda "
+                  f"{got[rid].tokens} cpu {w.tokens}")
+            worst = max(worst, float(abs(got[rid].log_beta
+                                         - w.log_beta).max()))
+        counts = [(s.spec_rounds, s.drafted_tokens, s.accepted_tokens)
+                  for s in (gs, ws)]
+        check(counts[0] == counts[1],
+              f"spec parity/{mode}: cuda / cpu rounds, drafted, accepted "
+              f"{counts}")
+        check(worst <= 1e-4, f"spec parity/{mode}: log_beta differs by "
+              f"{worst}")
+        check(0 < ws.accepted_tokens < ws.drafted_tokens,
+              f"spec parity/{mode}: acceptance {counts[1]} exercises "
+              "only one outcome")
+        rec[mode] = dict(tokens=sum(t.num_tokens for t in want.values()),
+                         distinct_tokens=len({int(x) for t in want.values()
+                                              for x in t.tokens}),
+                         rounds_drafted_accepted=counts[1],
+                         log_beta_max_abs_err=worst, tol=1e-4)
+    check(min(float(t.log_beta.min())
+              for t in out[("sampled", "cpu", 4)][0].values()) < -0.1,
+          "spec parity/sampled: every draw was the argmax")
+    return dict(config=cfg.name, layers=cfg.n_layers, **rec)
+
+
+def _top2_gap(torch, bundle, params, prompt, tokens):
+    """The top-2 logit gap of the next token after ``prompt + tokens``,
+    from a dense forward of the same weights."""
+    row = torch.tensor(list(prompt) + list(tokens), device=SPEC_DEVICE)[None]
+    with torch.no_grad():
+        logits = bundle.forward(params, row).logits[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def spec_serve_phase(torch):
+    """Phase 27: speculative serving at full width through the launcher
+    (v0 alone, drafting for itself: the acceptance ceiling), a lagged
+    draft (v1 = v0's dense weights x 1.01, v0 drafting) sampled and
+    greedy against plain greedy serving, and the 2-layer parity."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+    from repro_torch.metrics import collect_serve_stats
+    from repro_torch.runtime import PolicyStore
+    from repro_torch.serve import ServeEngine
+
+    args = launcher.build_parser().parse_args(SPEC_ARGS)
+    kernels.reset_launch_counts()
+    engine, trajs, seconds = launcher.serve(args)
+    launches = kernels.launch_counts()
+    cfg = engine.bundle.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size) == (24, 896, 14, 2, 4864, 151936),
+          f"spec serve phase is not full width: {cfg}")
+    st = collect_serve_stats(engine)
+    check(len(trajs) == args.requests and not engine.has_work,
+          f"spec serve: {len(trajs)} of {args.requests} requests retired")
+    check(st["drafted_tokens"] > 0 and st["acceptance_rate"] == 1.0,
+          f"spec serve: v0 drafting for itself accepted "
+          f"{st['accepted_tokens']} of {st['drafted_tokens']}")
+    for name in SERVE_KERNELS + ("paged_attention_multi",):
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "speculative serve path")
+    check(launches["paged_attention_multi"]
+          == st["spec_rounds"] * cfg.n_layers,
+          f"spec serve: {launches['paged_attention_multi']} verify "
+          f"launches for {st['spec_rounds']} rounds")
+    check(engine.allocator.num_free == engine.allocator.num_blocks,
+          "spec serve: pages leaked")
+    emit(phase="spec_serve", config=cfg.name, layers=cfg.n_layers,
+         requests=len(trajs), tokens_out=st["tokens_out"], seconds=seconds,
+         tokens_per_s=st["tokens_out"] / seconds,
+         spec_rounds=st["spec_rounds"], drafted=st["drafted_tokens"],
+         accepted=st["accepted_tokens"],
+         acceptance_rate=st["acceptance_rate"],
+         draft_version=st["draft_version"],
+         inter_token_p50_ms=st["inter_token_p50_ms"],
+         ttft_p50_ms=st["ttft_p50_ms"], launches=launches)
+    bundle, v0 = engine.bundle, engine.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The lagged draft: v1 serves, v0 (one publish behind) drafts.
+    store = PolicyStore(v0, capacity=2)
+    store.publish(_scale_dense(v0, 1.01))
+    prompts = _prompts(len(SPEC_BUDGETS))
+    kw = dict(num_blocks=128, block_size=8, max_batch=4, seed=2,
+              max_seq_len=256, device=SPEC_DEVICE)
+
+    def lagged(temperature, spec=4):
+        return ServeEngine(bundle, store=store, speculate_k=spec,
+                           temperature=temperature,
+                           decode_chunk=4, **kw)
+
+    eng = lagged(1.0)
+    kernels.reset_launch_counts()
+    out, secs = _serve_timed(torch, eng, prompts, SPEC_BUDGETS)
+    lag_launches = kernels.launch_counts()
+    st = collect_serve_stats(eng)
+    check(sorted(out) == list(range(len(SPEC_BUDGETS))),
+          f"lagged draft: {len(out)} requests retired")
+    check(eng.allocator.num_free == eng.allocator.num_blocks,
+          "lagged draft: pages leaked")
+    check((eng.version, eng.draft.version) == (1, 0)
+          and store.pinned_versions() == [0],
+          f"lagged draft: versions {eng.version}/{eng.draft.version}, "
+          f"pins {store.pinned_versions()}")
+    check(0 < st["accepted_tokens"] <= st["drafted_tokens"],
+          f"lagged draft: accepted {st['accepted_tokens']}")
+    # The same traffic once more, profiled (device busy / idle share).
+    eng2 = lagged(1.0)
+    for i, (p, n) in enumerate(zip(prompts, SPEC_BUDGETS)):
+        eng2.submit(p, n, request_id=i)
+    busy_ms, rows = profile_kernels(lambda: eng2.run(max_steps=10_000))
+    emit(phase="spec_serve_lagged", temperature=1.0, requests=len(out),
+         tokens_out=st["tokens_out"], seconds=secs,
+         tokens_per_s=st["tokens_out"] / secs,
+         spec_rounds=st["spec_rounds"], drafted=st["drafted_tokens"],
+         accepted=st["accepted_tokens"],
+         acceptance_rate=st["acceptance_rate"],
+         draft_version_lag_histogram=st["draft_version_lag_histogram"],
+         verify_varlen_launches_t4=lag_launches["paged_attention_multi"],
+         device_busy_ms=busy_ms,
+         idle_share=max(0.0, 1.0 - busy_ms / (secs * 1e3)),
+         top_kernels=rows[:6], launches=lag_launches)
+    del eng, eng2
+
+    # Greedy: the lagged draft against plain greedy serving of v1.
+    spec_eng, plain_eng = lagged(0.0), lagged(0.0, spec=0)
+    spec_out, spec_s = _serve_timed(torch, spec_eng, prompts, SPEC_BUDGETS)
+    plain_out, plain_s = _serve_timed(torch, plain_eng, prompts, SPEC_BUDGETS)
+    same = total = 0
+    gaps = []
+    for rid, p in plain_out.items():
+        a, b = spec_out[rid].tokens.tolist(), p.tokens.tolist()
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        total += len(b)
+        same += len(b) if n is None else n
+        if n is not None:
+            gaps.append(_top2_gap(torch, bundle, store.get(1), prompts[rid],
+                                  b[:n]))
+    check(all(g < NEAR_TIE for g in gaps),
+          f"spec greedy diverges from plain greedy away from a near tie: "
+          f"top-2 gaps {gaps}")
+    sst = collect_serve_stats(spec_eng)
+    emit(phase="spec_serve_divergence", temperature=0.0,
+         tokens=total, tokens_agreeing=same,
+         token_agreement=same / max(total, 1),
+         requests_diverging=len(gaps), top2_gaps_at_divergence=gaps,
+         near_tie=NEAR_TIE, acceptance_rate=sst["acceptance_rate"],
+         spec_tokens_per_s=sst["tokens_out"] / spec_s,
+         plain_tokens_per_s=plain_eng.stats.tokens_out / plain_s)
+    del spec_eng, plain_eng, store, v0
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="spec_parity", **_spec_parity(torch))
+    return launches
+
+
+BEST_OF = dict(best_of=4, n_prompts=2, max_batch=4, gen_len=16,
+               block_size=8, num_blocks=64, prompt_len=32, decode_chunk=8,
+               repeats=3)
+BENCH_SERVE = ROOT / "results" / "BENCH_serve.json"
+
+
+def prefix_cache_phase(torch):
+    """Phase 28: ``benchmarks.bench_serve.run_best_of``'s run shape at full
+    width (2 prompts x best-of 4, greedy, unshared against prefix-cached
+    engines, a warm pair then ``repeats`` + 1 pairs), gated on the
+    bench's token counts; then the cached engine with ``speculate_k=3``."""
+    from repro_torch.configs import get_config
+    from repro_torch.metrics import collect_serve_stats
+    from repro_torch.models.registry import build
+    from repro_torch.serve import ServeEngine
+
+    want = json.loads(BENCH_SERVE.read_text())["best_of"]
+    c = BEST_OF
+    check(all(want["config"][k] == c[k] for k in want["config"]
+              if k in c), f"prefix phase: run shape {c} is not the "
+              f"bench's {want['config']}")
+    cfg = get_config("qwen2.5-0.5b")
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device=SPEC_DEVICE).manual_seed(0),
+                         device=SPEC_DEVICE)
+    prompts = _prompts(c["n_prompts"], seed=1)
+
+    def make(prefix, spec=0):
+        return ServeEngine(
+            bundle, params, num_blocks=c["num_blocks"],
+            block_size=c["block_size"], max_batch=c["max_batch"],
+            max_seq_len=c["prompt_len"] + c["gen_len"] + c["block_size"],
+            decode_chunk=c["decode_chunk"], temperature=1e-4, seed=2,
+            prefix_cache=prefix, speculate_k=spec, device=SPEC_DEVICE)
+
+    def run(eng):
+        before = eng.stats.prefill_tokens, eng.stats.cow_copies, \
+            eng.stats.tokens_out
+        rid = 0
+        for p in prompts:
+            for _ in range(c["best_of"]):
+                eng.submit(p, c["gen_len"], request_id=f"bo{rid}")
+                rid += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trajs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return dict(wall_s=wall, tokens=eng.stats.tokens_out - before[2],
+                    prefill=eng.stats.prefill_tokens - before[0],
+                    cow=eng.stats.cow_copies - before[1],
+                    out={t.request_id: t.tokens.tolist() for t in trajs})
+
+    dense, shared = make(False), make(True)
+    warm_d, warm_s = run(dense), run(shared)
+    pairs = [(run(dense), run(shared)) for _ in range(c["repeats"] + 1)][1:]
+    st = collect_serve_stats(shared)
+    spec = make(True, spec=3)
+    spec_run = run(spec)
+    sst = collect_serve_stats(spec)
+    exact = warm_s["out"] == warm_d["out"]
+    exact_spec = spec_run["out"] == warm_d["out"]
+    ratio = warm_d["prefill"] / max(warm_s["prefill"], 1)
+    check(exact, "prefix phase: shared output differs from unshared")
+    check(exact_spec, "prefix phase: speculative shared output differs "
+          "from unshared")
+    check((warm_d["prefill"], warm_s["prefill"]) == (
+        want["unshared_prefill_tokens"], want["shared_prefill_tokens"]),
+        f"prefix phase: prefill rows {warm_d['prefill']} / "
+        f"{warm_s['prefill']}, the bench's "
+        f"{want['unshared_prefill_tokens']} / "
+        f"{want['shared_prefill_tokens']}")
+    check(warm_s["cow"] == want["cow_copies"],
+          f"prefix phase: {warm_s['cow']} copies, the bench's "
+          f"{want['cow_copies']}")
+    for key in ("prefix_hit_rate", "prefix_token_hit_rate"):
+        check(st[key] == want[key], f"prefix phase: {key} {st[key]}, the "
+              f"bench's {want[key]}")
+    for eng in (dense, shared, spec):
+        check(eng.allocator.num_free == eng.allocator.num_blocks
+              and not eng.scheduler.running,
+              "prefix phase: pages leaked")
+    d_best = min((d for d, _ in pairs), key=lambda r: r["wall_s"])
+    s_best = min((s for _, s in pairs), key=lambda r: r["wall_s"])
+    ratios = sorted((s["tokens"] / s["wall_s"]) / (d["tokens"] / d["wall_s"])
+                    for d, s in pairs)
+    emit(phase="prefix_cache", config=cfg.name, layers=cfg.n_layers,
+         run_shape=c, token_exact=exact, token_exact_speculative=exact_spec,
+         prefill_cost_ratio=ratio, unshared_prefill_tokens=warm_d["prefill"],
+         shared_prefill_tokens=warm_s["prefill"],
+         cow_copies=warm_s["cow"], prefix_hit_rate=st["prefix_hit_rate"],
+         prefix_token_hit_rate=st["prefix_token_hit_rate"],
+         unshared_tokens_per_s=d_best["tokens"] / d_best["wall_s"],
+         tokens_per_s=s_best["tokens"] / s_best["wall_s"],
+         paired_speedup_median=ratios[len(ratios) // 2],
+         speculative_tokens_per_s=spec_run["tokens"] / spec_run["wall_s"],
+         speculative_acceptance=sst["acceptance_rate"],
+         speculative_prefill_tokens=spec_run["prefill"])
+
+
+SPEC_RLVR_K = 2
+SPEC_RLVR_TOL = 1.43e-5      # phase 22's reading of the same rule
+
+
+def spec_rlvr_phase(torch, baseline):
+    """Phase 29: phase 19's cell with ``engine_prefix_cache=True`` and
+    ``engine_speculate_k=2`` set in ``RLVRHyperparams``: prefix hits,
+    fewer prefill rows a minibatch than phase 19's (``baseline``), every
+    token's ``log_beta`` against the serving version's re-scoring (under
+    forced lag every token and its whole history ran under v0), both
+    log-prob kernels on every learner step."""
+    import numpy as np
+    import repro_torch.train as train_pkg
+    from repro_torch import kernels
+    from repro_torch.launch import train as launcher
+    from repro_torch.metrics import collect_serve_stats
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.rollout.sampler import score_tokens
+    from repro_torch.runtime import ServeRolloutProducer
+
+    args = launcher.build_parser().parse_args(SERVE_RLVR_ARGS)
+    tracer = Tracer(detail="spans")
+    items = []
+    put = ServeRolloutProducer._put
+    hparams = train_pkg.RLVRHyperparams
+
+    def recording_put(self, mb, **meta):
+        items.append((mb, int(self.engine.version)))
+        put(self, mb, **meta)
+
+    ServeRolloutProducer._put = recording_put
+    train_pkg.RLVRHyperparams = lambda **kw: hparams(
+        engine_prefix_cache=True, engine_speculate_k=SPEC_RLVR_K, **kw)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, res, warm_loss = launcher.run(args, tracer)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        ServeRolloutProducer._put = put
+        train_pkg.RLVRHyperparams = hparams
+    cfg, hp, engine = trainer.bundle.cfg, trainer.hp, trainer.engine
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (24, 896, 151936)
+          and hp.engine_prefix_cache and hp.engine_speculate_k == SPEC_RLVR_K,
+          f"spec rlvr phase: {cfg.name} {hp}")
+    steps = len(res.phase_logs)
+    check(steps == hp.n_minibatches and len(items) == steps,
+          f"spec rlvr: {steps} learner steps, {len(items)} items")
+    st = collect_serve_stats(engine)
+    produce = _span_seconds(tracer, "produce")
+    rows_per_mb = st["prefill_tokens"] / len(produce)
+    check(st["prefix_hits"] > 0 and rows_per_mb < baseline["prefill_rows"],
+          f"spec rlvr: prefix hits {st['prefix_hits']}, prefill rows a "
+          f"minibatch {rows_per_mb} (phase 19: {baseline['prefill_rows']})")
+    check(st["drafted_tokens"] > 0 and launches["paged_attention_multi"] > 0,
+          f"spec rlvr: drafted {st['drafted_tokens']}, verify launches "
+          f"{launches['paged_attention_multi']}")
+    check(launches["fused_logprob_bwd"] == steps
+          and launches["fused_logprob"] == 2 * steps,
+          f"spec rlvr: log-prob kernels launched {launches['fused_logprob']}"
+          f" / {launches['fused_logprob_bwd']} in {steps} learner steps")
+    # Cached pages with no reference count as free.
+    check(engine.allocator.num_free == engine.allocator.num_blocks
+          and not engine.scheduler.running, "spec rlvr: pages leaked")
+    # Forced lag 2 from v1 and v2 resolves to v0 both times, and the
+    # engine still holds v0: every token and its history ran under it.
+    worst, n_tokens = 0.0, 0
+    for mb, version in items:
+        versions = np.asarray(mb.versions)
+        valid = mb.gen.mask.cpu().numpy() > 0
+        check(version == engine.version == 0
+              and set(versions[valid].tolist()) <= {0},
+              f"spec rlvr: an item from version {version}")
+        with torch.no_grad():
+            log_pi, _, _ = score_tokens(trainer.bundle, engine.params,
+                                        mb.gen.tokens,
+                                        trainer.dataset.prompt_len)
+        err = np.abs(log_pi.cpu().numpy() - mb.gen.log_beta.cpu().numpy())
+        worst = max(worst, float(err[valid].max()))
+        n_tokens += int(valid.sum())
+    check(worst <= SPEC_RLVR_TOL, f"spec rlvr: log_beta {worst} from the "
+          "verifier's re-scoring")
+    step = trainer.metrics.histogram("train_step_s").summary()
+    emit(phase="spec_rlvr", config=cfg.name, layers=cfg.n_layers,
+         seconds=seconds, warmup_loss=warm_loss, learner_steps=steps,
+         learner_step_p50_ms=step["p50"] * 1e3,
+         phase19_learner_step_p50_ms=baseline["learner_step_p50_ms"],
+         tokens_out=engine.stats.tokens_out,
+         generation_tokens_per_s=engine.stats.tokens_out / sum(produce),
+         phase19_generation_tokens_per_s=baseline["generation_tokens_per_s"],
+         prefill_rows_per_minibatch=rows_per_mb,
+         phase19_prefill_rows_per_minibatch=baseline["prefill_rows"],
+         prefix_hits=st["prefix_hits"], prefix_queries=st["prefix_queries"],
+         prefix_token_hit_rate=st["prefix_token_hit_rate"],
+         cow_copies=st["cow_copies"], spec_rounds=st["spec_rounds"],
+         drafted=st["drafted_tokens"], accepted=st["accepted_tokens"],
+         acceptance_rate=st["acceptance_rate"],
+         log_beta_max_abs_err=worst, tokens_rescored=n_tokens,
+         tol=SPEC_RLVR_TOL,
+         tv=[l.tv for l in res.phase_logs], launches=launches)
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -3367,6 +3866,11 @@ KERNELS = (
     ("paged_attention_varlen",
      "src/repro_torch/kernels/csrc/paged_attention_varlen.cu",
      "src/repro/kernels/paged_attention_pallas.py:262"),
+    # The fixed-T verify shape (a wrapper over kernel 3 in both packages):
+    # its launches are the verify passes' (ops.paged_attention_multi).
+    ("paged_attention_multi",
+     "src/repro_torch/kernels/csrc/paged_attention_varlen.cu",
+     "src/repro/kernels/paged_attention_pallas.py:327"),
     ("fused_logprob", "src/repro_torch/kernels/csrc/fused_logprob.cu",
      "src/repro/kernels/fused_logprob_pallas.py:92"),
     # The gradient jax.grad takes through the plain versions (the Pallas
@@ -3600,7 +4104,7 @@ def main() -> int:
     hymba = hymba_serve_phase(torch)
     launches.update({k: hymba[k] for k in ("flash_attention", "ssm_scan")})
     hymba_parity_phase(torch)
-    serve_rlvr_phase(torch)
+    rlvr_baseline = serve_rlvr_phase(torch)
     swap_parity_phase(torch)
     threaded_rl_phase(torch)
     threaded_serve_rlvr_phase(torch)
@@ -3610,6 +4114,13 @@ def main() -> int:
     trainer = controllers_phase(torch)
     chaos_phase(torch)
     checkpoint_phase(torch, trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["paged_attention_multi"] = spec_serve_phase(torch)[
+        "paged_attention_multi"]
+    prefix_cache_phase(torch)
+    spec_rlvr_phase(torch, rlvr_baseline)
 
     rows = []
     for name, source, replaces in KERNELS:

@@ -12,11 +12,14 @@ from repro_torch.kernels import (flash_attention, logprobs, paged_attention,
 _KERNELS = (paged_kv_write.KERNEL, paged_attention.KERNEL,
             paged_attention_varlen.KERNEL, logprobs.FWD_KERNEL,
             logprobs.BWD_KERNEL, vtrace.KERNEL, wkv6.KERNEL,
-            flash_attention.KERNEL, ssm_scan.KERNEL)
+            flash_attention.KERNEL, ssm_scan.KERNEL,
+            paged_attention_varlen.MULTI)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of each CUDA kernel since the last reset, by name."""
+    """Launches of each CUDA kernel since the last reset, by name;
+    ``paged_attention_multi`` counts the varlen kernel's launches at the
+    verify shape (also in ``paged_attention_varlen``'s)."""
     return {k.name: k.launches for k in _KERNELS}
 
 

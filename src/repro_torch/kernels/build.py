@@ -147,6 +147,22 @@ class Kernel:
         self(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
+class LaunchCount:
+    """A count of its own for one shape of another wrapper's kernel (the
+    speculative verify shape of the varlen kernel): the wrapper calls
+    :meth:`add` right after its launch went through, so the shape's
+    launches can be read apart from the kernel's."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.launches = 0
+        self._count_lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._count_lock:
+            self.launches += 1
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if err != 0:

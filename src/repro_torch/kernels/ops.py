@@ -19,8 +19,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.logprobs import LogprobsFn
 from repro_torch.kernels.paged_attention import paged_attention_cuda
-from repro_torch.kernels.paged_attention_varlen import \
-    paged_attention_varlen_cuda
+from repro_torch.kernels.paged_attention_varlen import (
+    MULTI, paged_attention_varlen_cuda)
 from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
 from repro_torch.kernels.ssm_scan import bc_row_stride, ssm_scan_cuda
 from repro_torch.kernels.vtrace import vtrace_cuda
@@ -60,18 +60,20 @@ def paged_attention(
 
 def paged_attention_varlen(
     q, k_pages, v_pages, block_tables, row_start, row_len,
-    *, window: Optional[int] = None,
+    *, window: Optional[int] = None, count=None,
 ):
     """Ragged multi-token attention over the paged pool ([B, T, H, D]):
     query ``t < row_len[b]`` sits at ``row_start[b] + t`` and attends
-    causally; padding rows and ``row_len == 0`` slots are exact zeros."""
+    causally; padding rows and ``row_len == 0`` slots are exact zeros.
+    On the card ``count`` (a ``LaunchCount``, e.g. ``MULTI``), when
+    given, also counts the launch."""
     if _route(q) == "cpu":
         return ref.ref_paged_attention_varlen(
             q, k_pages, v_pages, block_tables, row_start, row_len,
             window=window)
     return paged_attention_varlen_cuda(
         q.contiguous(), k_pages, v_pages, _i32(block_tables),
-        _i32(row_start), _i32(row_len), window=window)
+        _i32(row_start), _i32(row_len), window=window, count=count)
 
 
 def paged_attention_multi(
@@ -80,11 +82,12 @@ def paged_attention_multi(
 ):
     """Fixed-``T`` verify shape ([B, T, H, D]): query ``t`` sits at
     ``context_lens - T + t``; a wrapper over the varlen kernel, as in
-    the JAX package."""
+    the JAX package.  On the card each launch also counts in
+    ``launch_counts()["paged_attention_multi"]``."""
     row_start, row_len = ref.multi_rows(context_lens, q.shape[1])
     return paged_attention_varlen(
         q, k_pages, v_pages, block_tables, row_start, row_len,
-        window=window)
+        window=window, count=MULTI)
 
 
 def paged_kv_write(

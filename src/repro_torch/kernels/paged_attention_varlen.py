@@ -12,13 +12,16 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import Kernel
+from repro_torch.kernels.build import Kernel, LaunchCount
 from repro_torch.kernels.paged_attention import DTYPES, check_inputs
 
 # q, k, v, tables, row_start, row_len, out | B T H KV NB BS D M window |
 # scale dtype stream
 KERNEL = Kernel("paged_attention_varlen",
                 [c_void_p] * 7 + [c_int] * 9 + [c_float, c_int, c_void_p])
+# Launches of this kernel at the fixed-T verify shape (the launches made
+# with ``count=MULTI``; each is counted in ``KERNEL`` as well).
+MULTI = LaunchCount("paged_attention_multi")
 
 
 def paged_attention_varlen_cuda(
@@ -30,8 +33,11 @@ def paged_attention_varlen_cuda(
     row_len: torch.Tensor,       # [B] int32
     *,
     window: Optional[int] = None,
+    count: Optional[LaunchCount] = None,
 ) -> torch.Tensor:
-    """Ragged multi-row attention over the paged pool ([B, T, H, D])."""
+    """Ragged multi-row attention over the paged pool ([B, T, H, D]).
+    ``count``, when given, adds one once the launch went through (the
+    verify shape's ``MULTI``)."""
     if q.dim() != 4:
         raise ValueError(f"{KERNEL.name}: q must be [B, T, H, D]")
     check_inputs(KERNEL.name, q, k_pages, v_pages, block_tables,
@@ -45,4 +51,6 @@ def paged_attention_varlen_cuda(
                   b, t, h, kv, nb, bs, d, block_tables.shape[1],
                   -1 if window is None else int(window), d ** -0.5,
                   DTYPES[q.dtype])
+    if count is not None:
+        count.add()
     return out

@@ -9,12 +9,22 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
       --requests 12 --mixed-lengths 4,8,16,32 [--full-width] [--device cpu]
 
+  # speculative decode from the store's lagged version, prefix cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
+      --runtime versioned --speculate 4 --draft version:-1 \\
+      --prefix-cache --best-of 4 [--full-width] [--device cpu]
+
 Same flags and printout as ``repro.launch.serve`` for the parts ported:
 the ``static`` engine (``rollout.sampler.generate`` over the decode
 cache: one untimed warm call, then one call timed between device
 synchronisations) for every arch the port has, and the ``continuous``
-engine with chunked prefill and multi-step decode, which refuses
-attention-free and hybrid archs as the reference's engine does.
+engine with chunked prefill, multi-step decode, speculative decode
+(``--speculate k``, ``--draft version:-n|model:<arch>|self``,
+``--speculate-adaptive``) and the prefix cache (``--prefix-cache``),
+which refuses attention-free and hybrid archs as the reference's engine
+does.  ``--runtime versioned`` serves through a ``PolicyStore`` holding
+the init as v0 and the ``--checkpoint`` (when given) as v1; the
+continuous engine polls it every ``--swap-interval`` steps.
 ``--full-width`` serves ``get_config(--arch)`` (qwen2.5-0.5b: 24 layers,
 vocab 151936; rwkv6-1.6b: 24 layers, d 2048, vocab 65536; hymba-1.5b:
 32 layers, d 1600, vocab 32001) instead of ``reduced_config``; the math
@@ -26,8 +36,7 @@ saved), loaded into that init's structure.  SIGINT/SIGTERM flush the
 trace and metrics before exiting.
 
 Not ported yet (each exits with a message): ``--controller``,
-``--speculate``, ``--prefix-cache``, ``--mesh``, ``--runtime
-versioned`` and ``--no-chunked-prefill``.
+``--mesh`` and ``--no-chunked-prefill``.
 """
 from __future__ import annotations
 
@@ -41,12 +50,17 @@ import torch
 
 _NOT_PORTED = (
     ("--controller", lambda a: a.controller),
-    ("--speculate", lambda a: a.speculate),
-    ("--prefix-cache", lambda a: a.prefix_cache),
     ("--mesh", lambda a: a.mesh),
-    ("--runtime versioned", lambda a: a.runtime == "versioned"),
     ("--no-chunked-prefill", lambda a: a.no_chunked_prefill),
 )
+
+
+def _version_tag(versions) -> str:
+    """Human summary of one request's per-token version vector."""
+    uniq = sorted(set(int(v) for v in versions))
+    if len(uniq) == 1:
+        return f"v{uniq[0]}"
+    return f"v{uniq[0]}->v{uniq[-1]}"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,10 +90,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode-chunk", type=int, default=4,
                     help="continuous: decode steps per dispatch "
                          "(scheduling happens between chunks)")
-    ap.add_argument("--speculate", type=int, default=0)
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="continuous: speculative-decode draft length k "
+                         "(0 = off); k drafted tokens are verified in "
+                         "one multi-token pass")
+    ap.add_argument("--draft", default="version:-1",
+                    help="draft policy: version:-n (self-speculation "
+                         "from the PolicyStore, needs --runtime "
+                         "versioned), model:<arch> (small registry "
+                         "draft), self (verifier params; accept-all)")
+    ap.add_argument("--speculate-adaptive", action="store_true",
+                    help="continuous: adapt the per-round draft length "
+                         "in [1, --speculate] from each slot's "
+                         "acceptance EMA")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="continuous: share resident prompt-prefix KV "
+                         "pages across requests (refcounted, copy-on-"
+                         "write); prefill runs only the unmatched suffix")
     ap.add_argument("--best-of", type=int, default=1,
-                    help="continuous: submit each prompt N times")
+                    help="continuous: submit each prompt N times (the "
+                         "access pattern --prefix-cache collapses to ~1x "
+                         "prefill)")
     ap.add_argument("--no-chunked-prefill", action="store_true")
     ap.add_argument("--prefill-chunk", type=int, default=16,
                     help="continuous: rows per prefill tile in the "
@@ -98,13 +129,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profiler-annotations", action="store_true",
                     help="wrap engine dispatches in torch.profiler."
                          "record_function")
+    ap.add_argument("--swap-interval", type=int, default=1,
+                    help="continuous, --runtime versioned: steps between "
+                         "polls of the store's newest version")
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--level", type=int, default=0)
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runtime", default="direct",
-                    choices=["direct", "versioned"])
+                    choices=["direct", "versioned"],
+                    help="versioned: serve through the PolicyStore (v0 "
+                         "the init, v1 the --checkpoint)")
     ap.add_argument("--controller", default=None, metavar="SPEC")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="append one metrics-registry snapshot as a "
@@ -117,10 +153,12 @@ def _where(device: torch.device) -> str:
             else "this host's CPU")
 
 
-def _model(args: argparse.Namespace):
-    """``(device, bundle, params, dataset)`` from ``args``: the config,
-    its random init from ``--seed`` on the device (or ``--checkpoint``
-    loaded into it), the math prompts."""
+def _model(args: argparse.Namespace, tracer: Any = None):
+    """``(device, bundle, params, dataset, store)`` from ``args``: the
+    config, its random init from ``--seed`` on the device (or
+    ``--checkpoint`` loaded into it), the math prompts, and with
+    ``--runtime versioned`` a ``PolicyStore`` on the device holding the
+    init as v0 and the checkpoint, when given, as v1 (else None)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.mathgen import MathTaskDataset
     from repro_torch.data.tokenizer import get_tokenizer
@@ -132,25 +170,64 @@ def _model(args: argparse.Namespace):
            else reduced_config(args.arch, vocab=get_tokenizer().vocab_size))
     bundle = build(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = bundle.init(gen, device=device)
+    params = init_params = bundle.init(gen, device=device)
     if args.checkpoint:
         from repro_torch.checkpoint import load_checkpoint
 
         params, step, meta = load_checkpoint(args.checkpoint, params)
         print(f"loaded checkpoint step={step} meta={meta}")
+    store = None
+    if args.runtime == "versioned":
+        from repro_torch.runtime import PolicyStore
+        from repro_torch.obs.tracer import NULL_TRACER
+
+        # v0 is the true random init; the checkpoint (if any) is v1.
+        store = PolicyStore(init_params, capacity=2,
+                            meta={"source": "init"},
+                            tracer=tracer if tracer is not None
+                            else NULL_TRACER)
+        if args.checkpoint:
+            store.publish(params, source="checkpoint",
+                          checkpoint=args.checkpoint)
     ds = MathTaskDataset(prompt_len=32, level=args.level, seed=args.seed + 1)
-    return device, bundle, params, ds
+    return device, bundle, params, ds, store
+
+
+def _parse_draft(spec: str, args: argparse.Namespace, params: Any,
+                 device: torch.device):
+    """--draft grammar: ``version:-n`` (self-speculation from the
+    PolicyStore ring), ``model:<arch>`` (the reduced registry config of
+    ``arch``, random init from ``--seed`` + 7), ``self`` (the verifier's
+    own params; the accept-all ceiling)."""
+    if spec.startswith("version:"):
+        return ("version", int(spec.split(":", 1)[1]))
+    if spec.startswith("model:"):
+        from repro_torch.configs import reduced_config
+        from repro_torch.data.tokenizer import get_tokenizer
+        from repro_torch.models.registry import build
+
+        dcfg = reduced_config(spec.split(":", 1)[1],
+                              vocab=get_tokenizer().vocab_size)
+        dbundle = build(dcfg)
+        gen = torch.Generator(device=device).manual_seed(args.seed + 7)
+        return ("model", dbundle, dbundle.init(gen, device=device))
+    if spec == "self":
+        return ("params", params)
+    raise SystemExit(f"--draft {spec!r}: want version:-n, model:<arch> "
+                     "or self")
 
 
 class StaticServe(NamedTuple):
     """One static batch: the model, the left-padded prompts ``[B, 32]``
-    on the device, their answers, and ``generate`` bound to them."""
+    on the device, their answers, and ``generate`` bound to them;
+    ``version`` is the store version served (``--runtime versioned``)."""
     device: torch.device
     bundle: Any
     params: Any
     prompts: torch.Tensor
     answers: List[str]
     generate: Callable[[], Any]
+    version: Optional[int] = None
 
 
 def prepare_static(args: argparse.Namespace) -> StaticServe:
@@ -160,7 +237,12 @@ def prepare_static(args: argparse.Namespace) -> StaticServe:
     does."""
     from repro_torch.rollout.sampler import generate
 
-    device, bundle, params, ds = _model(args)
+    device, bundle, params, ds, store = _model(args)
+    version = None
+    if store is not None:
+        params, version = store.latest()
+        print(f"serving policy version {version} "
+              f"(retained: {store.retained_versions()})")
     toks_np, _, answers = ds.sample_batch(args.batch)
     prompts = torch.from_numpy(toks_np).to(device)
 
@@ -170,7 +252,8 @@ def prepare_static(args: argparse.Namespace) -> StaticServe:
                         max_new_tokens=args.max_new_tokens,
                         temperature=args.temperature, top_p=args.top_p)
 
-    return StaticServe(device, bundle, params, prompts, answers, gen_fn)
+    return StaticServe(device, bundle, params, prompts, answers, gen_fn,
+                       version)
 
 
 def run_static(static: StaticServe) -> Tuple[Any, float]:
@@ -192,13 +275,16 @@ def report_static(static: StaticServe, res: Any, dt: float) -> None:
 
     tok = get_tokenizer()
     n_tok = res.completion.numel()
+    tag = ("" if static.version is None
+           else f" [policy v{static.version}]")
     print(f"decode: {n_tok} tokens in {dt*1e3:.1f} ms "
-          f"({n_tok/dt:.0f} tok/s on {_where(static.device)})")
+          f"({n_tok/dt:.0f} tok/s on {_where(static.device)}){tag}")
     comp = res.completion.cpu().numpy()
     for i in range(min(len(static.answers), 8)):
         text = tok.decode(comp[i])
         r = verify(text, static.answers[i])
-        print(f"  [{i}] -> {text!r} (gold {static.answers[i]}, reward {r})")
+        print(f"  [{i}] -> {text!r} (gold {static.answers[i]}, "
+              f"reward {r}){tag}")
 
 
 def serve_static(args: argparse.Namespace) -> Tuple[StaticServe, Any, float]:
@@ -219,17 +305,25 @@ def prepare(args: argparse.Namespace, tracer: Any = None
     from repro_torch.serve import ServeEngine
 
     tok = get_tokenizer()
-    device, bundle, params, ds = _model(args)
+    device, bundle, params, ds, store = _model(args, tracer)
 
     lengths = [int(x) for x in args.mixed_lengths.split(",")] \
         if args.mixed_lengths else [args.max_new_tokens]
+    draft = None
+    if args.speculate:
+        draft = _parse_draft(args.draft, args, params, device)
     engine = ServeEngine(
-        bundle, params, num_blocks=args.num_blocks,
+        bundle, params if store is None else None, store=store,
+        num_blocks=args.num_blocks,
         block_size=args.block_size, max_batch=args.max_batch,
         max_seq_len=args.max_seq_len, decode_chunk=args.decode_chunk,
+        swap_interval=args.swap_interval,
         temperature=args.temperature, top_p=args.top_p, seed=args.seed + 2,
+        speculate_k=args.speculate, draft=draft,
         prefill_chunk=args.prefill_chunk,
-        dispatch_budget=args.dispatch_budget, tracer=tracer,
+        dispatch_budget=args.dispatch_budget,
+        speculate_adaptive=args.speculate_adaptive,
+        prefix_cache=args.prefix_cache, tracer=tracer,
         annotate=args.profiler_annotations, device=device)
     toks_np, prompts, answers = ds.sample_batch(args.requests)
     meta = {}
@@ -281,12 +375,41 @@ def report(args: argparse.Namespace, engine: Any, trajs: List[Any],
               f"{stats['inter_token_p50_ms']:.2f} ms p99 "
               f"{stats['inter_token_p99_ms']:.2f} ms, queue-wait p50 "
               f"{stats['queue_wait_p50_ms']:.1f} ms")
+    if stats.get("prefix_cache"):
+        print(f"  prefix cache: hit rate "
+              f"{stats['prefix_hit_rate']:.2f} "
+              f"({stats['prefix_hits']}/{stats['prefix_queries']} "
+              f"admissions), token hit rate "
+              f"{stats['prefix_token_hit_rate']:.2f} "
+              f"({stats['prefix_matched_tokens']} matched / "
+              f"{stats['prefill_tokens']} computed), "
+              f"cow copies {stats['cow_copies']}, "
+              f"cached pages {stats['cached_pages']}, "
+              f"evictions {stats['cache_evictions']}")
+    if "reclaimed_window_pages" in stats:
+        print(f"  window reclamation (W={stats['reclaim_window']}): "
+              f"{stats['reclaimed_window_pages']} pages released")
+    if args.speculate:
+        dv = stats.get("draft_version")
+        dtag = ("oracle/callable" if dv is None and engine.draft is not None
+                and not hasattr(engine.draft, "pages")
+                else f"v{dv}" if dv is not None else "fixed-params")
+        print(f"  speculative k={args.speculate}: acceptance "
+              f"{stats['acceptance_rate']:.2f} "
+              f"({stats['accepted_tokens']}/{stats['drafted_tokens']} "
+              f"drafted), draft {dtag}, lag hist "
+              f"{stats.get('draft_version_lag_histogram', {})}")
+        if args.speculate_adaptive:
+            print(f"  adaptive k in [1, {args.speculate}]: chosen-k "
+                  f"histogram {stats.get('chosen_k_histogram', {})}")
     for t in sorted(trajs, key=lambda t: t.request_id)[:8]:
         _, ans = meta[t.request_id]
         text = tok.decode(t.tokens)
         r = verify(text, ans)
+        vtag = ("" if engine.store is None
+                else f" [policy {_version_tag(t.versions)}]")
         print(f"  [{t.request_id}] -> {text!r} ({t.num_tokens} tok, "
-              f"{t.finish_reason}, gold {ans}, reward {r})")
+              f"{t.finish_reason}, gold {ans}, reward {r}){vtag}")
 
 
 def serve(args: argparse.Namespace, tracer: Any = None,

@@ -11,9 +11,11 @@ for the dense decoder, ``init_paged_cache`` with the three paged steps
 the serve engine dispatches — ``decode_step_paged`` (one token per slot, through the
 decode kernel), ``decode_step_paged_varlen`` (ragged rows per slot,
 through the varlen kernel) and ``decode_step_paged_multi`` (the
-fixed-``T`` verify shape, a thin wrapper over the varlen step).  The
-prefill writers come with a later slice.  The layer loop is a Python
-loop (JAX scans over the stacked layers).
+fixed-``T`` speculative verify shape, a thin wrapper over the varlen
+step) — and ``copy_page_rows``, the prefix cache's copy-on-write.  The
+batched-prefill writers are not ported (the engine prefills in varlen
+tiles).  The layer loop is a Python loop (JAX scans over the stacked
+layers).
 
 Parameters keep the JAX layout and names: nested dicts, layer leaves
 stacked ``[L, ...]``, dense weights ``[d_in, d_out]``, an ``lm_head``
@@ -29,7 +31,7 @@ own rows and every later step sees them too.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -253,13 +255,16 @@ def decode_step_paged_varlen(
     row_start: torch.Tensor,     # [B] int32 rows already cached per slot
     row_len: torch.Tensor,       # [B] int32 live tokens per slot (0 = idle)
     write_cap: torch.Tensor,     # [B] int32 rows this slot owns pages for
+    *,
+    count=None,
 ) -> Tuple[ModelOutput, Dict]:
     """Score a ragged chunk of consecutive tokens per slot in one pass:
     token ``t < row_len[b]`` sits at ``row_start[b] + t``, writes its K/V
     row (dropped past ``write_cap``) and attends causally over its own
     prefix through the varlen kernel.  Padding rows write nothing and
     their logits are garbage.  All ``B * T`` rows of a layer are written
-    by one kernel launch (the JAX step issues ``T``)."""
+    by one kernel launch (the JAX step issues ``T``).  ``count`` goes to
+    the attention kernel's wrapper (see ``kops.paged_attention_varlen``)."""
     k_pages, v_pages = pages["k_pages"], pages["v_pages"]
     b, t = tokens.shape
     block_size = k_pages.shape[3]
@@ -284,7 +289,7 @@ def decode_step_paged_varlen(
                             write_ok, layer=layer)
         attn_out = kops.paged_attention_varlen(
             q, k_pages[layer], v_pages[layer], block_tables, safe_start,
-            row_len, window=cfg.window_for_layer(layer))
+            row_len, window=cfg.window_for_layer(layer), count=count)
         x = _paged_layer_tail(cfg, lp, x, attn_out)
     return _paged_head_full(params, cfg, x), pages
 
@@ -299,13 +304,34 @@ def decode_step_paged_multi(
     active: torch.Tensor,        # [B] bool
     write_cap: torch.Tensor,     # [B] int32
 ) -> Tuple[ModelOutput, Dict]:
-    """Fixed-``T`` verify shape: every active slot scores ``T`` tokens
-    at ``pos + t``; the varlen step with ``row_len = T`` (0 when
-    inactive)."""
+    """Fixed-``T`` verify shape (the speculative verify pass): every
+    active slot scores ``T`` tokens at ``pos + t``; the varlen step with
+    ``row_len = T`` (0 when inactive), its launches also counted as the
+    verify shape's (``launch_counts()["paged_attention_multi"]``)."""
     t = tokens.shape[1]
     row_len = torch.where(active, t, 0).to(torch.int32)
     return decode_step_paged_varlen(params, cfg, tokens, pages,
-                                    block_tables, pos, row_len, write_cap)
+                                    block_tables, pos, row_len, write_cap,
+                                    count=kops.MULTI)
+
+
+@torch.no_grad()
+def copy_page_rows(pages: Dict, src: Sequence[int], dst: Sequence[int],
+                   rows: Sequence[int]) -> Dict:
+    """Copy the leading ``rows[i]`` K/V rows of page ``src[i]`` into page
+    ``dst[i]`` across every layer and kv head, in place: the prefix
+    cache's copy-on-write step, before a divergent suffix appends into a
+    partially matched shared page (port of ``repro.models.transformer.
+    copy_page_rows``, single device).  Rows past ``rows[i]`` keep the
+    destination's contents; pairs apply in order.  Plain tensor
+    indexing, as in the reference (no Pallas kernel there); the index
+    arrays are host arrays."""
+    for pool in (pages["k_pages"], pages["v_pages"]):
+        for s, d, n in zip(src, dst, rows):
+            n = max(0, min(int(n), pool.shape[3]))
+            if n:
+                pool[:, :, int(d), :n] = pool[:, :, int(s), :n]
+    return pages
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Token sampling, static generation and teacher-forced scoring (port of
-``repro.rollout.sampler`` and ``repro.serve.engine``'s ``_sample``).
+"""Token sampling, static generation, the speculative accept rule and
+teacher-forced scoring (port of ``repro.rollout.sampler`` and
+``repro.serve.engine``'s ``_sample``).
 
 The categorical draw is Gumbel-max: ``argmax(logits + g)`` with ``g``
 Gumbel noise, which is how ``jax.random.categorical`` draws too.  The
@@ -67,6 +68,79 @@ def sample(logits: torch.Tensor, temperature: float, top_p: float,
     logp = torch.log_softmax(logits, dim=-1)
     lp = torch.gather(logp, -1, tok[:, None])[:, 0]
     return tok.to(torch.int32), lp
+
+
+def accept_noise(b: int, k: int, v: int,
+                 generator: Optional[torch.Generator],
+                 device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draws :func:`speculative_accept` takes: ``u`` ``[B, K]``
+    uniform in ``[1e-7, 1)`` (JAX's ``uniform(minval=1e-7)``), then the
+    correction draw's Gumbel noise ``[B, V]``."""
+    u = torch.rand((b, k), generator=generator, device=device,
+                   dtype=torch.float32)
+    return u * (1.0 - 1e-7) + 1e-7, gumbel_noise((b, v), generator, device)
+
+
+def speculative_accept(
+    verifier_logits: torch.Tensor,  # [B, K, V] after consuming query i
+    draft_tokens: torch.Tensor,     # [B, K] int32 proposed d_{i+1}
+    draft_logits: torch.Tensor,     # [B, K, V] that sampled d_{i+1}
+    u: torch.Tensor,                # [B, K] uniform in [1e-7, 1)
+    gumbel: torch.Tensor,           # [B, V] the correction's noise
+    *,
+    temperature: float = 1.0,
+    top_p: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative-sampling accept/rollback (Leviathan et al., 2023), as
+    ``repro.rollout.sampler.speculative_accept`` with its draws passed in.
+
+    Position ``i`` accepts ``d`` when ``log u_i < log p_i(d) - log
+    q_i(d)``, with ``p``/``q`` the verifier/draft distributions under
+    the engine's temperature and top-p.  The first rejection emits a
+    correction ``argmax(log max(p - q, 0) + gumbel)`` (from ``p`` itself
+    when the residual sums to at most 1e-9) and rolls back the rest;
+    ``log_p`` is the verifier's log-prob of each emitted token.  Greedy
+    (``temperature -> 1e-6``) accepts exactly the verifier's argmax.
+
+    Returns ``(tokens [B, K] int32, log_p [B, K], n_accepted [B],
+    n_emitted [B])``; positions ``>= n_emitted`` are PAD with log-prob
+    exactly 0, and ``n_emitted == K`` appends no correction."""
+    b, k, _ = verifier_logits.shape
+    temp = max(float(temperature), 1e-6)
+
+    def _log_dist(logits):
+        return torch.log_softmax(
+            _top_p_filter(logits.float() / temp, top_p), dim=-1)
+
+    logp_p = _log_dist(verifier_logits)                     # [B, K, V]
+    logp_q = _log_dist(draft_logits)
+    idx = draft_tokens.long()[..., None]
+    p_d = torch.gather(logp_p, -1, idx)[..., 0]             # [B, K]
+    q_d = torch.gather(logp_q, -1, idx)[..., 0]
+    # p_d = -inf always rejects (a NaN difference compares False too).
+    accept = torch.log(u) < (p_d - q_d)
+    n_acc = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)
+    rows = torch.arange(b, device=verifier_logits.device)
+    rej = torch.clamp(n_acc, max=k - 1)
+    pr, qr = logp_p[rows, rej], logp_q[rows, rej]           # [B, V]
+    residual = torch.clamp(torch.exp(pr) - torch.exp(qr), min=0.0)
+    res_sum = residual.sum(dim=-1, keepdim=True)
+    corr_logits = torch.where(
+        res_sum > 1e-9, torch.log(torch.clamp(residual, min=1e-38)), pr)
+    corr = torch.argmax(corr_logits + gumbel, dim=-1)       # [B]
+    corr_logp = torch.gather(pr, 1, corr[:, None])[:, 0]
+    pos = torch.arange(k, device=verifier_logits.device)[None, :]
+    is_acc = pos < n_acc[:, None]
+    is_corr = (pos == n_acc[:, None]) & (n_acc[:, None] < k)
+    pad = torch.full_like(draft_tokens, PAD)
+    tokens = torch.where(is_acc, draft_tokens,
+                         torch.where(is_corr, corr[:, None].to(pad.dtype),
+                                     pad)).to(torch.int32)
+    zero = torch.zeros_like(p_d)
+    log_p = torch.where(is_acc, p_d,
+                        torch.where(is_corr, corr_logp[:, None], zero))
+    n_emit = torch.clamp(n_acc + 1, max=k)
+    return tokens, log_p, n_acc, n_emit
 
 
 @torch.no_grad()

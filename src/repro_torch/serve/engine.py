@@ -45,8 +45,31 @@ with no device-to-host copy inside it; its tokens, log-probs and masks
 come back in one copy when the chunk ends.  A varlen round also ends in
 one copy.
 
-Not ported yet, and refused with ``NotImplementedError``:
-``speculate_k > 0``, ``prefix_cache=True``, ``mesh`` and
+**Speculative decode** (``speculate_k > 0``).  A draft proposes ``k``
+tokens a slot and the verifier scores them in one
+``decode_step_paged_multi`` pass (the varlen kernel at ``T = k``),
+keeping a prefix by the Leviathan rule (``rollout.sampler.
+speculative_accept``).  The draft is a lagged store version (self-
+speculation, pinned), fixed params, a separate model, or a host
+callable.  Model drafts keep their own paged pool addressed by the
+verifier's block tables, so a rejection rewinds ``pos`` on both and
+emits no page copy.  Emitted tokens, their ``log_beta`` and versions
+are the verifier's, so greedy speculative output equals plain greedy
+output.  ``speculate_adaptive`` picks each round's ``k`` from the slots'
+acceptance EMA; ``spec_disable_after`` all-reject rounds in a row turn
+speculation off.  Draws follow the JAX engine's key order: a model
+draft's ``k`` sampling draws, then the verify pass's ``(u, gumbel)``.
+
+**Prefix cache** (``prefix_cache=True``).  Full pages are content-
+addressed (a chained hash over the ids, salted with the policy version
+and the arch) and refcounted; an admission whose committed ids extend a
+resident prefix shares those pages and prefills only its suffix.  A
+match that ends mid-page is copied into the request's own page
+(``copy_page_rows``, both pools) right before its first tile, and a
+pending request whose shared pages another request is still computing
+waits for them.  A swap invalidates entries through the salt alone.
+
+Not ported, and refused with ``NotImplementedError``: ``mesh`` and
 ``chunked_prefill=False``.
 """
 from __future__ import annotations
@@ -54,22 +77,27 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.data.tokenizer import EOS, PAD
-from repro_torch.metrics.runtime_metrics import collect_serve_stats
+from repro_torch.metrics.runtime_metrics import (LagHistogram,
+                                                 collect_serve_stats)
 from repro_torch.models.registry import ModelBundle
-from repro_torch.models.transformer import paged_arch_unsupported, tree_to
+from repro_torch.models.transformer import (copy_page_rows,
+                                            paged_arch_unsupported, tree_to)
 from repro_torch.obs.perfetto import trace_annotation
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.resilience import NULL_INJECTOR, FaultInjector
-from repro_torch.rollout.sampler import gumbel_noise, sample
-from repro_torch.serve.paged_cache import make_allocator
-from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+from repro_torch.rollout.sampler import (accept_noise, gumbel_noise, sample,
+                                        speculative_accept)
+from repro_torch.serve.paged_cache import (RECLAIMED, PrefixKey,
+                                           make_allocator, prefix_key)
+from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
+                                         Request, RequestState)
 from repro_torch.utils.tree import tree_leaves
 
 
@@ -108,13 +136,13 @@ class ServeStats:
     preemptions: int = 0
     swaps: int = 0
     occupancy_sum: float = 0.0   # emitting slots summed over decode steps
-    # Kept for collect_serve_stats parity with the JAX engine; the port
-    # has no speculation or prefix cache yet, so these stay 0.
+    # Speculation: drafted = k per active slot per round; accepted
+    # counts draft tokens the verifier kept (corrections are not).
     spec_rounds: int = 0
     drafted_tokens: int = 0
     accepted_tokens: int = 0
     prefill_tokens: int = 0      # KV rows computed by prefill tiles
-    cow_copies: int = 0
+    cow_copies: int = 0          # prefix cache: copy-on-write page copies
     timeouts: int = 0
     spec_autodisables: int = 0
 
@@ -140,6 +168,43 @@ def resolve_device(device: Any = None) -> torch.device:
     return dev
 
 
+class ModelDraft:
+    """A draft policy with its own paged pool (self-speculation, fixed
+    params or a separate model).  ``version`` is the store version the
+    params are pinned at (None for fixed params); ``version_offset``
+    not None marks self-speculation, re-pinned at ``latest + offset``
+    after every verifier swap.  The pool shares the verifier's page ids
+    and tables but holds this draft's own K/V rows."""
+
+    def __init__(self, bundle: ModelBundle, params: Any,
+                 version: Optional[int], version_offset: Optional[int],
+                 num_blocks: int, block_size: int,
+                 device: torch.device) -> None:
+        reason = paged_arch_unsupported(bundle.cfg)
+        if bundle.decode_step_paged is None or reason is not None:
+            raise ValueError(
+                f"draft arch {bundle.cfg.name} cannot run the paged path: "
+                f"{reason}")
+        self.bundle = bundle
+        self.params = params
+        self.version = version
+        self.version_offset = version_offset
+        self.pages = bundle.init_paged_cache(num_blocks, block_size,
+                                             device=device)
+
+
+class CallableDraft:
+    """Host-side draft: ``fn(request, k) -> up to k int32 token ids``,
+    treated as a one-hot draft distribution (which keeps the accept rule
+    exact)."""
+
+    version: Optional[int] = None
+    version_offset = None
+
+    def __init__(self, fn: Callable[[Request, int], Any]) -> None:
+        self.fn = fn
+
+
 class ServeEngine:
     """Paged-KV continuous-batching generation over a ModelBundle."""
 
@@ -159,26 +224,32 @@ class ServeEngine:
         top_p: float = 1.0,
         seed: int = 0,
         speculate_k: int = 0,
+        draft: Any = None,
         chunked_prefill: bool = True,
         prefill_chunk: int = 16,
         dispatch_budget: int = 32,
         mesh: Any = None,
+        speculate_adaptive: bool = False,
         prefix_cache: bool = False,
+        window_reclaim: bool = True,
         tracer: Optional[Tracer] = None,
         metrics: Optional[MetricsRegistry] = None,
         annotate: bool = False,
         injector: Optional[FaultInjector] = None,
         request_deadline_s: Optional[float] = None,
+        spec_disable_after: int = 8,
         device: Any = None,
     ) -> None:
         """Arguments follow the JAX ``ServeEngine``; ``device`` picks
         ``cuda`` (default) or ``cpu``.  ``store`` (a
         ``runtime.PolicyStore`` on that device) replaces ``params``: the
-        engine starts from its newest version.  ``annotate=True`` wraps
-        each dispatch in ``torch.profiler.record_function``."""
-        for flag, on in (("speculate_k > 0", speculate_k > 0),
-                         ("prefix_cache=True", bool(prefix_cache)),
-                         ("mesh", mesh is not None),
+        engine starts from its newest version.  ``draft`` is one of
+        ``("version", -n)`` (self-speculation from the store, pinned),
+        ``("params", p)``, ``("model", bundle, params)``, a callable
+        ``fn(request, k)``, or None (``("version", -1)`` over a store,
+        else the verifier's own params).  ``annotate=True`` wraps each
+        dispatch in ``torch.profiler.record_function``."""
+        for flag, on in (("mesh", mesh is not None),
                          ("chunked_prefill=False", not chunked_prefill)):
             if on:
                 raise NotImplementedError(
@@ -221,16 +292,19 @@ class ServeEngine:
             self.params, self.version = tree_to(params, self.device), 0
         self.block_size = block_size
         max_blocks_per_request = -(-max_seq_len // block_size)
+        self.prefix_cache = bool(prefix_cache)
         self.allocator = make_allocator(num_blocks, block_size, 1,
+                                        prefix_cache=self.prefix_cache,
                                         tracer=self.tracer)
         windows = [bundle.cfg.window_for_layer(layer)
                    for layer in range(bundle.cfg.n_layers)]
         self._reclaim_window = (
-            max(windows) if windows and all(w is not None for w in windows)
-            else None)
+            max(windows) if window_reclaim and windows
+            and all(w is not None for w in windows) else None)
         self.scheduler = ContinuousBatchingScheduler(
             self.allocator, max_batch=max_batch,
             max_blocks_per_request=max_blocks_per_request,
+            prefix_fn=self._prefix_key if self.prefix_cache else None,
             reclaim_window=self._reclaim_window, tracer=self.tracer,
             request_deadline_s=request_deadline_s, registry=self.metrics)
         self.pages = bundle.init_paged_cache(num_blocks, block_size,
@@ -248,6 +322,29 @@ class ServeEngine:
         self.decode_chunk = max(int(decode_chunk), 1)
         self.prefill_chunk = max(int(prefill_chunk), 1)
         self.dispatch_budget = max(int(dispatch_budget), 1)
+
+        # -- speculative decode ----------------------------------------------
+        self.speculate_k = max(int(speculate_k), 0)
+        self.speculate_adaptive = (bool(speculate_adaptive)
+                                   and self.speculate_k > 1)
+        self.draft: Any = None
+        self._draft_lag_hist = LagHistogram()
+        self._chosen_k_hist = LagHistogram()
+        # Per-slot acceptance EMA; optimistic start (1.0 = draft the full
+        # k), reset whenever a slot is re-admitted.
+        self._accept_ema = np.ones((max_batch,), np.float64)
+        self._accept_ema_alpha = 0.3
+        # After `spec_disable_after` rounds in a row where every drafted
+        # token was rejected, speculation turns itself off (the output
+        # is the verifier's either way).
+        self.spec_disable_after = max(int(spec_disable_after), 1)
+        self.spec_disabled = False
+        self._all_reject_rounds = 0
+        if self.speculate_k:
+            if bundle.decode_step_paged_multi is None:
+                raise ValueError(f"{bundle.cfg.name}: multi-token verify "
+                                 "unavailable (paged path unsupported)")
+            self.draft = self._build_draft(draft, num_blocks, block_size)
 
     # -- request intake ------------------------------------------------------
 
@@ -278,11 +375,17 @@ class ServeEngine:
         params, _ = self.store.snapshot(self.version)
         self.store.unhold(self.version)
         self.params, self._private = params, True
+        d = self.draft
+        if isinstance(d, ModelDraft) and d.version_offset is not None:
+            # The draft keeps its pin (pinned_versions() is the JAX
+            # engine's) but reads a private copy from now on.
+            d.params, _ = self.store.snapshot(d.version)
 
     def set_version(self, version: int) -> None:
         """Generate from the store's ``version`` from the next dispatch
         on, holding it (and dropping the hold on the version before), or
-        copying it into the private buffers."""
+        copying it into the private buffers.  The draft stays as it is,
+        as when the JAX forced-lag producer sets ``engine.params``."""
         if self._private:
             _, version = self.store.snapshot(version, out=self.params)
             self.version = version
@@ -315,6 +418,122 @@ class ServeEngine:
         tr = self.tracer
         if tr.enabled:
             tr.instant("swap", tid="engine", old=old, new=version)
+        self._refresh_draft()
+
+    # -- speculative draft slot ----------------------------------------------
+
+    def _build_draft(self, spec: Any, num_blocks: int,
+                     block_size: int) -> Any:
+        if callable(spec):
+            return CallableDraft(spec)
+        if spec is None:
+            spec = (("version", -1) if self.store is not None
+                    else ("params", self.params))
+        kind = spec[0]
+        if kind == "version":
+            if self.store is None:
+                raise ValueError("draft=('version', n) needs a PolicyStore")
+            offset = int(spec[1])
+            if offset > 0:
+                raise ValueError(f"draft version offset must be <= 0, "
+                                 f"got {offset}")
+            params, version = self.store.pin_lagged(offset)
+            return ModelDraft(self.bundle, params, version, offset,
+                              num_blocks, block_size, self.device)
+        if kind == "params":
+            return ModelDraft(self.bundle, tree_to(spec[1], self.device),
+                              None, None, num_blocks, block_size,
+                              self.device)
+        if kind == "model":
+            return ModelDraft(spec[1], tree_to(spec[2], self.device), None,
+                              None, num_blocks, block_size, self.device)
+        raise ValueError(f"unknown draft spec {spec!r}")
+
+    def _refresh_draft(self) -> None:
+        """Re-pin the self-speculation draft at ``latest + offset`` after
+        a verifier swap: pin the new version, then release the old one
+        (one lock hold resolves and pins).  Draft pool rows written
+        under the old weights stay; they only shape proposals.  With
+        private weights the new version is copied into the draft's own
+        buffers."""
+        d = self.draft
+        if not isinstance(d, ModelDraft) or d.version_offset is None:
+            return
+        params, target = self.store.pin_lagged(d.version_offset)
+        if target == d.version:
+            self.store.release(target)   # unchanged; drop the extra pin
+            return
+        self.store.release(d.version)
+        if self._private:
+            self.store.snapshot(target, out=d.params)
+        else:
+            d.params = params
+        d.version = target
+
+    # -- prefix cache ---------------------------------------------------------
+
+    def _prefix_key(self, req: Request) -> PrefixKey:
+        """Version-salted content address of ``req``'s committed ids (the
+        JAX engine's salt, character for character), cached per
+        (version, length)."""
+        ids = self._committed_ids(req)
+        cached = getattr(req, "_pkey", None)
+        if cached is not None and cached[0] == (self.version, len(ids)):
+            return cached[1]
+        cfg = self.bundle.cfg
+        salt = (
+            f"{cfg.name}|{cfg.arch_type}|L{cfg.n_layers}|d{cfg.d_model}"
+            f"|h{cfg.n_heads}x{cfg.n_kv_heads}|w{cfg.sliding_window}"
+            f"/{cfg.global_every}|v{self.version}|bs{self.block_size}"
+        ).encode()
+        key = prefix_key(ids, self.block_size, salt)
+        req._pkey = ((self.version, len(ids)), key)
+        return key
+
+    def _copy_on_write(self, reqs: List[Request]) -> None:
+        """Copy each request's matched rows of its ``cow_src`` page into
+        its own page, in both pools, then drop the source reference the
+        scheduler reserved."""
+        src = np.asarray([r.cow_src[0] for r in reqs], np.int64)
+        rows = np.asarray([r.cow_src[1] for r in reqs], np.int64)
+        dst = np.asarray([r.blocks[r.num_shared_full] for r in reqs],
+                         np.int64)
+        copy_page_rows(self.pages, src, dst, rows)
+        if isinstance(self.draft, ModelDraft):
+            copy_page_rows(self.draft.pages, src, dst, rows)
+        for r in reqs:
+            self.allocator.release([r.cow_src[0]], r.shard or 0)
+            r.cow_src = None
+        self.stats.cow_copies += len(reqs)
+        if self.tracer.enabled:
+            self.tracer.instant("cow_copy", tid="engine", n=len(reqs))
+
+    def _assert_write_pages_private(self) -> None:
+        """The page a slot's next decode write lands in must be owned by
+        it alone (refcount 1).  Mid-prefill requests are skipped (a
+        gated later admission may already share their incomplete pages),
+        and a deferred copy-on-write reservation may hold a write page
+        above 1 until the dependent's first tile copies it."""
+        cow_pending: Dict[Tuple[int, int], int] = {}
+        for r in self.scheduler.running:
+            if r.cow_src is not None:
+                k = ((r.shard or 0), r.cow_src[0])
+                cow_pending[k] = cow_pending.get(k, 0) + 1
+        for req in self.scheduler.running:
+            if not req.prefill_done:
+                continue
+            idx = int(self._pos[req.slot]) // self.block_size
+            if idx >= len(req.blocks):
+                continue
+            page = req.blocks[idx]
+            if page >= 0:
+                refs = self.allocator.ref(page, req.shard or 0)
+                expect = 1 + cow_pending.get(((req.shard or 0), page), 0)
+                if refs != expect:
+                    raise RuntimeError(
+                        f"request {req.request_id}: decode write page "
+                        f"{page} has refcount {refs} (expected {expect})"
+                        f" — copy-on-write invariant violated")
 
     # -- internals -----------------------------------------------------------
 
@@ -327,6 +546,12 @@ class ServeEngine:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         noise = gumbel_noise(logits.shape, self._gen, logits.device)
         return sample(logits, self._temperature, self._top_p, noise)
+
+    def _accept_noise(self, b: int, k: int, v: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The verify pass's draws: ``u`` [B, k] and the correction's
+        Gumbel noise [B, V]."""
+        return accept_noise(b, k, v, self._gen, self.device)
 
     @staticmethod
     def _committed_ids(req: Request) -> np.ndarray:
@@ -437,22 +662,55 @@ class ServeEngine:
         both = torch.stack([tok.double(), lp.double()]).cpu().numpy()
         return both[0].astype(np.int32), both[1].astype(np.float32)
 
+    def _draft_varlen(self, tokens: np.ndarray, row_start: np.ndarray,
+                      row_len: np.ndarray, cap: np.ndarray) -> None:
+        """A varlen round's rows written into the draft pool; no logits
+        are read and no draw is made."""
+        d = self.draft
+        _, d.pages = d.bundle.decode_step_paged_varlen(
+            d.params, self._to_dev(tokens), d.pages,
+            self._to_dev(self._tables), self._to_dev(row_start),
+            self._to_dev(row_len), self._to_dev(cap))
+
     def _chunked_round(self, finished: List[ServedTrajectory]) -> bool:
         """One unified varlen round, or False when no prefill is pending.
 
         Every decode-eligible slot's single-token row is reserved out of
         ``dispatch_budget`` first; the remainder goes to prefill tiles of
         at most ``prefill_chunk`` rows, FIFO by admission order, with a
-        one-row floor for the oldest tile so admission always progresses.
+        one-row floor for the oldest ready tile so admission always
+        progresses.  With the prefix cache a tile starts after its
+        matched rows, and a model draft's pool gets the same rows.
         """
         pending = [r for r in self.scheduler.running if not r.prefill_done]
         if not pending:
             return False
         tr = self.tracer
         bs = self.block_size
+        # Prefix-cache gate: pages whose rows an in-flight prefill has
+        # not computed yet, keyed to their computing owner; a pending
+        # request that shares (or copies from) such a page of another
+        # request waits until its rows land.  A dependency always points
+        # at an earlier admission, so the oldest pending one never waits.
+        incomplete: Dict[Tuple[int, int], Request] = {}
+        for r in pending:
+            sh = r.shard or 0
+            for j, b in enumerate(r.blocks):
+                if b != RECLAIMED and (j + 1) * bs > r.num_prefilled:
+                    incomplete[(sh, b)] = r
+
+        def _gated(r: Request) -> bool:
+            sh = r.shard or 0
+            deps = list(r.blocks[:r.num_shared_full])
+            if r.cow_src is not None:
+                deps.append(r.cow_src[0])
+            return any(incomplete.get((sh, b)) not in (None, r)
+                       for b in deps)
+
         order = {id(r): i for i, r in
                  enumerate(self.scheduler._admission_order)}
-        ready = sorted(pending, key=lambda r: order[id(r)])
+        ready = sorted((r for r in pending if not _gated(r)),
+                       key=lambda r: order[id(r)])
         decode_reqs = [r for r in self.scheduler.running if r.prefill_done]
         budget_left = self.dispatch_budget - len(decode_reqs)
         chunks: List[Tuple[Request, np.ndarray, int]] = []
@@ -466,6 +724,12 @@ class ServeEngine:
                 n = 1    # floor: the oldest ready tile always advances
             budget_left -= n
             chunks.append((r, ids, n))
+        # Deferred copy-on-write: a mid-page match is copied into the
+        # request's own page right before its first tile (the copy
+        # clears cow_src); the tile then attends over the copied rows.
+        cow_reqs = [r for r, _, _ in chunks if r.cow_src is not None]
+        if cow_reqs:
+            self._copy_on_write(cow_reqs)
         t_max = max([n for _, _, n in chunks], default=1)
         t_pad = -(-t_max // 4) * 4     # same padding as the JAX engine
         B = self.max_batch
@@ -491,6 +755,10 @@ class ServeEngine:
                      tokens=int(row_len.sum())), \
                 self._ann("serve.chunked_round"):
             toks_np, lps_np = self._varlen(tokens, row_start, row_len, cap)
+            if isinstance(self.draft, ModelDraft):
+                # The same rows into the draft pool, under the draft's
+                # weights: later speculative rounds read them as context.
+                self._draft_varlen(tokens, row_start, row_len, cap)
         self.stats.prefill_dispatches += 1
         self.stats.prefill_tokens += n_tile_tokens
         if decode_reqs:
@@ -576,14 +844,19 @@ class ServeEngine:
         # never admitted, expired running ones free their slot and pages.
         for req in self.scheduler.expire():
             self._timeout_finish(req, finished)
+        lookahead = self._spec_k_active or self.decode_chunk
         with tr.span("schedule", tid="engine"):
-            admitted, _ = self.scheduler.schedule(lookahead=self.decode_chunk)
+            admitted, _ = self.scheduler.schedule(lookahead=lookahead)
         self.stats.preemptions = self.scheduler.preemptions
         if admitted:
             now = time.monotonic()
             for req in admitted:
                 self._h_queue_wait.observe(now - req.queued_time)
                 req.admit_time = now
+        for req in admitted:
+            # A fresh occupant: the previous one's acceptance EMA says
+            # nothing about it.
+            self._accept_ema[req.slot] = 1.0
         # Admissions stream in as ragged tiles over the next rounds: mark
         # them pending and park the write cursor at the first row.
         for req in admitted:
@@ -602,6 +875,8 @@ class ServeEngine:
                 self._tables[slot] = self.allocator.padded_table(
                     req.blocks, self._tables.shape[1])
                 remaining[slot] = req.max_new_tokens - len(req.tokens)
+        if self.prefix_cache:
+            self._assert_write_pages_private()
         if tr.enabled:
             sched = self.scheduler
             tr.counter("serve_load", waiting=float(len(sched.waiting)),
@@ -613,6 +888,10 @@ class ServeEngine:
         if self._chunked_round(finished):
             return finished
         if not self._active.any():
+            return finished
+        if self._spec_k_active:
+            with tr.span("spec_round", tid="engine"):
+                self._spec_round(finished)
             return finished
         with tr.span("decode", tid="engine", chunk=self.decode_chunk), \
                 self._ann("serve.decode"):
@@ -628,6 +907,170 @@ class ServeEngine:
                 self._record(req, int(toks_np[t, slot]),
                              float(lps_np[t, slot]), finished)
         return finished
+
+    # -- speculative rounds --------------------------------------------------
+
+    @property
+    def _spec_k_active(self) -> int:
+        """Speculation depth for this round: 0 once auto-disabled."""
+        return 0 if self.spec_disabled else self.speculate_k
+
+    def _choose_k(self) -> int:
+        """This round's draft length: ``speculate_k``, or with
+        ``speculate_adaptive`` the mean over active slots of ``1 +
+        round(ema * (k_max - 1))``."""
+        k_max = self.speculate_k
+        if not self.speculate_adaptive:
+            return k_max
+        act = self._active
+        if not act.any():
+            return k_max
+        targets = np.clip(
+            np.rint(1.0 + self._accept_ema[act] * (k_max - 1)), 1, k_max)
+        return int(np.clip(np.rint(targets.mean()), 1, k_max))
+
+    def _note_spec_round(self, accepted: int, n_active: int) -> None:
+        """Count all-reject rounds in a row; turn speculation off once
+        ``spec_disable_after`` of them land."""
+        if n_active <= 0:
+            return
+        if accepted > 0:
+            self._all_reject_rounds = 0
+            return
+        self._all_reject_rounds += 1
+        if (self._all_reject_rounds >= self.spec_disable_after
+                and not self.spec_disabled):
+            self.spec_disabled = True
+            self.stats.spec_autodisables += 1
+            self.metrics.counter("spec_autodisable_total").inc()
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "spec_autodisable", tid="engine",
+                    rounds=self._all_reject_rounds, k=self.speculate_k)
+
+    def _draft(self, k: int, cap: np.ndarray
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``k`` draft decode steps over the draft pool: ``(tokens [B,
+        k], logits [B, k, V])``.  A step past a slot's pages (``pos >=
+        cap``) goes inactive: it writes nothing and proposes PAD.  One
+        sampling draw a step; no host sync."""
+        d = self.draft
+        token = self._to_dev(self._last_tok)
+        tables = self._to_dev(self._tables)
+        pos = self._to_dev(self._pos)
+        active = self._to_dev(self._active)
+        cap_d = self._to_dev(cap)
+        pad = torch.full_like(token, PAD)
+        toks, logits = [], []
+        for _ in range(k):
+            step_active = active & (pos < cap_d)
+            out, d.pages = d.bundle.decode_step_paged(
+                d.params, token, d.pages, tables, pos, step_active)
+            tok, _ = self._sample(out.logits)
+            token = torch.where(step_active, tok, pad)
+            toks.append(token)
+            logits.append(out.logits)
+            pos = pos + 1
+        return torch.stack(toks, dim=1), torch.stack(logits, dim=1)
+
+    def _verify(self, k: int, draft_toks: torch.Tensor,
+                draft_logits: torch.Tensor, cap: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """One multi-token verify pass over queries ``[t0, d1 .. d_{k-1}]``
+        (all ``k`` rows written below ``cap``; a rejection only rewinds
+        ``pos``), then the accept rule.  Returns host ``(tokens [B, k],
+        log_p [B, k], n_accepted [B], n_emitted [B])`` after one
+        device-to-host copy; inactive slots give PAD, 0, 0, 0."""
+        first = self._to_dev(self._last_tok)
+        active = self._to_dev(self._active)
+        queries = torch.cat([first[:, None], draft_toks[:, :-1]], dim=1)
+        out, self.pages = self.bundle.decode_step_paged_multi(
+            self.params, queries, self.pages, self._to_dev(self._tables),
+            self._to_dev(self._pos), active, self._to_dev(cap))
+        b, _, v = out.logits.shape
+        u, g = self._accept_noise(b, k, v)
+        toks, lps, n_acc, n_emit = speculative_accept(
+            out.logits, draft_toks, draft_logits, u, g,
+            temperature=self._temperature, top_p=self._top_p)
+        toks = torch.where(active[:, None], toks, torch.full_like(toks, PAD))
+        lps = torch.where(active[:, None], lps, torch.zeros_like(lps))
+        zero = torch.zeros_like(n_acc)
+        n_acc = torch.where(active, n_acc, zero)
+        n_emit = torch.where(active, n_emit, zero)
+        host = torch.cat([toks.double(), lps.double(),
+                          n_acc[:, None].double(), n_emit[:, None].double()],
+                         dim=1).cpu().numpy()
+        return (host[:, :k].astype(np.int32), host[:, k:2 * k].astype(
+            np.float32), host[:, 2 * k].astype(np.int64),
+            host[:, 2 * k + 1].astype(np.int64))
+
+    def _callable_proposals(self, k: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A host draft's proposals and their one-hot logits (0 at the
+        proposal, -1e9 elsewhere)."""
+        prop_np = np.zeros((self.max_batch, k), np.int32)
+        for req in self.scheduler.running:
+            prop = np.asarray(self.draft.fn(req, k), np.int32).reshape(-1)[:k]
+            prop_np[req.slot, :prop.shape[0]] = prop
+        prop = self._to_dev(prop_np)
+        oh = torch.full((self.max_batch, k, self.bundle.cfg.vocab_size),
+                        -1e9, dtype=torch.float32, device=self.device)
+        oh.scatter_(-1, prop.long()[..., None], 0.0)
+        return prop, oh
+
+    def _spec_round(self, finished: List[ServedTrajectory]) -> None:
+        """One draft-then-verify round: ``k`` draft steps (or a host
+        proposal), one verify pass, accept / rollback by ``pos``
+        rewind."""
+        tr = self.tracer
+        k = self._choose_k()
+        self._chosen_k_hist.record(k)
+        cap = np.zeros((self.max_batch,), np.int32)
+        for req in self.scheduler.running:
+            cap[req.slot] = len(req.blocks) * self.block_size
+        if isinstance(self.draft, ModelDraft):
+            with tr.span("draft", tid="engine", k=k), \
+                    self._ann("serve.draft"):
+                draft_toks, draft_logits = self._draft(k, cap)
+        else:
+            draft_toks, draft_logits = self._callable_proposals(k)
+        with tr.span("verify", tid="engine", k=k), \
+                self._ann("serve.verify"):
+            toks_np, lps_np, n_acc_np, n_emit_np = self._verify(
+                k, draft_toks, draft_logits, cap)
+        n_active = int(self._active.sum())
+        self.stats.decode_steps += 1
+        self.stats.occupancy_sum += float(n_active)
+        self.stats.spec_rounds += 1
+        self.stats.drafted_tokens += k * n_active
+        accepted = int(n_acc_np[self._active].sum())
+        self.stats.accepted_tokens += accepted
+        self._note_spec_round(accepted, n_active)
+        if tr.enabled:
+            rejected = k * n_active - accepted
+            if rejected:
+                tr.instant("rollback", tid="engine", k=k, rejected=rejected)
+        if self.speculate_adaptive:
+            a = self._accept_ema_alpha
+            for slot in np.nonzero(self._active)[0]:
+                rate = float(n_acc_np[slot]) / k
+                self._accept_ema[slot] = (
+                    (1.0 - a) * self._accept_ema[slot] + a * rate)
+        lag = (None if self.draft.version is None
+               else self.version - self.draft.version)
+        for req in list(self.scheduler.running):
+            slot = req.slot
+            n_e = int(n_emit_np[slot])
+            # Rollback is a rewind: pos covers the emitted prefix only,
+            # and the next round overwrites the rejected rows.
+            self._pos[slot] += n_e
+            if lag is not None and n_e:
+                self._draft_lag_hist.record(lag, n_e)
+            for t in range(n_e):
+                self._record(req, int(toks_np[slot, t]),
+                             float(lps_np[slot, t]), finished)
+                if req.state is not RequestState.RUNNING:
+                    break    # EOS or the budget retired it; drop the tail
 
     def run(self, max_steps: Optional[int] = None
             ) -> List[ServedTrajectory]:

@@ -20,8 +20,10 @@ Two producers feed the queue: the legacy ``ForwardLagGenerator`` and
 (``producer="serve"``) the continuous-batching ``ServeEngine`` over the
 trainer's ``PolicyStore`` through the ``ServeRolloutProducer``, whose
 items carry the engine's per-token ``{version, log_beta}``;
-``forced_lag=k`` makes it generate from the learner's k-back snapshot.
-Either runs phase-locked (``runtime="forward_n"``) or on a producer
+``forced_lag=k`` makes it generate from the learner's k-back snapshot,
+and ``engine_prefix_cache`` / ``engine_speculate_k`` turn on the
+engine's prefix cache (each prompt's GRPO group shares its prefill) and
+self-speculation from the store.  Either runs phase-locked (``runtime="forward_n"``) or on a producer
 thread (``runtime="threaded"``, a bounded queue of ``queue_maxsize``),
 where lag comes from timing; there the producer thread and the
 learner's eval draw from separate generator chains, and :meth:`close`
@@ -109,6 +111,8 @@ class RLVRHyperparams:
     engine_block_size: int = 8
     engine_max_batch: int = 8
     engine_swap_interval: int = 1
+    engine_prefix_cache: bool = False
+    engine_speculate_k: int = 0
     # --- resilience (see repro_torch.resilience) ---
     # Fault plan spec: ";"-joined "kind:key=val,..." chunks, e.g.
     # "producer_crash:at_step=40;nan_publish:at_publish=7".  Empty = no
@@ -329,6 +333,8 @@ class RLVRTrainer:
                 max_seq_len=dataset.prompt_len + hp.max_new_tokens,
                 swap_interval=hp.engine_swap_interval,
                 temperature=hp.temperature, seed=seed + 2,
+                prefix_cache=hp.engine_prefix_cache,
+                speculate_k=hp.engine_speculate_k,
                 tracer=self.tracer, metrics=self.metrics,
                 injector=self.injector,
                 request_deadline_s=hp.request_deadline_s,

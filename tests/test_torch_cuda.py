@@ -213,8 +213,40 @@ def test_model_step_on_card_launches_kernels_and_matches_cpu(dev):
     counts = kernels.launch_counts()
     assert counts["paged_kv_write"] == counts["paged_attention_varlen"] == \
         cfg.n_layers
+    assert counts["paged_attention_multi"] == 0
     live = torch.arange(8)[None, :] < args[2][:, None]
     assert torch.allclose(got.logits.cpu()[live], want.logits[live],
+                          rtol=1e-4, atol=1e-4)
+    for k in want_pages:
+        assert torch.allclose(got_pages[k].cpu(), want_pages[k], atol=1e-5)
+
+
+def test_verify_step_counts_its_varlen_launches_and_matches_cpu(dev):
+    """The fixed-T verify step launches the varlen kernel once a layer,
+    and each of those launches also counts as the verify shape's."""
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced_config("qwen2.5-0.5b")
+    params = build(cfg).init(torch.Generator().manual_seed(0))
+    pages = tf.init_paged_cache(cfg, 16, 4)
+    tables = torch.arange(16, dtype=torch.int32).reshape(4, 4)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4),
+                           generator=torch.Generator().manual_seed(2))
+    args = (tables, torch.tensor([0, 3, 9, 5], dtype=torch.int32),
+            torch.tensor([True, True, False, True]),
+            torch.tensor([16, 5, 16, 16], dtype=torch.int32))
+    want, want_pages = tf.decode_step_paged_multi(
+        params, cfg, tokens, {k: v.clone() for k, v in pages.items()}, *args)
+    kernels.reset_launch_counts()
+    got, got_pages = tf.decode_step_paged_multi(
+        tf.tree_to(params, dev), cfg, tokens.to(dev),
+        tf.tree_to(pages, dev), *(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["paged_attention_multi"] == \
+        counts["paged_attention_varlen"] == cfg.n_layers
+    active = args[2]
+    assert torch.allclose(got.logits.cpu()[active], want.logits[active],
                           rtol=1e-4, atol=1e-4)
     for k in want_pages:
         assert torch.allclose(got_pages[k].cpu(), want_pages[k], atol=1e-5)

@@ -72,9 +72,8 @@ def test_hparams_tables_equal_the_reference():
     assert hparams.TABLE2_SCALE == jax_hparams.TABLE2_SCALE
     assert _fields(hparams.TABLE1_RL) == _fields(jax_hparams.TABLE1_RL)
     ours, ref = _fields(hparams.TABLE2_RLVR), _fields(jax_hparams.TABLE2_RLVR)
-    # The port's RLVRHyperparams lacks the reference's unported knobs
-    # (fault plan, watchdog, checkpoints, prefix cache, speculation).
-    assert set(ours) < set(ref)
+    # The port's RLVRHyperparams has every knob of the reference's.
+    assert set(ours) == set(ref)
     assert ours == {k: ref[k] for k in ours}
     assert hparams.TABLE2_RLVR.algorithm == "grpo_vaco"
     assert hparams.TABLE2_RLVR.max_new_tokens == 512

@@ -111,7 +111,7 @@ def test_launcher_without_cpu_raises_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--engine", "static", "--arch", "hymba-1.5b"])
     with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--engine", "static", "--speculate", "2"])
+        serve.main(["--engine", "continuous", "--mesh", "data=2"])
 
 
 def test_trainer_and_train_launcher_raise_when_cuda_is_absent(monkeypatch):

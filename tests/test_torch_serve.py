@@ -65,12 +65,16 @@ def _serve(eng):
 class _ReplayJaxNoise:
     """Feeds the port's sampler the Gumbel noise the JAX engine draws:
     one key per dispatch off the engine's PRNG chain; a decode chunk
-    splits its key per step, a varlen round uses it whole."""
+    splits its key per step, a varlen round uses it whole.  A
+    speculative round takes two keys: the model draft's, split per
+    draft step, then the verify pass's, split into the accept rule's
+    uniforms and its correction's Gumbel noise."""
 
     def __init__(self, eng, seed, temperature, top_p):
         self.key = jax.random.PRNGKey(seed)
         self.keys = []
         varlen, decode = eng._varlen, eng._decode
+        draft, verify = eng._draft, eng._verify
 
         def _dispatch(n):
             self.key, k = jax.random.split(self.key)
@@ -84,12 +88,29 @@ class _ReplayJaxNoise:
             _dispatch(eng.decode_chunk)
             return decode(*a)
 
+        def _draft(k, *a):
+            _dispatch(k)
+            return draft(k, *a)
+
+        def _verify(*a):
+            _dispatch(None)
+            return verify(*a)
+
         def _sample(logits):
             g = jax.random.gumbel(self.keys.pop(0), tuple(logits.shape))
             return sample(logits, temperature, top_p,
                           torch.from_numpy(np.array(g)))
 
+        def _accept_noise(b, k, v):
+            k_u, k_r = jax.random.split(self.keys.pop(0))
+            u = jax.random.uniform(k_u, (b, k), minval=1e-7)
+            g = jax.random.gumbel(k_r, (b, v))
+            return (torch.from_numpy(np.array(u)),
+                    torch.from_numpy(np.array(g)))
+
         eng._varlen, eng._decode, eng._sample = _varlen, _decode, _sample
+        eng._draft, eng._verify = _draft, _verify
+        eng._accept_noise = _accept_noise
 
 
 @pytest.mark.parametrize("temperature,top_p", [(0.0, 1.0), (0.8, 0.9)])
@@ -193,8 +214,7 @@ def test_scheduler_copy_makes_reference_decisions():
 
 
 @pytest.mark.parametrize("option", [
-    dict(speculate_k=2), dict(prefix_cache=True), dict(mesh=object()),
-    dict(chunked_prefill=False)])
+    dict(mesh=object()), dict(chunked_prefill=False)])
 def test_unported_options_raise(weights, option):
     with pytest.raises(NotImplementedError):
         ServeEngine(build(CFG), weights[1], device="cpu", **option)
