@@ -6,7 +6,11 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device probe: needs ``torch.cuda.is_available()``; prints the card's
-   ``nvidia-smi`` name and power limit; float32 matmuls without TF32.
+   ``nvidia-smi`` name and power limit; float32 matmuls without TF32;
+   the caching allocator maps expandable segments (as the ``train``
+   launcher asks; full-width hymba training fills ~71 of the card's
+   79 GiB, and split blocks of the earlier phases must not strand the
+   rest).
 2. build: compiles every CUDA kernel of the port from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version at the serve
@@ -38,7 +42,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the bound.
 7. train: ``repro_torch.launch.train rlvr --full-width`` in-process with
    2 warmup steps and one phase of 2 minibatches; both log-prob kernels
-   must launch once on every learner step.
+   must launch once on every learner step, and ``flash_attention`` with
+   its backward once a layer on every warmup and learner step (24
+   ``flash_attention_bwd`` a step) beside each generate's prefill.
 8. full-width step: one ``make_update_step`` on a generated minibatch
    with rewards drawn from a seed (nonzero advantages): finite loss,
    grad norm > 0, params moved; the kernels' logp, entropy and
@@ -159,7 +165,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     produced; the three paged kernels launched; ``fused_logprob_bwd``
     once a learner step, ``fused_logprob`` once a learner step and once
     a TV-gate scoring, ``flash_attention`` once a layer for each no-grad
-    forward (scorings and eval prefills); finite warmup loss, tv,
+    forward (scorings and eval prefills) and, with ``flash_attention_bwd``,
+    for each warmup and learner step; finite warmup loss, tv,
     weights and grad norms, and the params moved.  Generation tokens/s
     over the ``produce`` spans, learner step ms, the engine's swaps,
     each item's lag; then one more minibatch timed and one profiled
@@ -210,7 +217,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     from the same arrays, equal (plumbing and determinism: their parity
     with JAX is ``tests/test_torch_controllers.py``'s);
     ``fused_logprob`` once a step (twice, and ``flash_attention`` once a
-    layer more, under ``stable_async``'s scoring), its backward once.
+    layer more, under ``stable_async``'s scoring), its backward once;
+    ``flash_attention`` and its backward once a layer a step.
     Then on one more minibatch: the learner step timed, and with GAC's
     transform between its halves; ``_score_log_pi``'s ``fused_logprob``
     within 1e-5 of the plain version on the same logits.
@@ -262,21 +270,58 @@ Phases, each printing one JSON line (any failure exits non-zero):
     phase covers the draft pool, the verify shape and the cache, and
     phase 27's lagged and 2-layer runs cover rejection.
 
+30. backward kernels: ``flash_attention_bwd`` and ``ssm_scan_bwd`` against
+    their plain backwards (``ref_attention_backward`` on the forward's own
+    output and logsumexp, ``ref_ssm_scan_backward``) and against autograd
+    of the plain forwards, float32 within 2e-5 (flash) / 2e-4 (scan) and
+    bfloat16 within 2e-2, of max(1, |ref|): hymba's learner shape (B 64 x
+    S 40; 25 / 5 heads of 64, window 1024; the scan's b_t / c_t as
+    column slices of ``x_proj``'s output), qwen's 14 / 2 heads, S 1, a
+    ragged S 37 with a carried state, B 1 x S 2048 (windowed 1024 and
+    global; the scan from zero), small sweeps; the scan held to autograd
+    up to S 64.  The learner shapes (both dtypes) and the long ones
+    (float32) timed beside the plain version and the bound; flash also
+    beside ``F.scaled_dot_product_attention``'s backward (timed only).
+31. hymba training: ``repro_torch.launch.train rlvr --full-width --arch
+    hymba-1.5b`` in-process (32 layers, d 1600, 2 warmup steps, one
+    phase of 2 minibatches): ``ssm_scan_bwd`` and ``flash_attention_bwd``
+    32 times a warmup or learner step, both log-prob kernels once a
+    learner step; finite loss and tv, grad norm > 0.  Then one learner
+    step with seeded rewards: exactly those launches, the params moved,
+    its wall, idle share and peak memory (allocated and reserved);
+    learner step p50 and generation tokens/s of the run.
+32. hymba train parity: phase 9 at 2 full-width hymba layers with dense
+    weights x3 (losses, tv, frac_filtered, grad norm within 1e-4
+    relative; the updates as phase 9 holds them), the card's learner step
+    from the CPU's warmed params.  The chained step (from the card's
+    own warm params) is recorded, not gated, under ``chained``: its gap
+    to the CPU through the kernels and with the plain attention and
+    scan in their place on the card (both miss these limits alike:
+    AdamW's first step sends near-zero gradient entries to +-lr, and
+    dense x3 makes the next step feel it).  Then one B 1 x S 2100
+    forward and backward (past the 2048-token threshold: the CPU's
+    chunked plain attention against the card's kernels), loss and every
+    param grad within 1e-4 of its largest magnitude.
+
 Then one JSON line of every kernel's numbers (``paged_attention_multi``'s
-launches are phase 27's first run's), the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.
+launches are phase 27's first run's; the two backward kernels' phase
+31's), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# Read when the CUDA allocator starts, so set before torch is imported.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, published
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -982,14 +1027,20 @@ def train_phase(torch):
     produce = _span_seconds(tracer, "produce")
     # Every generate's prefill runs flash_attention once a layer (24):
     # one generate per produced minibatch, one for the launcher's eval
-    # after warmup and one per eval of the train loop.  The learner's
-    # forward, which needs a gradient, never does; pass_through scores
-    # no minibatch without one.
+    # after warmup and one per eval of the train loop.  Every forward
+    # with a gradient (each warmup and learner step) runs it once a
+    # layer too, and its backward once a layer: 24 flash_attention_bwd
+    # a learner step.  pass_through scores no minibatch without one.
     generates = len(produce) + 1 + len(res.eval_accuracy)
-    check(len(produce) > 0
-          and launches["flash_attention"] == cfg.n_layers * generates,
+    grad_steps = hp.warmup_steps + steps
+    check(len(produce) > 0 and launches["flash_attention"]
+          == cfg.n_layers * (generates + grad_steps),
           f"flash_attention launched {launches['flash_attention']} times "
-          f"for {generates} generates of {cfg.n_layers} layers")
+          f"for {generates} generates and {grad_steps} steps of "
+          f"{cfg.n_layers} layers")
+    check(launches["flash_attention_bwd"] == cfg.n_layers * grad_steps,
+          f"flash_attention_bwd launched {launches['flash_attention_bwd']} "
+          f"times in {grad_steps} steps of {cfg.n_layers} layers")
     check(all(math.isfinite(l.tv) for l in res.phase_logs) and
           math.isfinite(warm_loss), "non-finite warmup loss or tv")
     batch = hp.prompts_per_minibatch * hp.completions_per_prompt
@@ -1111,9 +1162,17 @@ def step_phase(torch, trainer):
          launches=launches)
 
 
-def train_parity_phase(torch):
-    """2 layers at full width: one warmup step and one VACO learner step
-    on the CPU (plain path) and the card (kernels)."""
+def train_parity_phase(torch, arch="qwen2.5-0.5b", dense_scale=None,
+                       tag="train_parity", same_start=False):
+    """2 layers of ``arch`` at full width (dense weights x ``dense_scale``
+    when given): one warmup step and one VACO learner step on the CPU
+    (plain path) and the card (kernels).  ``same_start``: the card's
+    learner step starts from the CPU's warmed params, not its own, so
+    the step is compared alone; the chained step (the card's warmup,
+    then its learner step from its own warm params) is recorded beside
+    it, with the kernels and with the plain attention and scan in their
+    place on the card, as information (``chained`` in the JSON line).
+    Returns ``(cfg, bundle, init params)``."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1127,10 +1186,12 @@ def train_parity_phase(torch):
     from repro_torch.train.trainer_rlvr import RLVRTrainState
     from repro_torch.utils.tree import tree_leaves, tree_to
 
-    cfg = get_config("qwen2.5-0.5b").replace(n_layers=2)
+    cfg = get_config(arch).replace(n_layers=2)
     bundle = build(cfg)
     hp = RLVRHyperparams(algorithm="grpo_vaco")
     params = bundle.init(torch.Generator().manual_seed(0))
+    if dense_scale is not None:
+        params = _scale_dense(params, dense_scale)
     ds = MathTaskDataset(prompt_len=32, level=0, seed=4)
     w_tok, w_mask = ds.supervised_batch(8, hp.max_new_tokens)
     prompts, _, _ = ds.sample_batch(2)
@@ -1144,13 +1205,18 @@ def train_parity_phase(torch):
     warm = make_warmup_step(bundle, hp)
     update = make_update_step(bundle, hp, 32)
     out = {}
-    log_beta = None
+    log_beta = warm_cpu = None
     for dev in ("cpu", "cuda"):
         on = lambda a: torch.as_tensor(a).to(dev)
         p = tree_to(params, dev)
         st, w_loss = warm(RLVRTrainState(p, adamw_init(p), 0), on(w_tok),
                           on(w_mask))
         st = st._replace(opt_state=adamw_init(st.params))
+        warm_params = [a.cpu() for a in tree_leaves(st.params)]
+        if same_start and warm_cpu is not None:
+            p = tree_to(warm_cpu, dev)
+            st = RLVRTrainState(p, adamw_init(p), st.updates)
+        warm_cpu = st.params if warm_cpu is None else warm_cpu
         if log_beta is None:             # 0.3 nats off the CPU's policy
             with torch.no_grad():
                 lp, _, _ = score_tokens(bundle, st.params, on(tokens), 32)
@@ -1161,12 +1227,19 @@ def train_parity_phase(torch):
                         **{k: aux[k].item() for k in (
                             "loss", "tv", "frac_filtered", "filter_active",
                             "grad_norm")},
-                        warm_params=[a.cpu() for a in tree_leaves(st.params)],
+                        warm_params=warm_params,
+                        start_params=[a.cpu() for a in tree_leaves(st.params)],
                         params=[a.cpu() for a in tree_leaves(st2.params)])
     cpu, card = out["cpu"], out["cuda"]
     init = [a.clone() for a in tree_leaves(params)]
-    rec = dict(phase="train_parity", config=cfg.name, layers=cfg.n_layers,
-               tol=1e-4, update_tol=1e-2)
+    rec = dict(phase=tag, config=cfg.name, layers=cfg.n_layers,
+               dense_scale=dense_scale, same_start=same_start, tol=1e-4,
+               update_tol=1e-2)
+    if same_start:
+        rec["chained"] = _chained_card_steps(
+            torch, warm, update, params, cpu,
+            [torch.as_tensor(a).to("cuda")
+             for a in (w_tok, w_mask, tokens, log_beta, mask, adv)])
     failures = []
     for k in ("warmup_loss", "loss", "tv", "frac_filtered", "grad_norm"):
         err = abs(card[k] - cpu[k])
@@ -1181,7 +1254,7 @@ def train_parity_phase(torch):
     # than the 2 x lr they can span, and the gradient's magnitude is
     # held by the grad norm above.
     for k, before, lr in (("warm_params", None, hp.warmup_lr),
-                          ("params", "warm_params", hp.lr)):
+                          ("params", "start_params", hp.lr)):
         start = {d: init if before is None else out[d][before]
                  for d in ("cpu", "cuda")}
         upd = {d: [x - x0 for x, x0 in zip(out[d][k], start[d])]
@@ -1200,8 +1273,51 @@ def train_parity_phase(torch):
             failures.append(f"{k}: {rec[k]}")
     emit(**rec)
     check(cpu["filter_active"] == card["filter_active"] == 1.0 and
-          cpu["frac_filtered"] > 0, f"train parity: VACO filter idle {cpu}")
-    check(not failures, "train parity: " + "; ".join(failures))
+          cpu["frac_filtered"] > 0, f"{tag}: VACO filter idle {cpu}")
+    check(not failures, f"{tag}: " + "; ".join(failures))
+    return cfg, bundle, params
+
+
+def _chained_card_steps(torch, warm, update, params, cpu, batch):
+    """The card's warmup then learner step from its own warm params, once
+    through the kernels and once with ``ops.attention`` / ``ops.ssm_scan``
+    replaced by the plain versions on the card: each one's gap to the
+    CPU's chained run (loss, tv and grad norm relative to max(1, |cpu|),
+    and the learner step's update relative to the CPU's).  Information
+    only: AdamW's first step sends near-zero gradient entries to +-lr,
+    so the chained step drifts on either route."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer_rlvr import RLVRTrainState
+    from repro_torch.utils.tree import tree_leaves, tree_to
+
+    w_tok, w_mask, tokens, log_beta, mask, adv = batch
+    cpu_upd = [x - x0 for x, x0 in zip(cpu["params"], cpu["start_params"])]
+    cpu_norm = sum((y ** 2).sum().item() for y in cpu_upd) ** 0.5
+    routes = {"kernels": (ops.attention, ops.ssm_scan),
+              "plain": (ref.ref_attention, ref.ref_ssm_scan)}
+    kept = (ops.attention, ops.ssm_scan)
+    res = {}
+    try:
+        for route, (attend, scan) in routes.items():
+            ops.attention, ops.ssm_scan = attend, scan
+            p = tree_to(params, "cuda")
+            st, _ = warm(RLVRTrainState(p, adamw_init(p), 0), w_tok, w_mask)
+            st = st._replace(opt_state=adamw_init(st.params))
+            before = [a.cpu() for a in tree_leaves(st.params)]
+            st2, aux = update(st, tokens, log_beta, mask, adv)
+            upd = [x.cpu() - x0 for x, x0 in
+                   zip(tree_leaves(st2.params), before)]
+            diff = sum(((x - y) ** 2).sum().item()
+                       for x, y in zip(upd, cpu_upd)) ** 0.5
+            res[route] = {k: abs(aux[k].item() - cpu[k])
+                          / max(1.0, abs(cpu[k]))
+                          for k in ("loss", "tv", "grad_norm")}
+            res[route]["update_rel_err"] = diff / cpu_norm
+            del st, st2, p, before, upd
+    finally:
+        ops.attention, ops.ssm_scan = kept
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2269,11 +2385,16 @@ def serve_rlvr_phase(torch):
           f"log-prob kernels launched {launches['fused_logprob']} / "
           f"{launches['fused_logprob_bwd']} times in {steps} learner steps")
     # flash: each TV scoring's forward and each eval generate's prefill,
-    # once a layer; the engine's prefill is paged.
+    # once a layer, and each warmup and learner step's forward with its
+    # backward; the engine's prefill is paged.
     forwards = steps + 1 + len(res.eval_accuracy)
-    check(launches["flash_attention"] == cfg.n_layers * forwards,
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"for {forwards} no-grad forwards of {cfg.n_layers} layers")
+    grad_steps = hp.warmup_steps + steps
+    check(launches["flash_attention"]
+          == cfg.n_layers * (forwards + grad_steps)
+          and launches["flash_attention_bwd"] == cfg.n_layers * grad_steps,
+          f"flash_attention / _bwd launched {launches['flash_attention']} "
+          f"/ {launches['flash_attention_bwd']} times for {forwards} no-grad "
+          f"forwards and {grad_steps} steps of {cfg.n_layers} layers")
     gnorm = trainer.metrics.histogram("train_grad_norm").summary()
     check(math.isfinite(warm_loss) and all(
         math.isfinite(l.tv) and math.isfinite(l.weight)
@@ -2690,9 +2811,13 @@ def threaded_serve_rlvr_phase(torch):
           f"log-prob kernels launched {launches['fused_logprob']} / "
           f"{launches['fused_logprob_bwd']} times in {steps} learner steps")
     forwards = steps + 1 + len(res.eval_accuracy)
-    check(launches["flash_attention"] == cfg.n_layers * forwards,
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"for {forwards} no-grad forwards of {cfg.n_layers} layers")
+    grad_steps = hp.warmup_steps + steps
+    check(launches["flash_attention"]
+          == cfg.n_layers * (forwards + grad_steps)
+          and launches["flash_attention_bwd"] == cfg.n_layers * grad_steps,
+          f"flash_attention / _bwd launched {launches['flash_attention']} "
+          f"/ {launches['flash_attention_bwd']} times for {forwards} no-grad "
+          f"forwards and {grad_steps} steps of {cfg.n_layers} layers")
     # Every token whose history ran under one version, re-scored on it.
     prompt_len = trainer.dataset.prompt_len
     rows = hp.prompts_per_minibatch * hp.completions_per_prompt
@@ -3083,13 +3208,18 @@ def controllers_phase(torch):
         check(gnorm["max"] > 0 and math.isfinite(gnorm["max"])
               and math.isfinite(warm_loss), f"{spec}: grad norms {gnorm}")
         # Launches a learner step: the loss's log-prob forward and its
-        # backward; stable_async scores log_pi once more (a no-grad
-        # forward, flash once a layer); the evals' prefills run flash.
+        # backward, flash and its backward once a layer (warmup steps
+        # too); stable_async scores log_pi once more (a no-grad forward,
+        # flash once a layer); the evals' prefills run flash.
         extra = steps if name == "stable_async" else 0
         forwards = extra + 1 + len(res.eval_accuracy)
+        grad_steps = hp.warmup_steps + steps
         check(launches["fused_logprob"] == steps + extra
               and launches["fused_logprob_bwd"] == steps
-              and launches["flash_attention"] == cfg.n_layers * forwards,
+              and launches["flash_attention"]
+              == cfg.n_layers * (forwards + grad_steps)
+              and launches["flash_attention_bwd"]
+              == cfg.n_layers * grad_steps,
               f"{spec}: launches {launches} for {steps} steps")
         cos_rows, weight_rows = rec.gac_rows(), list(rec.weights)
         if name == "gac":
@@ -3137,7 +3267,8 @@ def controllers_phase(torch):
              step_p50_ms=step_ms, gac_step_p50_ms=gac_ms,
              fused_logprob_per_step=launches["fused_logprob"] / steps,
              flash_per_step=(launches["flash_attention"]
-                             - cfg.n_layers * (1 + len(res.eval_accuracy)))
+                             - cfg.n_layers * (1 + len(res.eval_accuracy)
+                                               + hp.warmup_steps))
              / steps,
              gac=[{"cos": c, "cos_f64": e, "scale": s}
                   for c, e, s in cos_rows],
@@ -3858,6 +3989,416 @@ def spec_rlvr_phase(torch, baseline):
          tv=[l.tv for l in res.phase_logs], launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phases 30-32: training hymba (the two backward kernels)
+# ---------------------------------------------------------------------------
+
+# The learner's shape: 16 prompts x 4 completions of 32 + 8 tokens.
+LEARN_B, LEARN_S = 64, 40
+FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # of max(1, |ref|)
+HYMBA_TRAIN_ARGS = [
+    "rlvr", "--full-width", "--arch", "hymba-1.5b", "--device", "cuda",
+    "--warmup-steps", "2", "--n-minibatches", "2", "--phases", "1"]
+HYMBA_LONG_TRAIN = 2100          # phase 32's forward past CHUNKED_ATTN_THRESHOLD
+
+
+def _grad_err(got, want, tol: float, what: str) -> float:
+    """Largest error of a gradient; fails past ``tol * max(1, |want|)``."""
+    check(got.shape == want.shape and got.dtype == want.dtype
+          and bool(got.isfinite().all()), f"{what}: bad gradient")
+    return _scaled_err(got.float(), want.float(), tol, what)
+
+
+def _flash_bwd_case(torch, dtype, b, s, hh, kk, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, d_out = (torch.randn(b, s, n, d, generator=gen,
+                                  device="cuda").to(dtype)
+                      for n in (hh, kk, kk, hh))
+    return q, k, v, d_out
+
+
+def bwd_kernel_phase(torch):
+    """Phase 30: ``flash_attention_bwd`` and ``ssm_scan_bwd`` against their
+    plain backwards and autograd of the plain forwards (the scan's up to
+    S 64), float32 and bfloat16; the learner's and the long shapes
+    timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+
+    h, kv, w = HYMBA_H, HYMBA_KV, HYMBA_WINDOW
+    flash_cases = (   # (case, B, S, H, KV, D, window)
+        ("hymba_learner", LEARN_B, LEARN_S, h, kv, 64, w),
+        ("qwen_learner", LEARN_B, LEARN_S, 14, 2, 64, None),
+        ("long_local", 1, HYMBA_LONG, h, kv, 64, w),
+        ("long_global", 1, HYMBA_LONG, h, kv, 64, None),
+        ("s1", 2, 1, h, kv, 64, None),
+        ("ragged_s37", 2, 37, h, kv, 64, 16),
+        ("sweep_32", 2, 100, 4, 2, 32, 30),
+        ("sweep_8", 2, 65, 2, 2, 8, None))
+    # Timed: the learner shapes in both dtypes, the long ones in float32.
+    timed = {"float32": ("hymba_learner", "qwen_learner", "long_local",
+                         "long_global"),
+             "bfloat16": ("hymba_learner", "qwen_learner")}
+    headline, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for case, b, s, hh, kk, d, window in flash_cases:
+            t_case = time.perf_counter()
+            q, k, v, d_out = _flash_bwd_case(torch, dtype, b, s, hh, kk, d,
+                                             seed=s + hh)
+            out, lse = flash_attention_cuda(q, k, v, window=window,
+                                            return_lse=True)
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, d_out,
+                                           window=window)
+            plain = ref.ref_attention_backward(q, k, v, out, lse, d_out,
+                                               window=window)
+            leaves = [x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v)]
+            auto = torch.autograd.grad(
+                ref.ref_attention(*leaves, window=window), leaves, d_out)
+            torch.cuda.synchronize()
+            err = 0.0
+            for name, g, p_, a_ in zip("qkv", got, plain, auto):
+                err = max(err, _grad_err(g, p_, FLASH_BWD_TOL[dname],
+                                         f"flash_bwd/{case}/{dname}/d{name}"))
+                # autograd of the plain forward rounds P to the inputs'
+                # dtype before the value product; the kernel keeps float32.
+                _grad_err(g, a_, FLASH_BWD_TOL[dname],
+                          f"flash_bwd/{case}/{dname}/d{name} vs autograd")
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            del leaves, auto, plain
+            if case not in timed[dname]:
+                emit(phase="kernel_check", kernel="flash_attention_bwd",
+                     case=case, dtype=dname, B=b, S=s, H=hh, KV=kk, D=d,
+                     window=window, max_abs_err=err,
+                     tol=FLASH_BWD_TOL[dname],
+                     seconds=time.perf_counter() - t_case)
+                continue
+            kern = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, d_out,
+                                                    window=window)
+            plain_fn = lambda: ref.ref_attention_backward(
+                q, k, v, out, lse, d_out, window=window)
+            # Library yardstick, timed only: SDPA's backward on [B, H, S,
+            # D] with the kv heads repeated, causal or with the band mask.
+            qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+            kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
+                      .contiguous().requires_grad_(True) for x in (k, v))
+            if window is None or window >= s:
+                o_t = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+            else:
+                i = torch.arange(s, device="cuda")
+                band = (i[:, None] >= i[None, :]) & (
+                    i[:, None] - i[None, :] < window)
+                o_t = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=band)
+            do_t = d_out.transpose(1, 2).contiguous()
+            lib = lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                              retain_graph=True)
+            # q, out, d_out, k, v and lse read once, dq, dk, dv written
+            # once; 10 D operations per attended (query, key) pair and
+            # head (scores recomputed, dP, dV, dK, dQ), at the peak for
+            # the inputs' type, as the forward's bound takes it.
+            nbytes = ((4 * b * s * hh * d + 4 * b * s * kk * d) * esize
+                      + b * s * hh * 4)
+            flops = 10 * d * hh * b * _attended_pairs(s, window)
+            b_ms, b_by = bound(nbytes, flops, dname)
+            rec = dict(phase="kernel", kernel="flash_attention_bwd",
+                       case=case, dtype=dname, B=b, S=s, H=hh, KV=kk, D=d,
+                       window=window, max_abs_err=err,
+                       tol=FLASH_BWD_TOL[dname],
+                       kernel_ms=time_ms(kern, iters=50),
+                       plain_ms=time_ms(plain_fn, iters=3, warmup=1),
+                       library_ms=time_ms(lib, iters=20),
+                       bound_ms=b_ms, bound_by=b_by,
+                       kernel_device_ms=device_ms(kern, "flash_bwd_"),
+                       plain_device_ms=device_ms(plain_fn, iters=2),
+                       library_device_ms=device_ms(lib, iters=5),
+                       seconds=time.perf_counter() - t_case)
+            emit(**rec)
+            check(rec["kernel_device_ms"] is not None,
+                  f"flash_bwd/{case}/{dname}: no flash_bwd_ in the profile")
+            if case == "hymba_learner":     # 30 of a step's 32 launches
+                headline[("flash_attention_bwd", dname)] = rec
+            del qt, kt, vt, o_t
+    for dname, err in worst.items():
+        headline[("flash_attention_bwd", dname)] = dict(
+            headline[("flash_attention_bwd", dname)], max_abs_err=err)
+
+    i_, n_ = HYMBA_I, HYMBA_N
+    ssm_cases = (   # (case, B, S, I, N, carried state, strided b/c)
+        ("hymba_learner", LEARN_B, LEARN_S, i_, n_, False, True),
+        ("long_b1", 1, HYMBA_LONG, i_, n_, False, True),
+        ("s1", 8, 1, i_, n_, True, True),
+        ("ragged_s37", 2, 37, i_, n_, True, True),
+        ("carried_long", 2, 600, 300, n_, True, False),
+        ("sweep_4", 3, 50, 40, 4, True, False))
+    timed = {"float32": ("hymba_learner", "long_b1"),
+             "bfloat16": ("hymba_learner",)}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for case, bb, s, ii, nn, state, strided in ssm_cases:
+            args = _ssm_args(torch, dtype, bb, s, ii, nn, state,
+                             strided=strided, seed=s * ii + 1)
+            gen = torch.Generator(device="cuda").manual_seed(s + 2)
+            gy = torch.randn(bb, s, ii, generator=gen, device="cuda").to(
+                dtype)
+            ghf = torch.randn(bb, ii, nn, generator=gen, device="cuda")
+            t_case = time.perf_counter()
+            got = ssm_scan_bwd_cuda(*args, gy, ghf)
+            plain = ref.ref_ssm_scan_backward(*args, gy, ghf)
+            leaves = [None if x is None else
+                      x.detach().clone().requires_grad_(True) for x in args]
+            # Autograd of the plain loop records S steps of graph: held to
+            # it up to S 64 (the plain backward covers every case).
+            auto = [None] * 6
+            if s <= 64:
+                y, hf = ref.ref_ssm_scan(*leaves)
+                it = iter(torch.autograd.grad(
+                    (y, hf), [x for x in leaves if x is not None],
+                    (gy, ghf)))
+                auto = [None if x is None else next(it) for x in leaves]
+                del y, hf
+            torch.cuda.synchronize()
+            names = ("du", "ddt", "db", "dc", "da", "dh0")
+            err = 0.0
+            for name, g, p_, leaf, a_ in zip(names, got, plain, leaves,
+                                             auto):
+                if leaf is None:
+                    check(g is None, f"ssm_bwd/{case}: dh0 without h0")
+                    continue
+                err = max(err, _grad_err(g, p_, SSM_TOL[dname],
+                                         f"ssm_bwd/{case}/{dname}/{name}"))
+                if a_ is not None:
+                    _grad_err(g, a_.to(g.dtype), SSM_TOL[dname],
+                              f"ssm_bwd/{case}/{dname}/{name} vs autograd")
+            worst[("ssm", dname)] = max(worst.get(("ssm", dname), 0.0), err)
+            del leaves, auto, plain
+            if case not in timed[dname]:
+                emit(phase="kernel_check", kernel="ssm_scan_bwd", case=case,
+                     dtype=dname, B=bb, S=s, I=ii, N=nn, strided=strided,
+                     max_abs_err=err, tol=SSM_TOL[dname],
+                     seconds=time.perf_counter() - t_case)
+                continue
+            kern = lambda: ssm_scan_bwd_cuda(*args, gy, ghf)
+            plain_fn = lambda: ref.ref_ssm_scan_backward(*args, gy, ghf)
+            # u, dt, dy, b, c, a (and h0, the final state's gradient) read
+            # once; du, ddt, db, dc, da (and dh0) written once.  About 20
+            # float32 operations per state element and step (two
+            # exponentials, the recomputed and the reverse recurrences,
+            # five gradient terms), at the peak for the inputs' type.
+            st = bb * ii * nn * 4
+            nbytes = ((5 * bb * s * ii + 4 * bb * s * nn) * esize
+                      + 2 * ii * nn * 4 + st * (3 if state else 1))
+            b_ms, b_by = bound(nbytes, 20 * bb * s * ii * nn, dname)
+            # The plain loop takes ~1.4 s at S 2048: timed once there.
+            short = s <= 64
+            rec = dict(phase="kernel", kernel="ssm_scan_bwd", case=case,
+                       dtype=dname, B=bb, S=s, I=ii, N=nn, strided=strided,
+                       max_abs_err=err, tol=SSM_TOL[dname],
+                       kernel_ms=time_ms(kern, iters=50),
+                       plain_ms=time_ms(plain_fn, iters=2 if short else 1,
+                                        warmup=1 if short else 0),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       kernel_device_ms=device_ms(kern, "ssm_scan_bwd"),
+                       plain_device_ms=(device_ms(plain_fn, iters=1)
+                                        if short else None))
+            rec["seconds"] = time.perf_counter() - t_case
+            emit(**rec)
+            if case == "hymba_learner":      # every layer of a step
+                headline[("ssm_scan_bwd", dname)] = rec
+    for dname in ("float32", "bfloat16"):
+        headline[("ssm_scan_bwd", dname)] = dict(
+            headline[("ssm_scan_bwd", dname)],
+            max_abs_err=worst[("ssm", dname)])
+    return headline
+
+
+def hymba_train_phase(torch):
+    """Phase 31: ``train rlvr --full-width --arch hymba-1.5b`` in-process
+    (2 warmup steps, one phase of 2 minibatches), then one learner step
+    with seeded rewards, counted and profiled.  Returns the run's
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.core.losses import group_advantages
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.train import make_update_step
+    from repro_torch.utils.tree import tree_leaves
+
+    args = launcher.build_parser().parse_args(HYMBA_TRAIN_ARGS)
+    tracer = Tracer(detail="spans")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, res, warm_loss = launcher.run(args, tracer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak_run = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_run_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    cfg, hp, bundle = trainer.bundle.cfg, trainer.hp, trainer.bundle
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.ssm.expand * cfg.d_model, cfg.vocab_size)
+          == (HYMBA_L, 1600, HYMBA_H, HYMBA_KV, HYMBA_I, 32001),
+          f"hymba train phase is not full width: {cfg}")
+    steps = len(res.phase_logs)
+    check(steps == hp.n_minibatches and trainer.nonfinite_skipped == 0,
+          f"{steps} learner steps logged of {hp.n_minibatches}")
+    # Every warmup and learner step's forward and backward run both
+    # backward kernels once a layer; the log-prob kernels once a learner
+    # step (the warmup's NLL is plain log_softmax).
+    grad_steps = hp.warmup_steps + steps
+    for name in ("ssm_scan_bwd", "flash_attention_bwd"):
+        check(launches[name] == cfg.n_layers * grad_steps,
+              f"{name} launched {launches[name]} times in {grad_steps} "
+              f"steps of {cfg.n_layers} layers")
+    for name in ("fused_logprob", "fused_logprob_bwd"):
+        check(launches[name] == steps,
+              f"{name} launched {launches[name]} times in {steps} steps")
+    produce = _span_seconds(tracer, "produce")
+    generates = len(produce) + 1 + len(res.eval_accuracy)
+    check(len(produce) > 0 and launches["flash_attention"]
+          == cfg.n_layers * (generates + grad_steps)
+          and launches["ssm_scan"] > cfg.n_layers * (generates + grad_steps),
+          f"forward launches {launches} for {generates} generates")
+    check(all(math.isfinite(l.tv) for l in res.phase_logs)
+          and math.isfinite(warm_loss), "non-finite warmup loss or tv")
+    gnorm = trainer.metrics.histogram("train_grad_norm").summary()
+    check(gnorm["max"] > 0 and math.isfinite(gnorm["max"]),
+          f"hymba train: grad norms {gnorm}")
+    step = trainer.metrics.histogram("train_step_s").summary()
+    batch = hp.prompts_per_minibatch * hp.completions_per_prompt
+
+    # One more learner step with seeded rewards (nonzero advantages):
+    # exact launches a step, the params moved, timed and profiled.
+    state, p_len = trainer.state, trainer.dataset.prompt_len
+    mb = trainer.generator.generate_minibatch(state.params)
+    tokens, log_beta, mask = mb.gen.tokens, mb.gen.log_beta, mb.gen.mask
+    gen = torch.Generator().manual_seed(11)
+    rewards = (torch.rand(mask.shape[0], generator=gen) < 0.5).float()
+    adv = group_advantages(rewards.to(tokens.device),
+                           hp.completions_per_prompt)
+    update = make_update_step(bundle, hp, p_len)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    new, aux = update(state, tokens, log_beta, mask, adv)
+    torch.cuda.synchronize()
+    per_step = kernels.launch_counts()
+    want = {"ssm_scan_bwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+            "flash_attention": cfg.n_layers, "fused_logprob": 1,
+            "fused_logprob_bwd": 1}
+    check(all(per_step[k] == n for k, n in want.items()),
+          f"hymba learner step launched {per_step}, want {want}")
+    loss_v, gn = aux["loss"].item(), aux["grad_norm"].item()
+    check(math.isfinite(loss_v) and math.isfinite(gn) and gn > 0,
+          f"hymba learner step: loss {loss_v}, grad norm {gn}")
+    moved = max((a - b_).abs().max().item() for a, b_ in
+                zip(tree_leaves(new.params), tree_leaves(state.params)))
+    check(moved > 0, "hymba learner step: the params did not move")
+    del new
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        update(state, tokens, log_beta, mask, adv)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    wall_ms = sorted(walls)[1]
+    peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_step_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    busy_ms, rows = profile_kernels(
+        lambda: update(state, tokens, log_beta, mask, adv))
+    kernel_ms = {k: sum(ms for name, ms, _ in rows if k in name)
+                 for k in ("flash_bwd_", "flash_kernel", "ssm_scan_bwd",
+                           "ssm_scan_kernel", "logprob")}
+    emit(phase="hymba_train", config=cfg.name, layers=cfg.n_layers,
+         seconds=seconds, warmup_loss=warm_loss,
+         eval_accuracy=res.eval_accuracy, learner_steps=steps,
+         learner_step_p50_ms=step["p50"] * 1e3,
+         learner_step_mean_ms=step["mean"] * 1e3,
+         minibatches_generated=len(produce),
+         generation_tokens_per_s=(len(produce) * batch * hp.max_new_tokens
+                                  / sum(produce)),
+         tv=[l.tv for l in res.phase_logs], grad_norm_mean=gnorm["mean"],
+         peak_memory_gib=peak_run, peak_reserved_gib=peak_run_reserved,
+         launches=launches)
+    emit(phase="hymba_step_profile", rows=batch, seq=tokens.shape[1],
+         loss=loss_v, grad_norm=gn, max_param_change=moved,
+         launches=per_step, wall_ms=wall_ms, walls_ms=walls,
+         device_busy_ms=busy_ms,
+         idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+         kernel_ms=kernel_ms, peak_memory_gib=peak_step,
+         peak_reserved_gib=peak_step_reserved,
+         kernel_launches=sum(n for _, _, n in rows), top_kernels=rows[:8])
+    del trainer, state, mb, tokens
+    return launches
+
+
+def hymba_train_parity_phase(torch):
+    """Phase 32: 2 full-width hymba layers, dense weights x3: phase 9's
+    warmup + VACO step card against CPU, then one B 1 x S 2100 forward
+    and backward (the CPU's chunked plain attention against the card's
+    kernels) with its param grads compared."""
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_to
+
+    cfg, bundle, params = train_parity_phase(
+        torch, "hymba-1.5b", dense_scale=3.0, tag="hymba_train_parity",
+        same_start=True)
+    s = HYMBA_LONG_TRAIN
+    check(s > ref.CHUNKED_ATTN_THRESHOLD and s > cfg.window_for_layer(0),
+          "phase 32's long forward must pass the chunked threshold")
+    tokens = torch.randint(3, cfg.vocab_size, (1, s),
+                           generator=torch.Generator().manual_seed(12))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.clone().requires_grad_(True),
+                     tree_to(params, dev))
+        leaves = tree_leaves(p)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = bundle.forward(p, tokens.to(dev)).logits[0, :-1]
+        loss = F.cross_entropy(logits.float(), tokens[0, 1:].to(dev))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = dict(loss=loss.item(), seconds=time.perf_counter() - t0,
+                        grads=[None if g is None else g.cpu()
+                               for g in grads],
+                        launches=kernels.launch_counts())
+        del logits, loss, grads, leaves, p
+    cpu, card = out["cpu"], out["cuda"]
+    check(card["launches"]["flash_attention_bwd"] == cfg.n_layers
+          and card["launches"]["ssm_scan_bwd"] == cfg.n_layers,
+          f"long train step launches {card['launches']}")
+    worst_rel, worst_leaf = 0.0, None
+    for idx, (g, w) in enumerate(zip(card["grads"], cpu["grads"])):
+        check((g is None) == (w is None), f"long step: grad {idx} missing")
+        if w is None:
+            continue
+        check(bool(torch.isfinite(g).all()), f"long step: grad {idx} NaN")
+        rel = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        if rel > worst_rel:
+            worst_rel, worst_leaf = rel, idx
+    rel_loss = abs(card["loss"] - cpu["loss"]) / max(1.0, abs(cpu["loss"]))
+    emit(phase="hymba_long_train_parity", S=s, layers=cfg.n_layers,
+         loss_cpu=cpu["loss"], loss_cuda=card["loss"], loss_rel_err=rel_loss,
+         grad_rel_err=worst_rel, worst_leaf=worst_leaf, tol=1e-4,
+         cpu_s=cpu["seconds"], cuda_s=card["seconds"])
+    check(rel_loss <= 1e-4 and worst_rel <= 1e-4,
+          f"hymba long train parity: loss {rel_loss}, grads {worst_rel}")
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -3885,6 +4426,13 @@ KERNELS = (
      "src/repro/kernels/flash_attention_pallas.py:109"),
     ("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
      "src/repro/kernels/ssm_scan_pallas.py:73"),
+    # The gradients jax.grad takes through the plain attention and scan
+    # (the Pallas kernels are forward-only).
+    ("flash_attention_bwd",
+     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro/models/attention.py:79"),
+    ("ssm_scan_bwd", "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+     "src/repro/models/ssm.py:50"),
 )
 
 
@@ -4066,9 +4614,17 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    probe = torch.empty(1, device="cuda")
+    expandable = all(seg.get("is_expandable", False)
+                     for seg in torch.cuda.memory_snapshot())
+    del probe
+    check(expandable, "the CUDA allocator does not map expandable "
+          f"segments (PYTORCH_CUDA_ALLOC_CONF="
+          f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')!r})")
     emit(phase="device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi_line,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         expandable_segments=expandable)
 
     from repro_torch.kernels import build
 
@@ -4121,6 +4677,17 @@ def main() -> int:
         "paged_attention_multi"]
     prefix_cache_phase(torch)
     spec_rlvr_phase(torch, rlvr_baseline)
+    gc.collect()
+    torch.cuda.empty_cache()
+    headline.update(bwd_kernel_phase(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    hymba_train = hymba_train_phase(torch)
+    launches.update({k: hymba_train[k]
+                     for k in ("flash_attention_bwd", "ssm_scan_bwd")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    hymba_train_parity_phase(torch)
 
     rows = []
     for name, source, replaces in KERNELS:

@@ -1,6 +1,6 @@
 """Kernels of the port: plain versions (``ref``), CUDA wrappers (one
-module per kernel, the two log-prob kernels together in ``logprobs``) and
-the device dispatch (``ops``)."""
+module per kernel, each backward kernel with its forward: ``logprobs``,
+``flash_attention``, ``ssm_scan``) and the device dispatch (``ops``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -13,6 +13,7 @@ _KERNELS = (paged_kv_write.KERNEL, paged_attention.KERNEL,
             paged_attention_varlen.KERNEL, logprobs.FWD_KERNEL,
             logprobs.BWD_KERNEL, vtrace.KERNEL, wkv6.KERNEL,
             flash_attention.KERNEL, ssm_scan.KERNEL,
+            flash_attention.BWD_KERNEL, ssm_scan.BWD_KERNEL,
             paged_attention_varlen.MULTI)
 
 

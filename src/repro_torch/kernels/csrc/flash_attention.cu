@@ -13,7 +13,10 @@
 // q [B,S,H,D], k and v [B,S,KV,D], float32 or bfloat16; scores, softmax
 // and accumulation float32 (no TF32); out in the inputs' dtype.  The
 // running max starts at -1e30 and the denominator is clamped at 1e-30,
-// as in the Pallas kernel; masked keys contribute exactly 0.
+// as in the Pallas kernel; masked keys contribute exactly 0.  Optionally
+// (lse != null, the forward of a step that will be differentiated) each
+// row's float32 logsumexp of its scaled scores, lse[b, p, h] = m + log l,
+// which the backward (flash_attention_bwd.cu) recomputes P from.
 //
 // What bounds it on an H100: operations at long S (4 D flops per
 // attended (query, key) pair; 13.4 GFLOP for one hymba layer at S 2048,
@@ -25,8 +28,9 @@
 // Two instantiations, chosen by the launcher from dtype and head dim
 // alone: bfloat16 at D = 64 takes flash_kernel_wgmma
 // (flash_attention_wgmma.cuh: tensor cores fed by TMA); float32, and
-// bfloat16 at D 8, 16 and 32, take flash_kernel below, which is never
-// instantiated for bfloat16 at D 64.
+// bfloat16 at D 8, 16 and 32, take flash_kernel below.  A call that asks
+// for the logsumexp takes flash_kernel at every dtype and head dim (the
+// wgmma kernel writes none), so the serve path's wgmma kernel is as it was.
 //
 // Design: GQA packing.  The G = H / KV query heads of a kv head are
 // adjacent in memory at each position, so the rows (position, head) of
@@ -96,8 +100,9 @@ struct Layout {
 template <typename T, int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int seq,
-             int n_heads, int n_kv, int window, float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int seq, int n_heads, int n_kv,
+             int window, float scale) {
   using L = Layout<D>;
   extern __shared__ float smem[];
   float* s_q = smem;                       // [kRows][kQ]
@@ -245,8 +250,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!live[i]) continue;
     const int r = r0 + ty * 4 + i;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* row = out + (((size_t)b * seq + pos[i]) * n_heads + kvh * group +
-                    r % group) * D;
+    const size_t head_row =
+        ((size_t)b * seq + pos[i]) * n_heads + kvh * group + r % group;
+    T* row = out + head_row * D;
+    if (lse != nullptr && tx == 0)
+      lse[head_row] = m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int c = 0; c < L::kDims; ++c) {
       const int d = tx + 16 * c;
@@ -257,8 +265,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, bool kWindow>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int seq, int n_heads, int n_kv, int window,
-                   float scale, cudaStream_t stream) {
+                   float* lse, int batch, int seq, int n_heads, int n_kv,
+                   int window, float scale, cudaStream_t stream) {
   auto kernel = flash_kernel<T, D, kWindow>;
   const size_t bytes = Layout<D>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(   // once
@@ -268,43 +276,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid((rows + kRows - 1) / kRows, n_kv, batch);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq, n_heads, n_kv,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, seq, n_heads,
+      n_kv, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
-                     int batch, int seq, int n_heads, int n_kv, int window,
-                     float scale, cudaStream_t stream) {
+                     float* lse, int batch, int seq, int n_heads, int n_kv,
+                     int window, float scale, cudaStream_t stream) {
   if (window > 0)
-    return launch<T, D, true>(q, k, v, out, batch, seq, n_heads, n_kv,
+    return launch<T, D, true>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
                               window, scale, stream);
-  return launch<T, D, false>(q, k, v, out, batch, seq, n_heads, n_kv, 0,
+  return launch<T, D, false>(q, k, v, out, lse, batch, seq, n_heads, n_kv, 0,
                              scale, stream);
 }
 
 template <typename T>
 cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
-                     void* out, int batch, int seq, int n_heads, int n_kv,
-                     int window, float scale, cudaStream_t stream) {
+                     void* out, float* lse, int batch, int seq, int n_heads,
+                     int n_kv, int window, float scale, cudaStream_t stream) {
   switch (dim) {
     case 8:
-      return launch_w<T, 8>(q, k, v, out, batch, seq, n_heads, n_kv, window,
-                            scale, stream);
+      return launch_w<T, 8>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                            window, scale, stream);
     case 16:
-      return launch_w<T, 16>(q, k, v, out, batch, seq, n_heads, n_kv,
+      return launch_w<T, 16>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
                              window, scale, stream);
     case 32:
-      return launch_w<T, 32>(q, k, v, out, batch, seq, n_heads, n_kv,
+      return launch_w<T, 32>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
                              window, scale, stream);
     case 64:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value)
-        return wg::launch_w(q, k, v, out, batch, seq, n_heads, n_kv, window,
-                            scale, stream);
-      else
-        return launch_w<T, 64>(q, k, v, out, batch, seq, n_heads, n_kv,
-                               window, scale, stream);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        if (lse == nullptr)
+          return wg::launch_w(q, k, v, out, batch, seq, n_heads, n_kv, window,
+                              scale, stream);
+      }
+      return launch_w<T, 64>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                             window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -314,25 +323,27 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
 
 // q [B, S, H, D], k and v [B, S, KV, D]: contiguous, one dtype (0 =
 // float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64};
-// bfloat16 at D 64 (flash_kernel_wgmma) also needs q, k, v 16-byte aligned
-// and H / KV <= 64.  window > 0 limits each query to the keys
-// p - window < j <= p; 0 is global causal attention.  out [B, S, H, D] in
-// the inputs' dtype is written.  Returns the cudaError_t of the launch.
+// bfloat16 at D 64 without lse (flash_kernel_wgmma) also needs q, k, v
+// 16-byte aligned and H / KV <= 64.  window > 0 limits each query to the
+// keys p - window < j <= p; 0 is global causal attention.  out [B, S, H, D]
+// in the inputs' dtype is written, and lse [B, S, H] float32 unless it is
+// null.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int batch,
-                                      int seq, int n_heads, int n_kv,
-                                      int dim, int window, int dtype,
-                                      float scale, void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int batch, int seq, int n_heads,
+                                      int n_kv, int dim, int window,
+                                      int dtype, float scale, void* stream) {
   if (batch <= 0 || seq <= 0 || n_kv <= 0 || n_heads < n_kv ||
       n_heads % n_kv != 0 || window < 0 || batch > 65535 || n_kv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return (int)launch_d<float>(dim, q, k, v, out, batch, seq, n_heads,
-                                  n_kv, window, scale, s);
+      return (int)launch_d<float>(dim, q, k, v, out, lf, batch, seq,
+                                  n_heads, n_kv, window, scale, s);
     case 1:
-      return (int)launch_d<__nv_bfloat16>(dim, q, k, v, out, batch, seq,
+      return (int)launch_d<__nv_bfloat16>(dim, q, k, v, out, lf, batch, seq,
                                           n_heads, n_kv, window, scale, s);
     default:
       return (int)cudaErrorInvalidValue;

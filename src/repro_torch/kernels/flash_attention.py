@@ -1,41 +1,81 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``
+and ``csrc/flash_attention_bwd.cu``) and their autograd function.
 
-Replaces the Pallas kernel
-``repro.kernels.flash_attention_pallas.flash_attention``.  The plain
-version is ``kernels.ref.ref_attention``.  Like the Pallas kernel it is
-causal and forward-only (the prefill path), so the wrapper refuses
-inputs that require grad; training keeps the einsum attention, which
-autodiffs.
+The forward replaces the Pallas kernel
+``repro.kernels.flash_attention_pallas.flash_attention``; the backward
+replaces the gradient that ``jax.grad`` takes through the einsum
+attention ``repro.models.attention._sdpa`` (the Pallas kernel is
+forward-only).  The plain versions are ``kernels.ref.ref_attention``,
+``ref_attention_lse`` and ``ref_attention_backward``.
 
-Two instantiations, chosen by the C launcher from dtype and head dim
-alone (:func:`flash_impl` names the one a call takes): bfloat16 at D 64
-(every model the port serves) takes ``wgmma``, tensor cores fed by TMA
-(``flash_kernel_wgmma``); float32 at any head dim, and bfloat16 at D 8,
-16 and 32, take ``fma``, float32 FMA from shared memory
-(``flash_kernel``).
+``FlashAttentionFn`` runs the forward with its per-row logsumexp and the
+backward kernel on CUDA tensors, and the plain versions on CPU tensors,
+so the CPU tests drive the same forward/backward wiring the card runs.
+
+Two instantiations of the forward, chosen by the C launcher from dtype,
+head dim and whether the logsumexp is asked for (:func:`flash_impl`
+names the one a call takes): bfloat16 at D 64 without it (every model
+the port serves) takes ``wgmma``, tensor cores fed by TMA
+(``flash_kernel_wgmma``); float32 at any head dim, bfloat16 at D 8, 16
+and 32, and every forward that keeps the logsumexp for a backward take
+``fma``, float32 FMA from shared memory (``flash_kernel``).  The
+backward is FMA only.
 """
 from __future__ import annotations
 
 from ctypes import c_float, c_int, c_void_p
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.build import Kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64)
 _WGMMA_MAX_GROUP = 64   # query heads per kv head: one 64-row wgmma tile
 
-# q, k, v, out | B S H KV D window dtype | scale | stream
+# q, k, v, out, lse | B S H KV D window dtype | scale | stream
 KERNEL = Kernel("flash_attention",
-                [c_void_p] * 4 + [c_int] * 7 + [c_float, c_void_p])
+                [c_void_p] * 5 + [c_int] * 7 + [c_float, c_void_p])
+# q, k, v, out, dout, lse, rowdot, dq, dk, dv | B S H KV D window dtype |
+# scale | stream
+BWD_KERNEL = Kernel("flash_attention_bwd",
+                    [c_void_p] * 10 + [c_int] * 7 + [c_float, c_void_p])
 
 
-def flash_impl(dtype: torch.dtype, head_dim: int) -> str:
+def flash_impl(dtype: torch.dtype, head_dim: int, lse: bool = False) -> str:
     """The instantiation the launcher takes for these inputs:
-    ``"wgmma"`` for bfloat16 at head dim 64, ``"fma"`` otherwise."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim == 64 else "fma"
+    ``"wgmma"`` for bfloat16 at head dim 64 without the logsumexp,
+    ``"fma"`` otherwise."""
+    return ("wgmma" if dtype == torch.bfloat16 and head_dim == 64
+            and not lse else "fma")
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int], more: Tuple[torch.Tensor, ...] = ()
+           ) -> None:
+    """Device, layout, dtype and shape checks shared by both kernels;
+    ``more`` are tensors of q's shape and dtype (out, d_out)."""
+    tensors = (q, k, v) + more
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{name}: q, k, v must share float32 or bfloat16, "
+                        f"got {[t.dtype for t in tensors]}")
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, S, H, D], got {q.shape}")
+    b, s, h, d = q.shape
+    kv = k.shape[2] if k.dim() == 4 else 0
+    if (k.shape != (b, s, kv, d) or v.shape != k.shape or kv < 1
+            or h % kv or min(b, s) < 1 or d not in _HEAD_DIMS
+            or any(t.shape != q.shape for t in more)):
+        raise ValueError(f"{name}: bad shapes "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1 or None, got {window}")
 
 
 def flash_attention_cuda(
@@ -44,46 +84,94 @@ def flash_attention_cuda(
     v: torch.Tensor,               # [B, S, KV, D]
     *,
     window: Optional[int] = None,  # None = global
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Causal attention of every position over its prefix (and within
     ``window`` of it), ``[B, S, H, D]`` in q's dtype, from inputs of one
     dtype (float32 or bfloat16), contiguous, on one CUDA device; H a
-    multiple of KV and D in {8, 16, 32, 64}.  The instantiation is
-    ``flash_impl(q.dtype, D)``; ``wgmma`` also needs H / KV <= 64 and
-    16-byte aligned inputs."""
+    multiple of KV and D in {8, 16, 32, 64}.  ``return_lse`` also
+    returns each row's float32 logsumexp ``[B, S, H]`` (what the
+    backward needs): ``(out, lse)``.  The instantiation is
+    ``flash_impl(q.dtype, D, return_lse)``; ``wgmma`` also needs
+    H / KV <= 64 and 16-byte aligned inputs."""
     name = KERNEL.name
-    tensors = (q, k, v)
-    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: every tensor must be on one CUDA device")
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name}: the kernel has no backward; pass inputs "
-                         "that do not require grad")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: tensors must be contiguous")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q, k, v must share float32 or bfloat16, "
-                        f"got {[t.dtype for t in tensors]}")
-    if q.dim() != 4:
-        raise ValueError(f"{name}: q must be [B, S, H, D], got {q.shape}")
+    _check(name, q, k, v, window)
     b, s, h, d = q.shape
-    kv = k.shape[2] if k.dim() == 4 else 0
-    if (k.shape != (b, s, kv, d) or v.shape != k.shape or kv < 1
-            or h % kv or min(b, s) < 1 or d not in _HEAD_DIMS):
-        raise ValueError(f"{name}: bad shapes "
-                         f"{[tuple(t.shape) for t in tensors]}")
-    if window is not None and window < 1:
-        raise ValueError(f"{name}: window must be >= 1 or None, got {window}")
-    if flash_impl(q.dtype, d) == "wgmma":
+    kv = k.shape[2]
+    if flash_impl(q.dtype, d, return_lse) == "wgmma":
         if h // kv > _WGMMA_MAX_GROUP:
             raise ValueError(f"{name}: bfloat16 at D 64 takes at most "
                              f"{_WGMMA_MAX_GROUP} query heads per kv head, "
                              f"got {h // kv}")
-        if any(t.data_ptr() % 16 for t in tensors):
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError(f"{name}: the wgmma path's TMA needs q, k, v "
                              "16-byte aligned")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, s, h, kv, d,
-                  0 if window is None else int(window), _DTYPES[q.dtype],
-                  d ** -0.5)
-    return out
+                  out.data_ptr(), None if lse is None else lse.data_ptr(),
+                  b, s, h, kv, d, 0 if window is None else int(window),
+                  _DTYPES[q.dtype], d ** -0.5)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, d_out: torch.Tensor, *,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_cuda` at ``d_out``, from
+    the forward's inputs, output and logsumexp ``lse`` [B, S, H] float32;
+    each in the inputs' dtype and shape.  The inputs as the forward takes
+    them; out and d_out of q's shape and dtype, contiguous."""
+    name = BWD_KERNEL.name
+    _check(name, q, k, v, window, (out, d_out))
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, s, h) or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be float32 [B, S, H] on q's "
+                         f"device, got {lse.dtype} {tuple(lse.shape)}")
+    rowdot = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    BWD_KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
+                      rowdot.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), b, s, h, kv, d,
+                      0 if window is None else int(window),
+                      _DTYPES[q.dtype], d ** -0.5)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal (windowed) GQA attention of ``q`` [B, S, H, D] over ``k``,
+    ``v`` [B, S, KV, D] with its gradient: on CUDA tensors the forward
+    kernel (keeping each row's logsumexp) and the backward kernel, on
+    CPU tensors ``ref_attention_lse`` and ``ref_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        ctx.set_materialize_grads(False)
+        if q.device.type == "cuda":
+            out, lse = flash_attention_cuda(q, k, v, window=window,
+                                            return_lse=True)
+        else:
+            out, lse = ref.ref_attention_lse(q, k, v, window=window)
+        ctx.window = window
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        if d_out is None:
+            return None, None, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            grads = flash_attention_bwd_cuda(
+                q, k, v, out, lse, d_out.to(q.dtype).contiguous(),
+                window=ctx.window)
+        else:
+            grads = ref.ref_attention_backward(q, k, v, out, lse, d_out,
+                                               window=ctx.window)
+        return (*grads, None)

@@ -2,9 +2,11 @@
 
 The JAX signatures are kept, minus ``mode`` and ``mesh``: the kernel is
 chosen by the tensor's device.  A CPU tensor takes the plain PyTorch
-version (``kernels.ref``); a CUDA tensor takes the hand-written CUDA
-kernel, or the call raises.  Nothing routes a CUDA tensor to the plain
-path.
+version (``kernels.ref``), which autograd differentiates; a CUDA tensor
+takes the hand-written CUDA kernel, or the call raises, and where a
+gradient is needed (``attention``, ``ssm_scan``, ``logprobs_from_logits``)
+its autograd function, whose backward is a hand-written kernel too.
+Nothing routes a CUDA tensor to the plain path.
 
 ``paged_kv_write`` updates the pools in place (JAX returns new, donated
 pools) and returns the same tensors, so callers may keep either form.
@@ -16,13 +18,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.logprobs import LogprobsFn
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.paged_attention_varlen import (
     MULTI, paged_attention_varlen_cuda)
 from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
-from repro_torch.kernels.ssm_scan import bc_row_stride, ssm_scan_cuda
+from repro_torch.kernels.ssm_scan import (SSMScanFn, bc_row_stride,
+                                          ssm_scan_cuda)
 from repro_torch.kernels.vtrace import vtrace_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
 
@@ -35,6 +39,11 @@ def _route(t: torch.Tensor) -> str:
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -161,30 +170,42 @@ def attention(q, k, v, *, window: Optional[int] = None,
               causal: bool = True):
     """Attention of every position of ``q`` [B, S, H, D] over the same
     sequence of ``k``, ``v`` [B, S, KV, D] (causal, within ``window``
-    when given): ``[B, S, H, D]`` in q's dtype.  On the card the kernel
-    is causal only (``causal=False`` raises: no path of the port asks
-    for it) and has no gradient (inputs that require grad raise); every
-    input is made contiguous."""
+    when given): ``[B, S, H, D]`` in q's dtype, at any S.  On the CPU,
+    causal attention above ``ref.CHUNKED_ATTN_THRESHOLD`` rows is the
+    q-chunked ``ref.ref_attention_chunked`` (JAX's ``_sdpa_chunked``),
+    else the einsum.  On the card the kernel streams keys, so it takes
+    any S; it is causal only (``causal=False`` raises: no path of the
+    port asks for it); every input is made contiguous, and inputs that
+    need a gradient go through ``FlashAttentionFn`` (the forward keeps
+    each row's logsumexp, the backward is ``flash_attention_bwd``)."""
     if _route(q) == "cpu":
+        if causal and q.shape[1] > ref.CHUNKED_ATTN_THRESHOLD:
+            return ref.ref_attention_chunked(q, k, v, window=window)
         return ref.ref_attention(q, k, v, causal=causal, window=window)
     if not causal:
         raise ValueError("flash_attention: the kernel is causal only")
-    return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                v.contiguous(), window=window)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, window)
+    return flash_attention_cuda(q, k, v, window=window)
 
 
 def ssm_scan(u, dt, b_t, c_t, a, h0=None):
     """The selective scan over ``[B, S, I]`` channels with an ``[I, N]``
     diagonal ``a``: ``(y [B, S, I]`` in u's dtype, ``h_final [B, I, N]``
-    float32)``; ``h0=None`` starts from zeros.  No gradient on the card
-    (the kernel raises on inputs that require grad).  On the card ``u``,
+    float32)``; ``h0=None`` starts from zeros.  On the card ``u``,
     ``dt``, ``a`` and ``h0`` are made contiguous, ``a`` and ``h0``
     float32; ``b_t`` and ``c_t`` are read in place when they are column
-    slices of one contiguous tensor (the model's), else made contiguous."""
+    slices of one contiguous tensor (the model's), else made contiguous.
+    Inputs that need a gradient go through ``SSMScanFn`` (the backward
+    is ``ssm_scan_bwd``)."""
     if _route(u) == "cpu":
         return ref.ref_ssm_scan(u, dt, b_t, c_t, a, h0)
     b_t, c_t = (t if bc_row_stride(t) is not None else t.contiguous()
                 for t in (b_t, c_t))
-    return ssm_scan_cuda(
-        u.contiguous(), dt.contiguous(), b_t, c_t, a.float().contiguous(),
-        None if h0 is None else h0.float().contiguous())
+    args = (u.contiguous(), dt.contiguous(), b_t, c_t,
+            a.float().contiguous(),
+            None if h0 is None else h0.float().contiguous())
+    if _needs_grad(*args):
+        return SSMScanFn.apply(*args)
+    return ssm_scan_cuda(*args)

@@ -479,6 +479,118 @@ def ref_attention(
     return masked_attention(q, k, v, mask[None, None])
 
 
+def _band(s: int, window: Optional[int], device) -> torch.Tensor:
+    """The causal (and windowed) ``[S, S]`` mask, True = attend."""
+    qi = torch.arange(s, device=device)[:, None]
+    ki = torch.arange(s, device=device)[None, :]
+    mask = qi >= ki
+    if window is not None:
+        mask = mask & ((qi - ki) < window)
+    return mask
+
+
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor, window: Optional[int]
+                    ) -> torch.Tensor:
+    """float32 scores ``(q * D^-0.5) . k`` ``[B, KV, G, S, S]`` of the
+    causal band, -1e30 outside it (the kernel scales q in float32)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, d) * d ** -0.5
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    return torch.where(_band(s, window, q.device), scores,
+                       torch.full_like(scores, NEG_INF))
+
+
+def ref_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: Optional[int] = None):
+    """:func:`ref_attention` and the float32 logsumexp of each row's
+    scores, ``[B, S, H]`` (the forward's saved statistic for the
+    backward).  Returns ``(out [B, S, H, D]`` in q's dtype, ``lse)``."""
+    b, s, h, _ = q.shape
+    scores = _grouped_scores(q, k, window)
+    lse = torch.logsumexp(scores, dim=-1)                   # [B, KV, G, S]
+    out = ref_attention(q, k, v, window=window)
+    return out, lse.permute(0, 3, 1, 2).reshape(b, s, h)
+
+
+def ref_attention_backward(
+    q: torch.Tensor,       # [B, S, H, D]
+    k: torch.Tensor,       # [B, S, KV, D]
+    v: torch.Tensor,       # [B, S, KV, D]
+    out: torch.Tensor,     # [B, S, H, D] the forward's output
+    lse: torch.Tensor,     # [B, S, H] float32 logsumexp of each row
+    d_out: torch.Tensor,   # [B, S, H, D] gradient of out
+    *,
+    window: Optional[int] = None,
+):
+    """Gradient of causal (windowed) GQA attention in the FlashAttention-2
+    algebra the card's backward kernel computes: ``D = rowsum(dO * O)``,
+    ``P = exp(s - lse)`` recomputed from the saved logsumexp,
+    ``dS = P * (dO V^T - D)``, ``dQ = D^-0.5 dS K``, ``dK = D^-0.5 dS^T Q``
+    and ``dV = P^T dO``, dK and dV summed over each kv head's query
+    group; float32 throughout.  Returns ``(dq, dk, dv)`` in the inputs'
+    dtype."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = d ** -0.5
+    scores = _grouped_scores(q, k, window)                  # [B,KV,G,Sq,Sk]
+    lse_g = lse.float().reshape(b, s, kv, g).permute(0, 2, 3, 1)
+    p = torch.exp(scores - lse_g[..., None])
+    p = torch.where(_band(s, window, q.device), p, torch.zeros_like(p))
+    do = d_out.float().reshape(b, s, kv, g, d)
+    dvec = (do * out.float().reshape(b, s, kv, g, d)).sum(-1)  # [B,S,KV,G]
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = p * (dp - dvec.permute(0, 2, 3, 1)[..., None])
+    qg = q.float().reshape(b, s, kv, g, d)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+# Above this many query rows the CPU's plain attention is q-chunked, in
+# chunks of CHUNK_Q rows (``repro.models.attention``'s constants).
+CHUNKED_ATTN_THRESHOLD = 2048
+CHUNK_Q = 512
+
+
+def ref_attention_chunked(
+    q: torch.Tensor,   # [B, S, H, D]
+    k: torch.Tensor,   # [B, S, KV, D]
+    v: torch.Tensor,   # [B, S, KV, D]
+    *,
+    window: Optional[int] = None,
+    chunk: int = CHUNK_Q,
+) -> torch.Tensor:
+    """:func:`ref_attention` a chunk of ``chunk`` query rows at a time
+    against every key (``repro.models.attention._sdpa_chunked``): peak
+    score memory ``O(chunk * S)``.  Under autograd each chunk is
+    checkpointed, so the backward recomputes its scores instead of
+    keeping them, as ``jax.checkpoint`` does there."""
+    from torch.utils.checkpoint import checkpoint
+
+    s = q.shape[1]
+    pos = torch.arange(s, device=q.device)
+
+    def one_chunk(q_i, k_all, v_all, t0):
+        qi = pos[t0:t0 + q_i.shape[1], None]
+        mask = qi >= pos[None, :]
+        if window is not None:
+            mask = mask & ((qi - pos[None, :]) < window)
+        return masked_attention(q_i, k_all, v_all, mask[None, None])
+
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for t0 in range(0, s, chunk):
+        q_i = q[:, t0:t0 + chunk]
+        outs.append(checkpoint(one_chunk, q_i, k, v, t0, use_reentrant=False)
+                    if grad else one_chunk(q_i, k, v, t0))
+    return torch.cat(outs, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Selective-SSM (Mamba/S6) scan: hymba's SSM branch
 # ---------------------------------------------------------------------------
@@ -547,3 +659,78 @@ def ref_ssm_scan_chunked(
                             c_t[:, span], a, start)
         ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+# Steps a chunk of the SSM backward keeps in registers
+# (``csrc/ssm_scan_bwd.cu``: kChunk).
+SSM_BWD_CHUNK = 16
+
+
+def ref_ssm_scan_backward(
+    u: torch.Tensor,                       # [B, S, I]
+    dt: torch.Tensor,                      # [B, S, I]
+    b_t: torch.Tensor,                     # [B, S, N]
+    c_t: torch.Tensor,                     # [B, S, N]
+    a: torch.Tensor,                       # [I, N]
+    h0: Optional[torch.Tensor],            # [B, I, N] or None (zeros)
+    y_grad: torch.Tensor,                  # [B, S, I]
+    h_final_grad: Optional[torch.Tensor],  # [B, I, N] or None (zeros)
+    *,
+    chunk: int = SSM_BWD_CHUNK,
+):
+    """Gradient of :func:`ref_ssm_scan` by an explicit reverse scan, in
+    the algebra the card's backward kernel uses.  A forward walk keeps
+    the state at the start of every ``chunk`` steps; the chunks are then
+    taken last to first, each chunk's states recomputed from its start
+    and walked in reverse.  With ``e_t = exp(dt_t a)``, ``h_t`` the state
+    after step t and ``g_t`` the gradient reaching it:
+    ``g_t = c_t dy_t + e_{t+1} g_{t+1}`` (``g_{S-1}`` also takes
+    ``h_final_grad``), ``dc_t = sum_i dy_t h_t``,
+    ``db_t = sum_i g_t dt_t u_t``, ``du_t = dt_t sum_n g_t b_t``,
+    ``ddt_t = sum_n g_t (a e_t h_{t-1} + b_t u_t)``,
+    ``da = sum_{b,t} g_t dt_t e_t h_{t-1}`` and ``dh0 = e_0 g_0``, all in
+    float32.  Returns ``(du, ddt, db, dc)`` in their inputs' dtypes and
+    ``(da, dh0)`` float32."""
+    bsz, s, inner = u.shape
+    n = a.shape[1]
+    u32, dt32, b32, c32, dy32 = (x.float() for x in (u, dt, b_t, c_t,
+                                                    y_grad))
+    a32 = a.float()[None]
+    zeros = torch.zeros((bsz, inner, n), dtype=torch.float32,
+                        device=u.device)
+    h = zeros if h0 is None else h0.float()
+    spans = [(t0, min(t0 + chunk, s)) for t0 in range(0, s, chunk)]
+    starts = []
+    for t0, t1 in spans:
+        starts.append(h)
+        for t in range(t0, t1):
+            h = (torch.exp(dt32[:, t, :, None] * a32) * h
+                 + dt32[:, t, :, None] * u32[:, t, :, None]
+                 * b32[:, t, None, :])
+    du, ddt = torch.empty_like(u32), torch.empty_like(dt32)
+    db, dc = torch.empty_like(b32), torch.empty_like(c32)
+    da = torch.zeros_like(a32[0])
+    carry = zeros if h_final_grad is None else h_final_grad.float()
+    for (t0, t1), start in zip(reversed(spans), reversed(starts)):
+        hs, es, hh = [], [], start
+        for t in range(t0, t1):
+            e = torch.exp(dt32[:, t, :, None] * a32)
+            hh = e * hh + (dt32[:, t, :, None] * u32[:, t, :, None]
+                           * b32[:, t, None, :])
+            hs.append(hh)
+            es.append(e)
+        for j in reversed(range(t1 - t0)):
+            t = t0 + j
+            d_t, u_t, b_n = dt32[:, t], u32[:, t], b32[:, t]
+            h_prev = hs[j - 1] if j > 0 else start
+            g = c32[:, t, None, :] * dy32[:, t, :, None] + carry
+            dc[:, t] = torch.einsum("bi,bin->bn", dy32[:, t], hs[j])
+            db[:, t] = torch.einsum("bin,bi->bn", g, d_t * u_t)
+            du[:, t] = d_t * torch.einsum("bin,bn->bi", g, b_n)
+            ddt[:, t] = torch.einsum(
+                "bin,bin->bi", g, a32 * es[j] * h_prev
+                + b_n[:, None, :] * u_t[:, :, None])
+            da += torch.einsum("bin,bi->in", g * es[j] * h_prev, d_t)
+            carry = es[j] * g
+    return (du.to(u.dtype), ddt.to(dt.dtype), db.to(b_t.dtype),
+            dc.to(c_t.dtype), da, carry)

@@ -1,9 +1,16 @@
-"""Wrapper of the CUDA selective-scan kernel (``csrc/ssm_scan.cu``).
+"""Wrappers of the CUDA selective-scan kernels (``csrc/ssm_scan.cu`` and
+``csrc/ssm_scan_bwd.cu``) and their autograd function.
 
-Replaces the Pallas kernel ``repro.kernels.ssm_scan_pallas.ssm_scan_pallas``.
-The plain version is ``kernels.ref.ref_ssm_scan``.  The kernel has no
-backward yet (serving needs none), so the wrapper refuses inputs that
-require grad.
+The forward replaces the Pallas kernel
+``repro.kernels.ssm_scan_pallas.ssm_scan_pallas``; the backward replaces
+the gradient that ``jax.grad`` takes through ``repro.models.ssm._ssm_scan``
+(the Pallas kernel is forward-only).  The plain versions are
+``kernels.ref.ref_ssm_scan`` and ``ref_ssm_scan_backward``.
+``SSMScanFn`` runs the kernels on CUDA tensors and the plain versions on
+CPU tensors, so the CPU tests drive the same forward/backward wiring the
+card runs.  The backward recomputes the states from the inputs, so a
+forward that will be differentiated saves nothing more than its inputs
+and costs what a no-grad forward costs.
 
 Two instantiations (:func:`ssm_impl` picks one and names it): ``serial``,
 a thread per channel walking every step, for short sequences (a decode
@@ -22,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.build import Kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +51,13 @@ CHUNK_STEPS = (32, 64)
 # u, dt, b_t, c_t, a, h0, y, h_final, scratch | B S I N ld_b ld_c chunk
 # dtype | stream
 KERNEL = Kernel("ssm_scan", [c_void_p] * 9 + [c_int] * 8 + [c_void_p])
+# u, dt, b_t, c_t, a, h0, dy, dhf, du, ddt, db, dc, da, dh0, scratch | B S
+# I N ld_b ld_c dtype | stream
+BWD_KERNEL = Kernel("ssm_scan_bwd", [c_void_p] * 15 + [c_int] * 7
+                    + [c_void_p])
+# The backward kernel's thread block covers 32 channels, and a thread keeps
+# the states of 16 steps (csrc/ssm_scan_bwd.cu: kChannels, kChunk).
+BWD_CHANNELS, BWD_CHUNK = 32, ref.SSM_BWD_CHUNK
 
 
 def ssm_impl(batch: int, steps: int, inner: int) -> str:
@@ -97,12 +112,35 @@ def ssm_scan_cuda(
     ``impl`` forces an instantiation (``"serial"`` or ``"chunked"``);
     None takes :func:`ssm_impl`'s."""
     name = KERNEL.name
+    ld_b, ld_c = _check(name, u, dt, b_t, c_t, a, h0)
+    bsz, s, inner = u.shape
+    n = a.shape[-1]
+    impl = ssm_impl(bsz, s, inner) if impl is None else impl
+    if impl not in ("serial", "chunked"):
+        raise ValueError(f"{name}: impl is 'serial' or 'chunked', got {impl}")
+    chunk = chunk_steps(bsz, s, inner) if impl == "chunked" else 0
+    carried = -(-s // chunk) - 1 if chunk else 0
+    scratch = torch.empty(bsz * carried * inner * (n + 1),
+                          dtype=torch.float32, device=u.device) \
+        if carried else None
+    y = torch.empty_like(u)
+    h_final = torch.empty((bsz, inner, n), dtype=torch.float32,
+                          device=u.device)
+    KERNEL.launch(u.device, u.data_ptr(), dt.data_ptr(), b_t.data_ptr(),
+                  c_t.data_ptr(), a.data_ptr(),
+                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
+                  h_final.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), bsz, s,
+                  inner, n, ld_b, ld_c, chunk, _DTYPES[u.dtype])
+    return y, h_final
+
+
+def _check(name, u, dt, b_t, c_t, a, h0) -> Tuple[int, int]:
+    """Device, layout, dtype and shape checks shared by both kernels;
+    returns b_t's and c_t's row strides."""
     tensors = (u, dt, b_t, c_t, a) + (() if h0 is None else (h0,))
     if any(t.device.type != "cuda" or t.device != u.device for t in tensors):
         raise ValueError(f"{name}: every tensor must be on one CUDA device")
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name}: the kernel has no backward; pass inputs "
-                         "that do not require grad")
     ld_b, ld_c = bc_row_stride(b_t), bc_row_stride(c_t)
     if any(not t.is_contiguous() for t in (u, dt, a)) or (
             h0 is not None and not h0.is_contiguous()) or None in (ld_b,
@@ -126,21 +164,86 @@ def ssm_scan_cuda(
             or min(bsz, s, inner) < 1 or not 1 <= n <= MAX_STATE):
         raise ValueError(f"{name}: bad shapes "
                          f"{[tuple(t.shape) for t in tensors]}")
-    impl = ssm_impl(bsz, s, inner) if impl is None else impl
-    if impl not in ("serial", "chunked"):
-        raise ValueError(f"{name}: impl is 'serial' or 'chunked', got {impl}")
-    chunk = chunk_steps(bsz, s, inner) if impl == "chunked" else 0
-    carried = -(-s // chunk) - 1 if chunk else 0
-    scratch = torch.empty(bsz * carried * inner * (n + 1),
-                          dtype=torch.float32, device=u.device) \
-        if carried else None
-    y = torch.empty_like(u)
-    h_final = torch.empty((bsz, inner, n), dtype=torch.float32,
-                          device=u.device)
-    KERNEL.launch(u.device, u.data_ptr(), dt.data_ptr(), b_t.data_ptr(),
-                  c_t.data_ptr(), a.data_ptr(),
-                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                  h_final.data_ptr(),
-                  None if scratch is None else scratch.data_ptr(), bsz, s,
-                  inner, n, ld_b, ld_c, chunk, _DTYPES[u.dtype])
-    return y, h_final
+    return ld_b, ld_c
+
+
+def bwd_scratch_floats(batch: int, steps: int, inner: int, n: int) -> int:
+    """float32 scratch of the backward kernel: the per-block partials of
+    db and dc, the per-row partial of da, and the chunk-start states."""
+    tiles = -(-inner // BWD_CHANNELS)
+    return (2 * tiles * batch * steps * n + batch * inner * n
+            + batch * (-(-steps // BWD_CHUNK) - 1) * inner * n)
+
+
+def ssm_scan_bwd_cuda(
+    u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
+    a: torch.Tensor, h0: Optional[torch.Tensor], y_grad: torch.Tensor,
+    h_final_grad: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, ...]:
+    """``(du, ddt, db, dc, da, dh0)`` of :func:`ssm_scan_cuda` at the
+    gradients ``y_grad`` [B, S, I] (u's dtype, contiguous) and
+    ``h_final_grad`` [B, I, N] float32 (None: zeros).  The inputs as the
+    forward takes them (b_t and c_t may be column slices); du, ddt, db,
+    dc contiguous in u's dtype, da [I, N] float32, and dh0 [B, I, N]
+    float32 (None when ``h0`` is None)."""
+    name = BWD_KERNEL.name
+    ld_b, ld_c = _check(name, u, dt, b_t, c_t, a, h0)
+    bsz, s, inner = u.shape
+    n = a.shape[-1]
+    if (y_grad.device != u.device or y_grad.dtype != u.dtype
+            or y_grad.shape != u.shape or not y_grad.is_contiguous()):
+        raise ValueError(f"{name}: y_grad must match u, got {y_grad.dtype} "
+                         f"{tuple(y_grad.shape)}")
+    if h_final_grad is not None and (
+            h_final_grad.device != u.device
+            or h_final_grad.dtype != torch.float32
+            or h_final_grad.shape != (bsz, inner, n)
+            or not h_final_grad.is_contiguous()):
+        raise ValueError(f"{name}: h_final_grad must be float32 [B, I, N]")
+    du, ddt = torch.empty_like(u), torch.empty_like(dt)
+    db, dc = (torch.empty((bsz, s, n), dtype=u.dtype, device=u.device)
+              for _ in range(2))
+    da = torch.empty((inner, n), dtype=torch.float32, device=u.device)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    scratch = torch.empty(bwd_scratch_floats(bsz, s, inner, n),
+                          dtype=torch.float32, device=u.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    BWD_KERNEL.launch(u.device, u.data_ptr(), dt.data_ptr(), b_t.data_ptr(),
+                      c_t.data_ptr(), a.data_ptr(), ptr(h0),
+                      y_grad.data_ptr(), ptr(h_final_grad), du.data_ptr(),
+                      ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                      da.data_ptr(), ptr(dh0), scratch.data_ptr(), bsz, s,
+                      inner, n, ld_b, ld_c, _DTYPES[u.dtype])
+    return du, ddt, db, dc, da, dh0
+
+
+class SSMScanFn(torch.autograd.Function):
+    """The selective scan ``(y, h_final)`` with its gradient w.r.t. u,
+    dt, b_t, c_t, a and h0: on CUDA tensors the forward kernel (the
+    instantiation :func:`ssm_impl` picks) and the backward kernel, on CPU
+    tensors ``ref_ssm_scan`` and ``ref_ssm_scan_backward``.  An output
+    the loss does not use reaches ``backward`` as None."""
+
+    @staticmethod
+    def forward(ctx, u, dt, b_t, c_t, a, h0):
+        ctx.set_materialize_grads(False)
+        if u.device.type == "cuda":
+            y, h_final = ssm_scan_cuda(u, dt, b_t, c_t, a, h0)
+        else:
+            y, h_final = ref.ref_ssm_scan(u, dt, b_t, c_t, a, h0)
+        ctx.save_for_backward(u, dt, b_t, c_t, a, h0)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, gy, ghf):
+        if gy is None and ghf is None:
+            return (None,) * 6
+        u, dt, b_t, c_t, a, h0 = ctx.saved_tensors
+        gy = (torch.zeros_like(u) if gy is None
+              else gy.to(u.dtype).contiguous())
+        ghf = None if ghf is None else ghf.float().contiguous()
+        if u.device.type == "cuda":
+            return ssm_scan_bwd_cuda(u, dt, b_t, c_t, a, h0, gy, ghf)
+        grads = ref.ref_ssm_scan_backward(u, dt, b_t, c_t, a, h0, gy, ghf,
+                                          chunk=BWD_CHUNK)
+        return grads[:5] + ((None if h0 is None else grads[5]),)

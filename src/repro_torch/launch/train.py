@@ -38,8 +38,13 @@ all five envs under the ``backward_mixture``, ``forward_n`` and
 (``ForwardLagGenerator``) or the serve engine (``--producer serve``,
 ``--forced-lag``, ``--request-deadline``) under ``forward_n`` or
 ``threaded``; ``--full-width`` trains
-``get_config("qwen2.5-0.5b")`` (24 layers, vocab 151936) instead of
-``reduced_config``.  Weights are a random init from ``--seed``.  Both
+``get_config(--arch)`` (qwen2.5-0.5b: 24 layers, vocab 151936) instead
+of ``reduced_config``.  ``--arch hymba-1.5b`` (hybrid attention+SSM:
+32 layers, d 1600) trains through the legacy producer; on the card its
+attention and SSM recurrence run forward and backward kernels
+(``flash_attention``/``flash_attention_bwd``, ``ssm_scan``/
+``ssm_scan_bwd``), and ``--producer serve`` refuses it with the
+reference engine's reason (hybrid archs carry unpaged state).  Weights are a random init from ``--seed``.  Both
 take every controller of ``runtime.controllers`` (``rl`` builds the
 queue's; the learner hooks of ``gac``, ``stable_async`` and ``asympo``
 run in ``rlvr``).  ``rlvr`` takes the resilience flags
@@ -50,14 +55,14 @@ trained params under ``--checkpoint-dir``; as in the JAX launcher,
 ``--metrics-out`` writes nothing for ``rl``.  SIGINT/SIGTERM stop the
 producer and flush the trace and metrics before exiting.
 
-Not ported yet (each exits with a message): training attention-free
-archs (``--arch rwkv6-1.6b``: the ``wkv6`` kernel has no backward yet)
-and hybrid ones (``--arch hymba-1.5b``: nor has ``ssm_scan``).
+Not ported yet (exits with a message): training attention-free archs
+(``--arch rwkv6-1.6b``: the ``wkv6`` kernel has no backward yet).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 from typing import Any, List, Optional
@@ -199,14 +204,14 @@ def _refuse_unported(args) -> None:
             "(rwkv) arch needs a backward of the wkv6 kernel, which is "
             "not ported yet; the port serves it (repro_torch.launch."
             "serve --engine static), repro.launch.train trains it")
-    if cfg.hybrid_attn_ssm:
-        raise SystemExit(
-            f"train rlvr --arch {args.arch}: training a hybrid "
-            "attention+SSM arch needs a backward of the ssm_scan kernel "
-            "(and of flash_attention for the attention to leave the "
-            "einsum), which are not ported yet; the port serves it "
-            "(repro_torch.launch.serve --engine static), "
-            "repro.launch.train trains it")
+    if args.producer == "serve":
+        from repro_torch.models.transformer import paged_arch_unsupported
+
+        reason = paged_arch_unsupported(cfg)
+        if cfg.hybrid_attn_ssm and reason is not None:
+            # The engine (both packages') refuses it: the same words.
+            raise SystemExit(f"train rlvr --arch {args.arch} --producer "
+                             f"serve: {cfg.name}: {reason}")
 
 
 def run_rl(args, tracer: Any = None):
@@ -312,6 +317,11 @@ def save_params(args, trainer) -> Optional[str]:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    # Full-width hymba training holds ~71 GiB of an 80 GB card at its
+    # AdamW step; expandable segments keep the caching allocator's split
+    # blocks from stranding the rest.  Read when CUDA starts.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
 

@@ -1,18 +1,21 @@
 """Grouped-query attention with RoPE, sliding windows and dense KV-cache
 decode (port of ``repro.models.attention``).
 
-The full-sequence forward (``attn_forward``) picks its attention by
-need: when q, k and v need no gradient (generation's prefill, no-grad
-scoring) it goes through ``kernels.ops.attention``, the flash-attention
-kernel on the card (the Pallas kernel's "serve/prefill path"); when a
-gradient is needed (the learner) the einsum ``kernels.ref.ref_attention``
-stays, as JAX trains through the XLA reference.  Both compute the same
-function.  The one-token ``attn_decode`` stays einsum over the dense
-cache (``kernels.ref.masked_attention``): JAX has no kernel there.  A
-window is a static ``Optional[int]`` per layer (None = global), where
-JAX traces a per-layer float (``jnp.inf`` = global).  The q-chunked
-path the JAX package takes above ``CHUNKED_ATTN_THRESHOLD`` query rows
-is not ported yet: longer sequences raise.
+The full-sequence forward (``attn_forward``) goes through
+``kernels.ops.attention`` on every device and at every length.  On the
+card that is the flash-attention kernel, with or without a gradient: a
+learner's forward keeps each row's logsumexp and its backward is the
+``flash_attention_bwd`` kernel (``kernels.flash_attention.
+FlashAttentionFn``); the kernel streams keys, so it takes any S.  On the
+CPU it is the einsum ``kernels.ref.ref_attention``, which autograd
+differentiates, as JAX trains through its XLA reference; above
+``ref.CHUNKED_ATTN_THRESHOLD`` query rows ``ops.attention`` takes the
+q-chunked ``ref.ref_attention_chunked`` there (JAX's ``_sdpa_chunked``:
+chunks of ``ref.CHUNK_Q`` rows, each recomputed in the backward).  All
+compute the same function.  The one-token ``attn_decode`` stays einsum over the
+dense cache (``kernels.ref.masked_attention``): JAX has no kernel there.
+A window is a static ``Optional[int]`` per layer (None = global), where
+JAX traces a per-layer float (``jnp.inf`` = global).
 """
 from __future__ import annotations
 
@@ -23,8 +26,6 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models.layers import apply_rope, dense_apply, dense_init
-
-CHUNKED_ATTN_THRESHOLD = 2048
 
 
 def attn_init(gen: torch.Generator, d_model: int, n_heads: int,
@@ -79,21 +80,14 @@ def attn_forward(
     """Full-sequence causal attention (train / prefill) over the
     positions ``0 .. S-1`` that ``positions`` holds in every row.
     Returns ``(out [B, S, D], (k, v) [B, S, KV, Dh])``, k after RoPE.
-    Without a gradient the attention runs through ``kops.attention``
-    (the kernel on the card), with one through the einsum
-    ``ref.ref_attention``."""
-    if x.shape[1] > CHUNKED_ATTN_THRESHOLD:
-        raise NotImplementedError(
-            f"sequences over {CHUNKED_ATTN_THRESHOLD} tokens take the "
-            "q-chunked attention, which is not ported yet")
+    The attention is ``kops.attention`` (the kernel pair on the card,
+    the plain attention on the CPU)."""
     q = _split_heads(dense_apply(p["wq"], x), n_heads)
     k = _split_heads(dense_apply(p["wk"], x), n_kv_heads)
     v = _split_heads(dense_apply(p["wv"], x), n_kv_heads)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    needs_grad = q.requires_grad or k.requires_grad or v.requires_grad
-    attend = ref.ref_attention if needs_grad else kops.attention
-    out = attend(q, k, v, window=window).flatten(2)
+    out = kops.attention(q, k, v, window=window).flatten(2)
     return dense_apply(p["wo"], out), (k, v)
 
 

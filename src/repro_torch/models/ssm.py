@@ -11,9 +11,11 @@ in decode: O(1) per token.
 
 The recurrence runs through ``kernels.ops.ssm_scan`` and nothing else,
 so the tensors' device picks the route: the plain loop ``ref_ssm_scan``
-on the CPU (the scan the JAX block runs), the hand-written CUDA kernel on
-the card, at prefill and at every decode step.  The D skip and the
-``silu(z)`` gate stay here, as in JAX.
+on the CPU (the scan the JAX block runs; autograd differentiates it),
+the hand-written CUDA kernel on the card, at prefill, at every decode
+step and in training, where its backward is the ``ssm_scan_bwd`` kernel
+(``kernels.ssm_scan.SSMScanFn``).  The D skip and the ``silu(z)`` gate
+stay here, as in JAX.
 """
 from __future__ import annotations
 

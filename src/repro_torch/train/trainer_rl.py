@@ -39,7 +39,7 @@ from repro_torch.core.vtrace import VTraceOutput, vtrace_impala_pg_advantage
 from repro_torch.kernels import ops as kops
 from repro_torch.models.mlp_policy import policy_dist, value_fn
 from repro_torch.optim import (AdamWConfig, AdamWState, adamw_init,
-                               adamw_update, clip_by_global_norm,
+                               adamw_update, global_norm_clip_scale,
                                linear_anneal)
 from repro_torch.rollout.env_rollout import Draws, RolloutBatch
 from repro_torch.utils.tree import tree_grads, tree_trainable
@@ -234,9 +234,10 @@ def make_train_phase(hp: RLHyperparams) -> TrainPhase:
             with torch.enable_grad():
                 loss, aux = minibatch_loss(trainable, mb, batch)
                 grads = tree_grads(loss, trainable)
-            grads, gnorm = clip_by_global_norm(grads, hp.max_grad_norm)
+            scale, gnorm = global_norm_clip_scale(grads, hp.max_grad_norm)
             params, opt_state = adamw_update(grads, opt_state, params,
-                                             opt_cfg, lr_scale)
+                                             opt_cfg, lr_scale,
+                                             grad_scale=scale)
             aux = {k: v.detach() for k, v in aux.items()}
             aux["grad_norm"] = gnorm
             auxs.append(aux)

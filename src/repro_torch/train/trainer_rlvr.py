@@ -58,7 +58,7 @@ from repro_torch.metrics.runtime_metrics import collect_runtime_stats
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.optim import (AdamWConfig, AdamWState, adamw_init,
-                               adamw_update, clip_by_global_norm)
+                               adamw_update, global_norm_clip_scale)
 from repro_torch.resilience import (NULL_INJECTOR, BackoffPolicy,
                                     FaultInjector, tree_all_finite)
 from repro_torch.rollout.async_engine import (ForwardLagGenerator,
@@ -169,9 +169,13 @@ def make_split_update_step(bundle, hp: RLVRHyperparams, prompt_len: int):
         return grads, aux
 
     def apply_step(state: RLVRTrainState, grads):
-        grads, gnorm = clip_by_global_norm(grads, hp.max_grad_norm)
+        # The clip's scale is applied as AdamW reads each gradient: the
+        # caller still holds the raw tree, and a clipped copy beside it
+        # would not fit beside full-width hymba's state on an 80 GB card.
+        scale, gnorm = global_norm_clip_scale(grads, hp.max_grad_norm)
         new_params, opt_state = adamw_update(grads, state.opt_state,
-                                             state.params, opt_cfg)
+                                             state.params, opt_cfg,
+                                             grad_scale=scale)
         return RLVRTrainState(new_params, opt_state, state.updates + 1), gnorm
 
     return grad_step, apply_step
@@ -207,9 +211,10 @@ def make_warmup_step(bundle, hp: RLVRHyperparams):
             m = mask[:, 1:]
             loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
             grads = tree_grads(loss, params)
-        grads, _ = clip_by_global_norm(grads, hp.max_grad_norm)
+        scale, _ = global_norm_clip_scale(grads, hp.max_grad_norm)
         new_params, opt_state = adamw_update(grads, state.opt_state,
-                                             state.params, opt_cfg)
+                                             state.params, opt_cfg,
+                                             grad_scale=scale)
         return (RLVRTrainState(new_params, opt_state, state.updates),
                 loss.detach())
 
@@ -506,6 +511,9 @@ class RLVRTrainer:
                     grads, grad_info = ctrl.transform_gradients(item, grads)
                 self.state, aux["grad_norm"] = self._apply_step(
                     self.state, grads)
+                # Not kept into the next step's backward: one params'
+                # worth of memory at full-width hymba's peak.
+                del grads
                 names = list(aux)
                 values = torch.stack([aux[k].float() for k in names]).tolist()
                 aux = dict(zip(names, values), **grad_info)

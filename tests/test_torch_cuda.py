@@ -604,8 +604,13 @@ def test_flash_attention_dispatch_and_refusals(dev):
     assert (got - want).abs().max().item() <= 2e-5
     with pytest.raises(ValueError, match="causal only"):
         ops.attention(q, k, v, causal=False)
-    with pytest.raises(ValueError, match="no backward"):
-        ops.attention(q.clone().requires_grad_(True), k, v)
+    # Inputs that need a gradient take the kernel pair.
+    qg = q.clone().requires_grad_(True)
+    ops.attention(qg, k, v, window=9).sum().backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2
+    assert counts["flash_attention_bwd"] == 1 and qg.grad is not None
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2))
@@ -621,7 +626,7 @@ def test_flash_attention_dispatch_and_refusals(dev):
     with pytest.raises(ValueError, match="query heads per kv head"):
         flash_attention_cuda(*_flash_case(dev, torch.bfloat16, 1, 4, 65, 1,
                                           64))
-    assert kernels.launch_counts()["flash_attention"] == 1
+    assert kernels.launch_counts()["flash_attention"] == 2
 
 
 def _ssm_case(dev, dtype, b, s, i, n, state=True, seed=0):
@@ -667,8 +672,12 @@ def test_ssm_scan_dispatch_and_refusals(dev):
     want_y, want_h = ref.ref_ssm_scan(u, dt, b_t, c_t, a, h0)
     assert (y - want_y).abs().max().item() <= 2e-4 * max(
         1.0, want_y.abs().max().item())
-    with pytest.raises(ValueError, match="no backward"):
-        ops.ssm_scan(u.clone().requires_grad_(True), dt, b_t, c_t, a, h0)
+    ug = u.clone().requires_grad_(True)
+    ops.ssm_scan(ug, dt, b_t, c_t, a, h0)[0].sum().backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["ssm_scan"] == 2
+    assert counts["ssm_scan_bwd"] == 1 and ug.grad is not None
     with pytest.raises(ValueError, match="contiguous"):
         ssm_scan_cuda(u.transpose(0, 1), dt.transpose(0, 1),
                       b_t.transpose(0, 1), c_t.transpose(0, 1), a, None)
@@ -773,7 +782,10 @@ def test_attn_forward_launches_flash_only_without_grad(dev):
     slow, _ = attn.attn_forward(grad_lp, x, pos, **kw)
     slow.sum().backward()
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["flash_attention"] == 1
+    # With a gradient too: the forward kernel again, then its backward.
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2
+    assert counts["flash_attention_bwd"] == 1
     assert grad_lp["wq"]["w"].grad is not None
     assert torch.allclose(fast, slow.detach(), rtol=1e-4, atol=1e-5)
 
@@ -853,3 +865,117 @@ def _scale_dense(tree, by: float = 3.0):
     """The dense weights (``"w"`` leaves) scaled by ``by``."""
     return {k: _scale_dense(v, by) if isinstance(v, dict)
             else v * by if k == "w" else v for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,d,window", [
+    (4, 40, 25, 5, 64, 1024), (4, 40, 25, 5, 64, None),   # hymba's learner
+    (4, 40, 14, 2, 64, None),                             # qwen's
+    (2, 1, 25, 5, 64, None), (2, 37, 4, 2, 32, 5), (2, 37, 5, 1, 16, None),
+    (2, 130, 4, 4, 8, 30), (1, 300, 14, 2, 64, 100)])
+def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, h, kv,
+                                                d, window):
+    """The forward's logsumexp against ``ref_attention_lse``, and
+    ``flash_attention_bwd`` against ``ref_attention_backward`` on the same
+    saved output and logsumexp, within ``tol`` of max(1, |ref|)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    q, k, v = _flash_case(dev, dtype, b, s, h, kv, d, seed=s + h + d)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
+                        ).to(dtype).to(dev)
+    kernels.reset_launch_counts()
+    out, lse = flash_attention_cuda(q, k, v, window=window, return_lse=True)
+    grads = flash_attention_bwd_cuda(q, k, v, out, lse, d_out, window=window)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 1
+    want_out, want_lse = ref.ref_attention_lse(q, k, v, window=window)
+    # Both take float32 scores of the same (possibly bfloat16) inputs.
+    assert (lse - want_lse).abs().max().item() <= 2e-5 * max(
+        1.0, want_lse.abs().max().item())
+    assert (out.float() - want_out.float()).abs().max().item() <= tol
+    want = ref.ref_attention_backward(q, k, v, out, lse, d_out, window=window)
+    for got, ref_g in zip(grads, want):
+        assert got.dtype == dtype and got.shape == ref_g.shape
+        assert (got.float() - ref_g.float()).abs().max().item() <= tol * max(
+            1.0, ref_g.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,i,n,state,strided", [
+    (4, 40, 3200, 16, False, True),     # hymba's learner layout
+    (2, 1, 300, 16, True, False), (2, 37, 100, 16, True, True),
+    (2, 16, 64, 8, False, False), (3, 50, 40, 4, True, False)])
+def test_ssm_scan_backward_matches_plain(dev, dtype, tol, b, s, i, n, state,
+                                         strided):
+    """``ssm_scan_bwd`` against ``ref_ssm_scan_backward`` with cotangents
+    on y and on the final state, b_t / c_t read in place as slices of a
+    wider tensor or contiguous, within ``tol`` of max(1, |ref|)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+
+    u, dt, b_t, c_t, a, h0 = _ssm_case(dev, dtype, b, s, i, n, state,
+                                       seed=s + i)
+    if strided:
+        b_t, c_t = _strided(b_t), _strided(c_t)
+    g = torch.Generator().manual_seed(4)
+    gy = torch.randn(u.shape, generator=g).to(dtype).to(dev)
+    ghf = torch.randn(b, i, n, generator=g).to(dev)
+    kernels.reset_launch_counts()
+    got = ssm_scan_bwd_cuda(u, dt, b_t, c_t, a, h0, gy, ghf)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssm_scan_bwd"] == 1
+    want = ref.ref_ssm_scan_backward(u, dt, b_t, c_t, a, h0, gy, ghf)
+    for name, x, w in zip(("du", "ddt", "db", "dc", "da", "dh0"), got, want):
+        if h0 is None and name == "dh0":
+            assert x is None
+            continue
+        assert x.shape == w.shape and x.dtype == w.dtype, name
+        err = (x.float() - w.float()).abs().max().item()
+        assert err <= tol * max(1.0, w.float().abs().max().item()), (name,
+                                                                     err)
+
+
+def test_hymba_learner_step_on_card_launches_backwards_and_matches_cpu(dev):
+    """A reduced hymba GRPO+VACO loss and its param grads on the card
+    (both backward kernels once a layer) against the CPU's plain path."""
+    from repro_torch.core.losses import GRPOConfig, grpo_token_loss
+    from repro_torch.models import transformer as tf
+    from repro_torch.rollout.sampler import score_tokens
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = reduced_config("hymba-1.5b", vocab=64)
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(3, 64, (4, 24), generator=g)
+    log_beta = torch.randn(4, 8, generator=g) - 4.0
+    adv = torch.randn(4, generator=g)
+
+    def grads_on(p, dev_):
+        leaves = tree_map(lambda t: t.clone().requires_grad_(True), p)
+        log_pi, _, _ = score_tokens(bundle, leaves, tokens.to(dev_), 16)
+        loss, _ = grpo_token_loss(
+            log_pi=log_pi, log_beta=log_beta.to(dev_),
+            advantages=adv.to(dev_), token_mask=torch.ones(4, 8,
+                                                           device=dev_),
+            cfg=GRPOConfig(use_vaco=True))
+        return loss, torch.autograd.grad(loss, tree_leaves(leaves),
+                                         allow_unused=True)
+
+    want_loss, want = grads_on(params, "cpu")
+    kernels.reset_launch_counts()
+    loss, got = grads_on(tf.tree_to(params, dev), dev)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd"] == counts["ssm_scan_bwd"] \
+        == cfg.n_layers
+    assert abs(loss.item() - want_loss.item()) <= 1e-4
+    for x, w in zip(got, want):
+        if w is None:
+            assert x is None
+            continue
+        assert (x.cpu() - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
