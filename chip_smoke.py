@@ -4017,17 +4017,103 @@ def _flash_bwd_case(torch, dtype, b, s, hh, kk, d, seed):
     return q, k, v, d_out
 
 
+def _flash_bwd_bound(b, s, hh, kk, d, window, dname):
+    """``flash_attention_bwd``'s bound: q, out, d_out, k, v and lse read
+    once, dq, dk, dv written once; 10 D operations per attended (query,
+    key) pair and head (scores recomputed, dP, dV, dK, dQ), at the peak
+    for the inputs' type, as the forward's bound takes it."""
+    esize = 4 if dname == "float32" else 2
+    nbytes = (4 * b * s * hh * d + 4 * b * s * kk * d) * esize + b * s * hh * 4
+    return bound(nbytes, 10 * d * hh * b * _attended_pairs(s, window), dname)
+
+
+def _sdpa_bwd(torch, q, k, v, d_out, window):
+    """The library yardstick of ``flash_attention_bwd``, timed only: a
+    call of SDPA's backward on [B, H, S, D] with the kv heads repeated,
+    causal or with the band mask, through the kept graph."""
+    import torch.nn.functional as F
+
+    s, hh, kk = q.shape[1], q.shape[2], k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
+              .contiguous().requires_grad_(True) for x in (k, v))
+    if window is None or window >= s:
+        o_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        i = torch.arange(s, device="cuda")
+        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        o_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+    do_t = d_out.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                       retain_graph=True)
+
+
+def _flash_fwd_learner(torch):
+    """Kernel 6, the forward, at the learner shapes with the logsumexp
+    kept (every warmup and learner step asks for it), both dtypes, timed
+    beside its plain version and SDPA's forward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_impl)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for case, hh, kk, window in (
+                ("hymba_learner_lse", HYMBA_H, HYMBA_KV, HYMBA_WINDOW),
+                ("qwen_learner_lse", 14, 2, None)):
+            b, s, d = LEARN_B, LEARN_S, 64
+            q, k, v, _ = _flash_bwd_case(torch, dtype, b, s, hh, kk, d,
+                                         seed=s + hh + 1)
+            out, lse = flash_attention_cuda(q, k, v, window=window,
+                                            return_lse=True)
+            want, want_lse = ref.ref_attention_lse(q, k, v, window=window)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            check(err <= FLASH_TOL[dname] and lse_err <= 2e-5 * max(
+                1.0, want_lse.abs().max().item()),
+                f"flash/{case}/{dname}: out {err}, lse {lse_err}")
+            kern = lambda: flash_attention_cuda(q, k, v, window=window,
+                                                return_lse=True)
+            plain = lambda: ref.ref_attention_lse(q, k, v, window=window)
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
+                      .contiguous() for x in (k, v))
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)
+            # q, k, v read once, out and lse written once; 4 D operations
+            # per attended pair and head.
+            nbytes = ((2 * b * s * hh * d + 2 * b * s * kk * d) * esize
+                      + b * s * hh * 4)
+            b_ms, b_by = bound(nbytes, 4 * d * hh * b * _attended_pairs(
+                s, window), dname)
+            impl = flash_impl(dtype, d, lse=True)
+            rec = dict(phase="kernel", kernel="flash_attention", case=case,
+                       dtype=dname, impl=impl, B=b, S=s, H=hh, KV=kk, D=d,
+                       window=window, max_abs_err=err, lse_err=lse_err,
+                       kernel_ms=time_ms(kern, iters=50),
+                       plain_ms=time_ms(plain, iters=5, warmup=1),
+                       library_ms=time_ms(lib, iters=50),
+                       bound_ms=b_ms, bound_by=b_by,
+                       kernel_device_ms=device_ms(kern, "flash_kernel"),
+                       plain_device_ms=device_ms(plain, iters=3),
+                       library_device_ms=device_ms(lib, iters=5))
+            emit(**rec)
+            del qt, kt, vt
+
+
 def bwd_kernel_phase(torch):
     """Phase 30: ``flash_attention_bwd`` and ``ssm_scan_bwd`` against their
     plain backwards and autograd of the plain forwards (the scan's up to
     S 64), float32 and bfloat16; the learner's and the long shapes
     timed."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
-    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+        flash_attention_bwd_cuda, flash_attention_cuda, flash_bwd_impl)
+    from repro_torch.kernels.ssm_scan import ssm_bwd_info, ssm_scan_bwd_cuda
 
     h, kv, w = HYMBA_H, HYMBA_KV, HYMBA_WINDOW
     flash_cases = (   # (case, B, S, H, KV, D, window)
@@ -4037,6 +4123,10 @@ def bwd_kernel_phase(torch):
         ("long_global", 1, HYMBA_LONG, h, kv, 64, None),
         ("s1", 2, 1, h, kv, 64, None),
         ("ragged_s37", 2, 37, h, kv, 64, 16),
+        # G 7 at S 43: float32 past the short path's shared memory (long),
+        # bfloat16 short; G 1 long over a ragged, windowed S.
+        ("switch_s43", 2, 43, 14, 2, 64, 9),
+        ("g1_long_s333", 1, 333, 4, 4, 64, 50),
         ("sweep_32", 2, 100, 4, 2, 32, 30),
         ("sweep_8", 2, 65, 2, 2, 8, None))
     # Timed: the learner shapes in both dtypes, the long ones in float32.
@@ -4046,7 +4136,6 @@ def bwd_kernel_phase(torch):
     headline, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        esize = torch.empty((), dtype=dtype).element_size()
         for case, b, s, hh, kk, d, window in flash_cases:
             t_case = time.perf_counter()
             q, k, v, d_out = _flash_bwd_case(torch, dtype, b, s, hh, kk, d,
@@ -4072,10 +4161,11 @@ def bwd_kernel_phase(torch):
                           f"flash_bwd/{case}/{dname}/d{name} vs autograd")
             worst[dname] = max(worst.get(dname, 0.0), err)
             del leaves, auto, plain
+            impl = flash_bwd_impl(dtype, s, hh, kk, d)
             if case not in timed[dname]:
                 emit(phase="kernel_check", kernel="flash_attention_bwd",
-                     case=case, dtype=dname, B=b, S=s, H=hh, KV=kk, D=d,
-                     window=window, max_abs_err=err,
+                     case=case, dtype=dname, impl=impl, B=b, S=s, H=hh,
+                     KV=kk, D=d, window=window, max_abs_err=err,
                      tol=FLASH_BWD_TOL[dname],
                      seconds=time.perf_counter() - t_case)
                 continue
@@ -4083,34 +4173,11 @@ def bwd_kernel_phase(torch):
                                                     window=window)
             plain_fn = lambda: ref.ref_attention_backward(
                 q, k, v, out, lse, d_out, window=window)
-            # Library yardstick, timed only: SDPA's backward on [B, H, S,
-            # D] with the kv heads repeated, causal or with the band mask.
-            qt = q.transpose(1, 2).contiguous().requires_grad_(True)
-            kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
-                      .contiguous().requires_grad_(True) for x in (k, v))
-            if window is None or window >= s:
-                o_t = F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=True)
-            else:
-                i = torch.arange(s, device="cuda")
-                band = (i[:, None] >= i[None, :]) & (
-                    i[:, None] - i[None, :] < window)
-                o_t = F.scaled_dot_product_attention(qt, kt, vt,
-                                                     attn_mask=band)
-            do_t = d_out.transpose(1, 2).contiguous()
-            lib = lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t,
-                                              retain_graph=True)
-            # q, out, d_out, k, v and lse read once, dq, dk, dv written
-            # once; 10 D operations per attended (query, key) pair and
-            # head (scores recomputed, dP, dV, dK, dQ), at the peak for
-            # the inputs' type, as the forward's bound takes it.
-            nbytes = ((4 * b * s * hh * d + 4 * b * s * kk * d) * esize
-                      + b * s * hh * 4)
-            flops = 10 * d * hh * b * _attended_pairs(s, window)
-            b_ms, b_by = bound(nbytes, flops, dname)
+            lib = _sdpa_bwd(torch, q, k, v, d_out, window)
+            b_ms, b_by = _flash_bwd_bound(b, s, hh, kk, d, window, dname)
             rec = dict(phase="kernel", kernel="flash_attention_bwd",
-                       case=case, dtype=dname, B=b, S=s, H=hh, KV=kk, D=d,
-                       window=window, max_abs_err=err,
+                       case=case, dtype=dname, impl=impl, B=b, S=s, H=hh,
+                       KV=kk, D=d, window=window, max_abs_err=err,
                        tol=FLASH_BWD_TOL[dname],
                        kernel_ms=time_ms(kern, iters=50),
                        plain_ms=time_ms(plain_fn, iters=3, warmup=1),
@@ -4120,15 +4187,20 @@ def bwd_kernel_phase(torch):
                        plain_device_ms=device_ms(plain_fn, iters=2),
                        library_device_ms=device_ms(lib, iters=5),
                        seconds=time.perf_counter() - t_case)
+            if impl.startswith("long"):   # the path's kernels, one call
+                rec["kernels_ms"] = profile_kernels(kern, lambda rows: any(
+                    "flash_bwd_long" in r[0] for r in rows))[1]
             emit(**rec)
             check(rec["kernel_device_ms"] is not None,
                   f"flash_bwd/{case}/{dname}: no flash_bwd_ in the profile")
             if case == "hymba_learner":     # 30 of a step's 32 launches
                 headline[("flash_attention_bwd", dname)] = rec
-            del qt, kt, vt, o_t
+            del lib
     for dname, err in worst.items():
         headline[("flash_attention_bwd", dname)] = dict(
             headline[("flash_attention_bwd", dname)], max_abs_err=err)
+
+    _flash_fwd_learner(torch)
 
     i_, n_ = HYMBA_I, HYMBA_N
     ssm_cases = (   # (case, B, S, I, N, carried state, strided b/c)
@@ -4137,6 +4209,10 @@ def bwd_kernel_phase(torch):
         ("s1", 8, 1, i_, n_, True, True),
         ("ragged_s37", 2, 37, i_, n_, True, True),
         ("carried_long", 2, 600, 300, n_, True, False),
+        # Four 8-step chunks and a ragged last 64-channel tile; 19 chunks,
+        # their starts in device scratch.
+        ("chunks_s29", 2, 29, 200, n_, True, True),
+        ("scratch_s150", 1, 150, 130, n_, True, False),
         ("sweep_4", 3, 50, 40, 4, True, False))
     timed = {"float32": ("hymba_learner", "long_b1"),
              "bfloat16": ("hymba_learner",)}
@@ -4180,10 +4256,13 @@ def bwd_kernel_phase(torch):
                               f"ssm_bwd/{case}/{dname}/{name} vs autograd")
             worst[("ssm", dname)] = max(worst.get(("ssm", dname), 0.0), err)
             del leaves, auto, plain
+            # Registers, spills, resident blocks and where the chunk
+            # starts live, as the card reports them for this S.
+            info = ssm_bwd_info(dtype, s)
             if case not in timed[dname]:
                 emit(phase="kernel_check", kernel="ssm_scan_bwd", case=case,
                      dtype=dname, B=bb, S=s, I=ii, N=nn, strided=strided,
-                     max_abs_err=err, tol=SSM_TOL[dname],
+                     max_abs_err=err, tol=SSM_TOL[dname], **info,
                      seconds=time.perf_counter() - t_case)
                 continue
             kern = lambda: ssm_scan_bwd_cuda(*args, gy, ghf)
@@ -4201,7 +4280,7 @@ def bwd_kernel_phase(torch):
             short = s <= 64
             rec = dict(phase="kernel", kernel="ssm_scan_bwd", case=case,
                        dtype=dname, B=bb, S=s, I=ii, N=nn, strided=strided,
-                       max_abs_err=err, tol=SSM_TOL[dname],
+                       max_abs_err=err, tol=SSM_TOL[dname], **info,
                        kernel_ms=time_ms(kern, iters=50),
                        plain_ms=time_ms(plain_fn, iters=2 if short else 1,
                                         warmup=1 if short else 0),
@@ -4210,9 +4289,15 @@ def bwd_kernel_phase(torch):
                        plain_device_ms=(device_ms(plain_fn, iters=1)
                                         if short else None))
             rec["seconds"] = time.perf_counter() - t_case
+            if case == "hymba_learner":   # the main and the reduce kernel
+                rec["kernels_ms"] = profile_kernels(kern, lambda rows: sum(
+                    "ssm_scan_bwd" in r[0] for r in rows) >= 2)[1]
             emit(**rec)
             if case == "hymba_learner":      # every layer of a step
                 headline[("ssm_scan_bwd", dname)] = rec
+                check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+                      and info["starts_on_chip"],
+                      f"ssm_bwd/{dname}: {info} at the learner's shape")
     for dname in ("float32", "bfloat16"):
         headline[("ssm_scan_bwd", dname)] = dict(
             headline[("ssm_scan_bwd", dname)],
@@ -4438,8 +4523,9 @@ KERNELS = (
 
 # ---------------------------------------------------------------------------
 # Comparison mode: ``chip_smoke.py --ab SRC`` measures ``paged_kv_write``,
-# ``ssm_scan``, ``wkv6`` and ``vtrace`` as the model calls them (and the
-# qwen, hymba and rwkv6 serve paths), with the port found under SRC
+# ``ssm_scan``, ``wkv6`` and ``vtrace`` as the model calls them,
+# ``flash_attention_bwd`` and ``ssm_scan_bwd`` at the learner shapes (and
+# the qwen, hymba and rwkv6 serve paths), with the port found under SRC
 # (this tree's ``src`` or an unpacked parent commit's), through the entry
 # points both trees share.  Run it for the parent and the change in turns
 # on one card; it prints JSON lines only (``profile_serve``'s result also
@@ -4506,6 +4592,50 @@ def ab_main(src: str) -> int:
             emit(phase="ab_ssm_scan", case=case, dtype=dname, B=bb, S=s,
                  ms=time_ms(kern, iters=50),
                  device_ms=device_ms(kern, "ssm_scan_"))
+    # The two backward kernels at the learner's B 64 x S 40, and flash's
+    # at hymba's B 1 x S 2048, each beside SDPA's backward (its time and
+    # the kernels it runs, by device time).
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for case, bb, s, hh, kk, window in (
+                ("hymba_learner", LEARN_B, LEARN_S, HYMBA_H, HYMBA_KV,
+                 HYMBA_WINDOW),
+                ("qwen_learner", LEARN_B, LEARN_S, 14, 2, None),
+                ("long_local", 1, HYMBA_LONG, HYMBA_H, HYMBA_KV,
+                 HYMBA_WINDOW),
+                ("long_global", 1, HYMBA_LONG, HYMBA_H, HYMBA_KV, None)):
+            q, k, v, d_out = _flash_bwd_case(torch, dtype, bb, s, hh, kk, 64,
+                                             seed=s + hh)
+            out, lse = flash_attention_cuda(q, k, v, window=window,
+                                            return_lse=True)
+            kern = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, d_out,
+                                                    window=window)
+            lib = _sdpa_bwd(torch, q, k, v, d_out, window)
+            b_ms, b_by = _flash_bwd_bound(bb, s, hh, kk, 64, window, dname)
+            emit(phase="ab_flash_bwd", case=case, dtype=dname, B=bb, S=s,
+                 H=hh, KV=kk, window=window, bound_ms=b_ms, bound_by=b_by,
+                 ms=time_ms(kern, iters=50),
+                 device_ms=device_ms(kern, "flash_bwd_"),
+                 library_ms=time_ms(lib, iters=20),
+                 library_device_ms=device_ms(lib, iters=5),
+                 library_kernels_ms=profile_kernels(
+                     lib, lambda rows: len(rows) > 0)[1][:4])
+            del lib
+        args = _ssm_args(torch, dtype, LEARN_B, LEARN_S, HYMBA_I, HYMBA_N,
+                         False, strided=True, seed=LEARN_S * HYMBA_I + 1)
+        gen = torch.Generator(device="cuda").manual_seed(LEARN_S + 2)
+        gy = torch.randn(LEARN_B, LEARN_S, HYMBA_I, generator=gen,
+                         device="cuda").to(dtype)
+        ghf = torch.randn(LEARN_B, HYMBA_I, HYMBA_N, generator=gen,
+                          device="cuda")
+        kern = lambda: ssm_scan_bwd_cuda(*args, gy, ghf)
+        emit(phase="ab_ssm_scan_bwd", case="hymba_learner", dtype=dname,
+             B=LEARN_B, S=LEARN_S, I=HYMBA_I, ms=time_ms(kern, iters=50),
+             device_ms=device_ms(kern, "ssm_scan_bwd"))
     # wkv6 as the rwkv6 path calls it, and vtrace at the paper's shape.
     from repro_torch.kernels import wkv6 as wkv6_mod
     from repro_torch.kernels.vtrace import vtrace_cuda

@@ -59,10 +59,10 @@
 // write sub-chunk n's y and the state warps advance S over it.  The
 // scores, the longest part, overlap the y and state products.  Those
 // products ((r * pre) S, scores v, (k * suf)^T v) run on the tensor
-// cores: mma.m16n8k8 in 3xTF32 (each float32 operand split into two
-// tf32 parts, three products), which holds float32 inputs to float32
-// accuracy (plain TF32 would not); bfloat16 inputs are widened once, as
-// prepared.
+// cores: mma.m16n8k8 in 3xTF32 (mma_tf32.cuh: each float32 operand
+// split into two tf32 parts, three products), which holds float32 inputs
+// to float32 accuracy (plain TF32 would not); bfloat16 inputs are widened
+// once, as prepared.
 // Shared arrays are padded so that the fragments' reads hit 32 banks.
 // What bounds it in practice is the sub-chunk's latency chain, not bytes
 // or operations: prep, y and state share each SM's four schedulers, and
@@ -88,7 +88,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
+
+using tf32::cp_async16;
+using tf32::cp_async_commit;
+using tf32::cp_async_wait;
+using tf32::Frag;
+using tf32::load_a;
+using tf32::load_at;
+using tf32::load_b;
+using tf32::mma3;
 
 constexpr int kThreads = 64;   // serial: one per value column (V <= 64)
 constexpr int kMaxV = 64;
@@ -147,80 +158,6 @@ __device__ __forceinline__ void half_reduce_scatter(float (&x)[16], int q) {
   }
 }
 
-// Tensor-core products in float32 precision (3xTF32): each operand x is
-// split into two tf32 values, hi and lo = x - hi, and a b is taken as
-// a_lo b_hi + a_hi b_lo + a_hi b_hi, every sum in float32 (the a_lo b_lo
-// term is below float32 rounding).  One fragment
-// of mma.m16n8k8: lane (g8 = lane / 4, t4 = lane % 4).
-struct Frag {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-// hi is x rounded to its top 19 bits (sign, exponent, 10 mantissa bits:
-// a tf32 value; half a unit rounds away from zero); lo = x - hi is exact
-// in float32 and at most 2^-11 of x, and the tensor core reads its top
-// 19 bits, so the dropped tail is ~2^-21 of x.  Three integer / float
-// instructions, where cvt.rna.tf32 is five.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// A (16 x 8) from a row-major array of pitch P at a: a[g8][t4],
-// a[g8 + 8][t4], a[g8][t4 + 4], a[g8 + 8][t4 + 4].
-template <int P>
-__device__ __forceinline__ Frag load_a(const float* a, int g8, int t4) {
-  const float x[4] = {a[g8 * P + t4], a[(g8 + 8) * P + t4],
-                      a[g8 * P + t4 + 4], a[(g8 + 8) * P + t4 + 4]};
-  Frag f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(x[i], f.hi[i], f.lo[i]);
-  return f;
-}
-
-// A (16 x 8) as the transpose of a row-major array of pitch P at a:
-// element (m, j) is a[j][m].
-template <int P>
-__device__ __forceinline__ Frag load_at(const float* a, int g8, int t4) {
-  const float x[4] = {a[t4 * P + g8], a[t4 * P + g8 + 8],
-                      a[(t4 + 4) * P + g8], a[(t4 + 4) * P + g8 + 8]};
-  Frag f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(x[i], f.hi[i], f.lo[i]);
-  return f;
-}
-
-// B (8 x 8) from a row-major array of pitch P at b: b[t4][g8],
-// b[t4 + 4][g8].
-template <int P>
-__device__ __forceinline__ FragB load_b(const float* b, int g8, int t4) {
-  FragB f;
-  split(b[t4 * P + g8], f.hi[0], f.lo[0]);
-  split(b[(t4 + 4) * P + g8], f.hi[1], f.lo[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d (16 x 8: d[0], d[1] at row g8, columns 2 t4, 2 t4 + 1; d[2], d[3]
-// at row g8 + 8) += a b.
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag& a,
-                                     const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
 // Two consecutive outputs (an even column).
 __device__ __forceinline__ void store2(float* p, float x0, float x1) {
   *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
@@ -228,20 +165,6 @@ __device__ __forceinline__ void store2(float* p, float x0, float x1) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x0,
                                        float x1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <typename T, int K>

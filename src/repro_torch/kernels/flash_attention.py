@@ -18,18 +18,25 @@ names the one a call takes): bfloat16 at D 64 without it (every model
 the port serves) takes ``wgmma``, tensor cores fed by TMA
 (``flash_kernel_wgmma``); float32 at any head dim, bfloat16 at D 8, 16
 and 32, and every forward that keeps the logsumexp for a backward take
-``fma``, float32 FMA from shared memory (``flash_kernel``).  The
-backward is FMA only.
+``fma``, float32 FMA from shared memory (``flash_kernel``).
+
+The backward runs its products on the tensor cores (3xTF32 for float32,
+bfloat16 ``mma`` for bfloat16) on one of two paths, picked by the
+shared memory a block holding all of a kv head's rows needs, which the
+C side decides and reports as the scratch it takes
+(:func:`flash_bwd_scratch_floats`): ``short``, no scratch, one launch
+with a block per (kv head, b) (every learner shape), or ``long``, a
+block per 32-key tile with dQ summed by atomics (long sequences).
 """
 from __future__ import annotations
 
-from ctypes import c_float, c_int, c_void_p
+from ctypes import c_float, c_int, c_longlong, c_void_p
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import Kernel
+from repro_torch.kernels.build import Kernel, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64)
@@ -38,7 +45,7 @@ _WGMMA_MAX_GROUP = 64   # query heads per kv head: one 64-row wgmma tile
 # q, k, v, out, lse | B S H KV D window dtype | scale | stream
 KERNEL = Kernel("flash_attention",
                 [c_void_p] * 5 + [c_int] * 7 + [c_float, c_void_p])
-# q, k, v, out, dout, lse, rowdot, dq, dk, dv | B S H KV D window dtype |
+# q, k, v, out, dout, lse, scratch, dq, dk, dv | B S H KV D window dtype |
 # scale | stream
 BWD_KERNEL = Kernel("flash_attention_bwd",
                     [c_void_p] * 10 + [c_int] * 7 + [c_float, c_void_p])
@@ -50,6 +57,39 @@ def flash_impl(dtype: torch.dtype, head_dim: int, lse: bool = False) -> str:
     ``"fma"`` otherwise."""
     return ("wgmma" if dtype == torch.bfloat16 and head_dim == 64
             and not lse else "fma")
+
+
+def flash_bwd_scratch_floats(dtype: torch.dtype, batch: int, seq: int,
+                             n_heads: int, n_kv: int, head_dim: int) -> int:
+    """The float32 scratch the backward takes at these sizes, as the C
+    side decides it (``csrc/flash_attention_bwd.cu``:
+    ``flash_attention_bwd_scratch_floats``): 0 for the short path, while
+    one block holds the kv head's G S rows in shared memory, else the
+    long path's dQ sums and each row's Dr."""
+    fn = load(BWD_KERNEL.name).flash_attention_bwd_scratch_floats
+    fn.argtypes = [c_int] * 6
+    fn.restype = c_longlong
+    floats = fn(batch, seq, n_heads, n_kv, head_dim, _DTYPES[dtype])
+    if floats < 0:
+        raise ValueError(f"{BWD_KERNEL.name}: no path for B {batch} S {seq} "
+                         f"H {n_heads} KV {n_kv} D {head_dim}")
+    return floats
+
+
+def flash_bwd_path(dtype: torch.dtype, seq: int, n_heads: int, n_kv: int,
+                   head_dim: int) -> str:
+    """The backward's path at these sizes: ``"short"`` when it takes no
+    scratch, else ``"long"``."""
+    return "long" if flash_bwd_scratch_floats(dtype, 1, seq, n_heads, n_kv,
+                                              head_dim) else "short"
+
+
+def flash_bwd_impl(dtype: torch.dtype, seq: int, n_heads: int, n_kv: int,
+                   head_dim: int) -> str:
+    """The backward's path and its products, e.g. ``"short/3xtf32"``
+    (float32) or ``"long/bf16_mma"`` (bfloat16)."""
+    mma = "3xtf32" if dtype == torch.float32 else "bf16_mma"
+    return f"{flash_bwd_path(dtype, seq, n_heads, n_kv, head_dim)}/{mma}"
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,7 +164,9 @@ def flash_attention_bwd_cuda(
     """``(dq, dk, dv)`` of :func:`flash_attention_cuda` at ``d_out``, from
     the forward's inputs, output and logsumexp ``lse`` [B, S, H] float32;
     each in the inputs' dtype and shape.  The inputs as the forward takes
-    them; out and d_out of q's shape and dtype, contiguous."""
+    them; out and d_out of q's shape and dtype, contiguous.  The path is
+    :func:`flash_bwd_path`'s; the scratch, the long path's only, is what
+    :func:`flash_bwd_scratch_floats` reports."""
     name = BWD_KERNEL.name
     _check(name, q, k, v, window, (out, d_out))
     b, s, h, d = q.shape
@@ -133,11 +175,14 @@ def flash_attention_bwd_cuda(
             or lse.shape != (b, s, h) or not lse.is_contiguous()):
         raise ValueError(f"{name}: lse must be float32 [B, S, H] on q's "
                          f"device, got {lse.dtype} {tuple(lse.shape)}")
-    rowdot = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+    floats = flash_bwd_scratch_floats(q.dtype, b, s, h, kv, d)
+    scratch = (torch.empty(floats, dtype=torch.float32, device=q.device)
+               if floats else None)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     BWD_KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
-                      rowdot.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(),
                       dv.data_ptr(), b, s, h, kv, d,
                       0 if window is None else int(window),
                       _DTYPES[q.dtype], d ** -0.5)

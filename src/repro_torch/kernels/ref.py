@@ -661,9 +661,9 @@ def ref_ssm_scan_chunked(
     return torch.cat(ys, dim=1), h
 
 
-# Steps a chunk of the SSM backward keeps in registers
-# (``csrc/ssm_scan_bwd.cu``: kChunk).
-SSM_BWD_CHUNK = 16
+# Steps a chunk of the SSM backward recomputes from its start and walks
+# back (``csrc/ssm_scan_bwd.cu``: kChunk).
+SSM_BWD_CHUNK = 8
 
 
 def ref_ssm_scan_backward(

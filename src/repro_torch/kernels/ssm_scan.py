@@ -24,13 +24,14 @@ model's ``x_proj`` output), read in place.
 """
 from __future__ import annotations
 
+import ctypes
 from ctypes import c_int, c_void_p
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import Kernel
+from repro_torch.kernels.build import Kernel, check, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 16
@@ -55,9 +56,9 @@ KERNEL = Kernel("ssm_scan", [c_void_p] * 9 + [c_int] * 8 + [c_void_p])
 # I N ld_b ld_c dtype | stream
 BWD_KERNEL = Kernel("ssm_scan_bwd", [c_void_p] * 15 + [c_int] * 7
                     + [c_void_p])
-# The backward kernel's thread block covers 32 channels, and a thread keeps
-# the states of 16 steps (csrc/ssm_scan_bwd.cu: kChannels, kChunk).
-BWD_CHANNELS, BWD_CHUNK = 32, ref.SSM_BWD_CHUNK
+# Steps a chunk of the backward walks (csrc/ssm_scan_bwd.cu: kChunk); the
+# CPU's plain backward walks chunks of the same length.
+BWD_CHUNK = ref.SSM_BWD_CHUNK
 
 
 def ssm_impl(batch: int, steps: int, inner: int) -> str:
@@ -168,11 +169,34 @@ def _check(name, u, dt, b_t, c_t, a, h0) -> Tuple[int, int]:
 
 
 def bwd_scratch_floats(batch: int, steps: int, inner: int, n: int) -> int:
-    """float32 scratch of the backward kernel: the per-block partials of
-    db and dc, the per-row partial of da, and the chunk-start states."""
-    tiles = -(-inner // BWD_CHANNELS)
-    return (2 * tiles * batch * steps * n + batch * inner * n
-            + batch * (-(-steps // BWD_CHUNK) - 1) * inner * n)
+    """float32 scratch of the backward kernel, as the C side sizes it
+    (``csrc/ssm_scan_bwd.cu``: ``ssm_scan_bwd_scratch_floats``): the
+    per-tile partials of db and dc, the per-row partial of da, and the
+    chunk-start states when the sequence has more chunks than shared
+    memory keeps."""
+    fn = load(BWD_KERNEL.name).ssm_scan_bwd_scratch_floats
+    fn.argtypes = [c_int] * 4
+    fn.restype = ctypes.c_longlong
+    floats = fn(batch, steps, inner, n)
+    if floats < 0:
+        raise ValueError(f"{BWD_KERNEL.name}: bad sizes B {batch} S {steps} "
+                         f"I {inner} N {n}")
+    return floats
+
+
+def ssm_bwd_info(dtype: torch.dtype, steps: int) -> dict:
+    """What the backward's main kernel takes at ``steps`` steps on the
+    current card: registers and spilled (local) bytes a thread, blocks
+    resident on an SM, dynamic shared bytes a block, and whether the
+    chunk starts stay on chip (``csrc/ssm_scan_bwd.cu``:
+    ``ssm_scan_bwd_info``)."""
+    fn = load(BWD_KERNEL.name).ssm_scan_bwd_info
+    fn.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
+    fn.restype = c_int
+    out = (c_int * 5)()
+    check(fn(_DTYPES[dtype], steps, out), "ssm_scan_bwd_info")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                smem_bytes=out[3], starts_on_chip=bool(out[4]))
 
 
 def ssm_scan_bwd_cuda(

@@ -873,7 +873,12 @@ def _scale_dense(tree, by: float = 3.0):
     (4, 40, 25, 5, 64, 1024), (4, 40, 25, 5, 64, None),   # hymba's learner
     (4, 40, 14, 2, 64, None),                             # qwen's
     (2, 1, 25, 5, 64, None), (2, 37, 4, 2, 32, 5), (2, 37, 5, 1, 16, None),
-    (2, 130, 4, 4, 8, 30), (1, 300, 14, 2, 64, 100)])
+    (2, 130, 4, 4, 8, 30), (1, 300, 14, 2, 64, 100),
+    # Either side of the short / long switch at G 7: float32 takes the
+    # short path at S 42 and the long one at S 43 (bfloat16 both short);
+    # G 1 short and long with a window over a ragged S.
+    (2, 42, 14, 2, 64, None), (2, 43, 14, 2, 64, 9),
+    (3, 77, 6, 6, 64, 20), (1, 333, 4, 4, 64, 50), (1, 333, 4, 4, 32, None)])
 def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, h, kv,
                                                 d, window):
     """The forward's logsumexp against ``ref_attention_lse``, and
@@ -903,12 +908,41 @@ def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, h, kv,
             1.0, ref_g.float().abs().max().item())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,window", [
+    (4, 40, 25, 5, 1024), (4, 40, 14, 2, None)])   # the learner shapes
+def test_flash_attention_backward_short_path_is_deterministic(dev, dtype, b,
+                                                              s, h, kv,
+                                                              window):
+    """The short path sums over keys, rows and heads in a fixed order
+    (no atomics): two runs give bit-identical dq, dk and dv."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, flash_bwd_path)
+
+    assert flash_bwd_path(dtype, s, h, kv, 64) == "short"
+    q, k, v = _flash_case(dev, dtype, b, s, h, kv, 64, seed=5)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)
+                        ).to(dtype).to(dev)
+    out, lse = flash_attention_cuda(q, k, v, window=window, return_lse=True)
+    first = flash_attention_bwd_cuda(q, k, v, out, lse, d_out, window=window)
+    second = flash_attention_bwd_cuda(q, k, v, out, lse, d_out,
+                                      window=window)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,s,i,n,state,strided", [
     (4, 40, 3200, 16, False, True),     # hymba's learner layout
     (2, 1, 300, 16, True, False), (2, 37, 100, 16, True, True),
-    (2, 16, 64, 8, False, False), (3, 50, 40, 4, True, False)])
+    (2, 16, 64, 8, False, False), (3, 50, 40, 4, True, False),
+    # Three and more 8-step chunks with a ragged last 64-channel tile, with
+    # and without a carried state; past 14 chunks the chunk starts go to
+    # device scratch.
+    (2, 29, 200, 16, True, True), (2, 29, 200, 16, False, False),
+    (1, 150, 130, 16, True, False), (2, 150, 130, 8, False, True)])
 def test_ssm_scan_backward_matches_plain(dev, dtype, tol, b, s, i, n, state,
                                          strided):
     """``ssm_scan_bwd`` against ``ref_ssm_scan_backward`` with cotangents
@@ -936,6 +970,88 @@ def test_ssm_scan_backward_matches_plain(dev, dtype, tol, b, s, i, n, state,
         err = (x.float() - w.float()).abs().max().item()
         assert err <= tol * max(1.0, w.float().abs().max().item()), (name,
                                                                      err)
+    again = ssm_scan_bwd_cuda(u, dt, b_t, c_t, a, h0, gy, ghf)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):   # fixed-order sums: bit-identical
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def _guarded(floats, dev, guard=4096):
+    """A float32 buffer of ``floats`` followed by ``guard`` NaNs."""
+    return torch.full((floats + guard,), float("nan"), device=dev)
+
+
+@pytest.mark.parametrize("dtype,tol,ssm_tol", [(torch.float32, 2e-5, 2e-4),
+                                               (torch.bfloat16, 2e-2, 2e-2)])
+def test_backward_scratch_queries_match_the_launches(dev, dtype, tol,
+                                                     ssm_tol):
+    """Each backward's C side reports the scratch its launcher takes.
+    ``flash_attention_bwd``: the launcher takes the short path (no
+    scratch) exactly where the query reports 0, and the long path writes
+    nothing past the floats reported.  ``ssm_scan_bwd``: the kernel
+    writes nothing past the floats reported, with the chunk starts on
+    chip and off it as ``ssm_bwd_info`` says.  Both against the plain
+    backwards."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_KERNEL as FLASH_BWD, flash_attention_cuda,
+        flash_bwd_scratch_floats)
+    from repro_torch.kernels.ssm_scan import (
+        BWD_KERNEL as SSM_BWD, bwd_scratch_floats, ssm_bwd_info)
+
+    dcode = 0 if dtype == torch.float32 else 1
+    for b, s, h, kv, d, window in ((4, 40, 25, 5, 64, 1024),
+                                   (4, 40, 14, 2, 64, None),
+                                   (2, 43, 14, 2, 64, 9),
+                                   (1, 333, 4, 4, 64, 50)):
+        q, k, v = _flash_case(dev, dtype, b, s, h, kv, d, seed=s + h)
+        d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            7)).to(dtype).to(dev)
+        out, lse = flash_attention_cuda(q, k, v, window=window,
+                                        return_lse=True)
+        floats = flash_bwd_scratch_floats(dtype, b, s, h, kv, d)
+        scratch = _guarded(floats, dev) if floats else None
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        launch = lambda sc: FLASH_BWD.launch(
+            q.device, *(t.data_ptr() for t in (q, k, v, out, d_out, lse)),
+            None if sc is None else sc.data_ptr(),
+            *(t.data_ptr() for t in grads), b, s, h, kv, d,
+            0 if window is None else window, dcode, d ** -0.5)
+        if floats:   # the short path does not fit: the launcher refuses it
+            with pytest.raises(RuntimeError):
+                launch(None)
+        launch(scratch)
+        torch.cuda.synchronize()
+        if floats:
+            assert torch.isnan(scratch[floats:]).all()
+        want = ref.ref_attention_backward(q, k, v, out, lse, d_out,
+                                          window=window)
+        for got, w in zip(grads, want):
+            assert (got.float() - w.float()).abs().max().item() <= tol * max(
+                1.0, w.float().abs().max().item())
+    # 5 chunks of the learner's S 40 on chip, 19 of S 150 in scratch.
+    for b, s, i, n, on_chip in ((4, 40, 200, 16, True),
+                                (1, 150, 130, 16, False)):
+        assert ssm_bwd_info(dtype, s)["starts_on_chip"] == on_chip
+        u, dt, b_t, c_t, a, h0 = _ssm_case(dev, dtype, b, s, i, n, True,
+                                           seed=s)
+        g = torch.Generator().manual_seed(8)
+        gy = torch.randn(u.shape, generator=g).to(dtype).to(dev)
+        ghf = torch.randn(b, i, n, generator=g).to(dev)
+        grads = [torch.empty_like(u), torch.empty_like(dt),
+                 torch.empty(b, s, n, dtype=dtype, device=dev),
+                 torch.empty(b, s, n, dtype=dtype, device=dev),
+                 torch.empty(i, n, device=dev), torch.empty_like(h0)]
+        floats = bwd_scratch_floats(b, s, i, n)
+        scratch = _guarded(floats, dev)
+        SSM_BWD.launch(u.device, *(t.data_ptr() for t in (
+            u, dt, b_t, c_t, a, h0, gy, ghf, *grads, scratch)),
+            b, s, i, n, n, n, dcode)
+        torch.cuda.synchronize()
+        assert torch.isnan(scratch[floats:]).all()
+        want = ref.ref_ssm_scan_backward(u, dt, b_t, c_t, a, h0, gy, ghf)
+        for got, w in zip(grads, want):
+            assert (got.float() - w.float()).abs().max().item() <= \
+                ssm_tol * max(1.0, w.float().abs().max().item())
 
 
 def test_hymba_learner_step_on_card_launches_backwards_and_matches_cpu(dev):
