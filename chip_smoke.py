@@ -26,7 +26,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    a model layer pays), each beside ``index_copy_``.
 4. serve: full-width qwen2.5-0.5b (24 layers, seeded random init) through
    the launcher's ``serve`` with its defaults; every request must retire
-   and every kernel must have launched.
+   and every kernel must have launched.  Then ``serve --controller``'s
+   shadow scoring (``launch.serve.shadow_admission``, what ``serve``
+   runs after its report) under ``tv_gate:delta=0.05,mode=downweight``
+   over the retired requests: the verdicts and the
+   ``serve_shadow_admission_total`` counters sum to the requests,
+   ``fused_logprob`` launches once a request, every TV finite.
 5. parity: the same width at 2 layers, dense weights scaled x3 so that
    random-init output varies, on ``cpu`` (plain path) and ``cuda``
    (kernels): one decode and one varlen model pass with logits within
@@ -303,10 +308,51 @@ Phases, each printing one JSON line (any failure exits non-zero):
     chunked plain attention against the card's kernels), loss and every
     param grad within 1e-4 of its largest magnitude.
 
-Then one JSON line of every kernel's numbers (``paged_attention_multi``'s
-launches are phase 27's first run's; the two backward kernels' phase
-31's), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
-{...}}``.
+33. wkv6 backward kernel: ``wkv6_bwd`` against ``ref_wkv6_backward`` and
+    against autograd of ``ref_wkv6`` (up to S 64), float32 within 3e-4
+    and bfloat16 within 2e-2, of max(1, |ref|): the learner shape (B 64
+    x S 40, 32 heads of 64, zero state), B 8 x S 32, S 1, a ragged S 37
+    with a carried state and a final-state cotangent, decays of exactly
+    0 and 1 (and 1e-6), B 1 x S 2048, S 150 (chunk starts in device
+    scratch), K 8, 16 and 32; two launches on the same inputs
+    bit-identical.  The learner shape (both dtypes) and B 1 x S 2048
+    (float32) timed beside the plain backward and the bound (no single
+    PyTorch call computes it), with the kernel's registers, spills,
+    residency and where its chunk starts live; and the forward at the
+    learner shape (``chunked``), row 7's learner line.
+34. rwkv6 training: ``repro_torch.launch.train rlvr --full-width --arch
+    rwkv6-1.6b`` in-process (24 layers, d 2048, vocab 65536, 2 warmup
+    steps, one phase of 2 minibatches): ``wkv6_bwd`` 24 times a warmup
+    or learner step, ``wkv6`` 24 times a step and 24 x (1 + new tokens)
+    a generate, exactly; both log-prob kernels once a learner step;
+    finite loss and tv; the learner steps' grad norm exactly 0 when the
+    random init earned no reward (every advantage 0), else > 0.  Then
+    one learner step with N(0, 1) advantages on seeded completions the
+    model did not sample (``log_beta`` their log-probs under the current
+    params; on its own samples p ~ 1 and the gradient is ~1e-8): exactly
+    those launches (24, 24, 1, 1), grad norm > 0, the params moved, its
+    wall, idle share and peak memory (allocated and reserved); learner
+    step p50 and generation tokens/s of the run.  The step's gradient
+    again through the kernels and with ``ops.wkv6`` on the plain
+    forward and backward on the card: grad norm at least 1e-3 and within
+    1e-4 of the plain route's; and on every layer's own inputs and
+    output cotangent of that step, each output of ``wkv6_bwd`` within
+    3e-4 of its largest magnitude from ``ref_wkv6_backward`` in float64.
+35. rwkv6 train parity: phase 9 at 2 full-width rwkv6 layers, the card's
+    learner step from the CPU's warmed params (as phase 32 holds hymba,
+    but unscaled: with dense weights x3 float32 cannot hold this
+    gradient to 1e-4, as ``chip_smoke.py --grad-conditioning`` measures
+    against float64; the chained step's plain route swaps ``ops.wkv6``
+    for ``ref_wkv6`` too), then one B 1 x S 2048 forward and backward (the card's split
+    forward and the backward with its chunk starts in scratch; the
+    CPU's ``WKV6Fn`` on the plain versions), loss and every param grad
+    within 1e-4 of its largest magnitude.
+
+Then one JSON line of every phase's wall seconds and the total, one of
+every kernel's numbers (``paged_attention_multi``'s launches are phase
+27's first run's; the hymba backward kernels' phase 31's, ``wkv6_bwd``'s
+phase 34's), the ``nvidia-smi`` line, and last ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -333,6 +379,7 @@ N_LEARN, V_FULL = 512, 151936
 LOGPROB_TOL = {"float32": (1e-5, 1e-4, 1e-5),     # logp, entropy, grad
                "bfloat16": (2e-2, 2e-2, 2e-2)}
 SERVE_KERNELS = ("paged_kv_write", "paged_attention", "paged_attention_varlen")
+SHADOW_SPEC = "tv_gate:delta=0.05,mode=downweight"   # phase 4's --controller
 # The paper's classic-RL scale (Table 1): 500 envs x 1000 steps.
 RL_ACTORS, RL_STEPS, RL_PHASES = 500, 1000, 2
 VTRACE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
@@ -849,6 +896,26 @@ def serve_phase(torch):
          decode_steps=st["decode_steps"],
          prefill_dispatches=st["prefill_dispatches"],
          preemptions=st["preemptions"], launches=launches)
+    # serve --controller: the shadow scoring serve() runs after its
+    # report, over the same retired requests.
+    args.controller = SHADOW_SPEC
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    decisions = launcher.shadow_admission(args, engine, trajs)
+    torch.cuda.synchronize()
+    shadow_s = time.perf_counter() - t0
+    scored = kernels.launch_counts()["fused_logprob"]
+    counters = engine.metrics.counter_values("serve_shadow_admission_total")
+    tvs = [d[3] for d in decisions]
+    emit(phase="serve_shadow", controller=SHADOW_SPEC, seconds=shadow_s,
+         decisions=decisions, counters=counters,
+         fused_logprob_launches=scored)
+    check(len(decisions) == len(trajs) == sum(counters.values())
+          and scored == len(trajs)
+          and all(tv is not None and math.isfinite(tv) for tv in tvs),
+          f"serve --controller: {len(decisions)} verdicts, counters "
+          f"{counters}, {scored} fused_logprob launches for {len(trajs)} "
+          f"requests, tvs {tvs}")
     return launches
 
 
@@ -1162,6 +1229,29 @@ def step_phase(torch, trainer):
          launches=launches)
 
 
+def _parity_batch(torch, hp):
+    """Phase 9's batch: 8 supervised warmup rows, 8 completions of 2
+    prompts (seeded tokens and mask) with the group advantages of fixed
+    rewards, and the numpy generator the ``log_beta`` noise goes on
+    from."""
+    import numpy as np
+
+    from repro_torch.core.losses import group_advantages
+    from repro_torch.data.mathgen import MathTaskDataset
+
+    ds = MathTaskDataset(prompt_len=32, level=0, seed=4)
+    w_tok, w_mask = ds.supervised_batch(8, hp.max_new_tokens)
+    prompts, _, _ = ds.sample_batch(2)
+    rng = np.random.default_rng(5)
+    tokens = np.concatenate(
+        [np.repeat(prompts, hp.completions_per_prompt, axis=0),
+         rng.integers(3, 54, (8, hp.max_new_tokens)).astype(np.int32)], 1)
+    mask = (rng.random((8, hp.max_new_tokens)) > 0.1).astype(np.float32)
+    adv = group_advantages(torch.tensor([1., 0., 0., 1., 0., 1., 1., 1.]),
+                           hp.completions_per_prompt)
+    return w_tok, w_mask, tokens, mask, adv, rng
+
+
 def train_parity_phase(torch, arch="qwen2.5-0.5b", dense_scale=None,
                        tag="train_parity", same_start=False):
     """2 layers of ``arch`` at full width (dense weights x ``dense_scale``
@@ -1176,8 +1266,6 @@ def train_parity_phase(torch, arch="qwen2.5-0.5b", dense_scale=None,
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.losses import group_advantages
-    from repro_torch.data.mathgen import MathTaskDataset
     from repro_torch.models.registry import build
     from repro_torch.optim import adamw_init
     from repro_torch.rollout.sampler import score_tokens
@@ -1192,16 +1280,7 @@ def train_parity_phase(torch, arch="qwen2.5-0.5b", dense_scale=None,
     params = bundle.init(torch.Generator().manual_seed(0))
     if dense_scale is not None:
         params = _scale_dense(params, dense_scale)
-    ds = MathTaskDataset(prompt_len=32, level=0, seed=4)
-    w_tok, w_mask = ds.supervised_batch(8, hp.max_new_tokens)
-    prompts, _, _ = ds.sample_batch(2)
-    rng = np.random.default_rng(5)
-    tokens = np.concatenate(
-        [np.repeat(prompts, hp.completions_per_prompt, axis=0),
-         rng.integers(3, 54, (8, hp.max_new_tokens)).astype(np.int32)], 1)
-    mask = (rng.random((8, hp.max_new_tokens)) > 0.1).astype(np.float32)
-    adv = group_advantages(torch.tensor([1., 0., 0., 1., 0., 1., 1., 1.]),
-                           hp.completions_per_prompt)
+    w_tok, w_mask, tokens, mask, adv, rng = _parity_batch(torch, hp)
     warm = make_warmup_step(bundle, hp)
     update = make_update_step(bundle, hp, 32)
     out = {}
@@ -1280,10 +1359,11 @@ def train_parity_phase(torch, arch="qwen2.5-0.5b", dense_scale=None,
 
 def _chained_card_steps(torch, warm, update, params, cpu, batch):
     """The card's warmup then learner step from its own warm params, once
-    through the kernels and once with ``ops.attention`` / ``ops.ssm_scan``
-    replaced by the plain versions on the card: each one's gap to the
-    CPU's chained run (loss, tv and grad norm relative to max(1, |cpu|),
-    and the learner step's update relative to the CPU's).  Information
+    through the kernels and once with ``ops.attention``, ``ops.ssm_scan``
+    and ``ops.wkv6`` replaced by the plain versions on the card (under
+    autograd): each one's gap to the CPU's chained run (loss, tv and grad
+    norm relative to max(1, |cpu|), and the learner step's update
+    relative to the CPU's).  Information
     only: AdamW's first step sends near-zero gradient entries to +-lr,
     so the chained step drifts on either route."""
     from repro_torch.kernels import ops, ref
@@ -1294,13 +1374,14 @@ def _chained_card_steps(torch, warm, update, params, cpu, batch):
     w_tok, w_mask, tokens, log_beta, mask, adv = batch
     cpu_upd = [x - x0 for x, x0 in zip(cpu["params"], cpu["start_params"])]
     cpu_norm = sum((y ** 2).sum().item() for y in cpu_upd) ** 0.5
-    routes = {"kernels": (ops.attention, ops.ssm_scan),
-              "plain": (ref.ref_attention, ref.ref_ssm_scan)}
-    kept = (ops.attention, ops.ssm_scan)
+    plain = {"attention": ref.ref_attention, "ssm_scan": ref.ref_ssm_scan,
+             "wkv6": ref.ref_wkv6}
+    kept = {name: getattr(ops, name) for name in plain}
     res = {}
     try:
-        for route, (attend, scan) in routes.items():
-            ops.attention, ops.ssm_scan = attend, scan
+        for route, fns in (("kernels", kept), ("plain", plain)):
+            for name, fn in fns.items():
+                setattr(ops, name, fn)
             p = tree_to(params, "cuda")
             st, _ = warm(RLVRTrainState(p, adamw_init(p), 0), w_tok, w_mask)
             st = st._replace(opt_state=adamw_init(st.params))
@@ -1316,7 +1397,8 @@ def _chained_card_steps(torch, warm, update, params, cpu, batch):
             res[route]["update_rel_err"] = diff / cpu_norm
             del st, st2, p, before, upd
     finally:
-        ops.attention, ops.ssm_scan = kept
+        for name, fn in kept.items():
+            setattr(ops, name, fn)
     return res
 
 
@@ -4305,30 +4387,120 @@ def bwd_kernel_phase(torch):
     return headline
 
 
-def hymba_train_phase(torch):
-    """Phase 31: ``train rlvr --full-width --arch hymba-1.5b`` in-process
-    (2 warmup steps, one phase of 2 minibatches), then one learner step
-    with seeded rewards, counted and profiled.  Returns the run's
-    launches."""
+def _train_run(torch, argv):
+    """``train rlvr`` with ``argv`` in-process under a span tracer:
+    ``(trainer, result, warmup loss, seconds, launches, peak allocated
+    GiB, peak reserved GiB, produce spans)``."""
     from repro_torch import kernels
-    from repro_torch.core.losses import group_advantages
     from repro_torch.launch import train as launcher
     from repro_torch.obs.tracer import Tracer
-    from repro_torch.train import make_update_step
-    from repro_torch.utils.tree import tree_leaves
 
-    args = launcher.build_parser().parse_args(HYMBA_TRAIN_ARGS)
+    args = launcher.build_parser().parse_args(argv)
     tracer = Tracer(detail="spans")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     trainer, res, warm_loss = launcher.run(args, tracer)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    peak_run = torch.cuda.max_memory_allocated() / 2 ** 30
-    peak_run_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
-    cfg, hp, bundle = trainer.bundle.cfg, trainer.hp, trainer.bundle
+    return (trainer, res, warm_loss, time.perf_counter() - t0,
+            kernels.launch_counts(),
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30,
+            _span_seconds(tracer, "produce"))
+
+
+def _train_record(tag, trainer, res, warm_loss, seconds, launches, peak,
+                  peak_reserved, produce, **extra):
+    """The run's JSON line: learner step p50 and mean, generation
+    tokens/s over the ``produce`` spans, tv, grad norms, peak memory."""
+    hp = trainer.hp
+    step = trainer.metrics.histogram("train_step_s").summary()
+    gnorm = trainer.metrics.histogram("train_grad_norm").summary()
+    batch = hp.prompts_per_minibatch * hp.completions_per_prompt
+    emit(phase=tag, config=trainer.bundle.cfg.name,
+         layers=trainer.bundle.cfg.n_layers, seconds=seconds,
+         warmup_loss=warm_loss, eval_accuracy=res.eval_accuracy,
+         learner_steps=len(res.phase_logs),
+         learner_step_p50_ms=step["p50"] * 1e3,
+         learner_step_mean_ms=step["mean"] * 1e3,
+         minibatches_generated=len(produce),
+         generation_tokens_per_s=(len(produce) * batch * hp.max_new_tokens
+                                  / sum(produce)),
+         tv=[l.tv for l in res.phase_logs], **extra,
+         grad_norm_mean=gnorm["mean"], peak_memory_gib=peak,
+         peak_reserved_gib=peak_reserved, launches=launches)
+
+
+def _learner_step_profile(torch, trainer, adv_of, want, kernel_keys, tag,
+                          resample=None):
+    """One more learner step of ``trainer`` on a fresh minibatch with the
+    advantages ``adv_of(rows)`` gives (and, with ``resample``, the
+    ``(tokens, log_beta)`` it makes of the minibatch's): exactly
+    ``want``'s launches, finite loss, grad norm > 0, the params moved;
+    then its wall (the median of three), peak memory and one profiled
+    step (device busy, idle share, device ms of the kernels whose names
+    hold each of ``kernel_keys``), as the ``tag`` line.  Returns the
+    step's ``(tokens, log_beta, mask, advantages, grad norm)``."""
+    from repro_torch import kernels
+    from repro_torch.train import make_update_step
+    from repro_torch.utils.tree import tree_leaves
+
+    hp, state = trainer.hp, trainer.state
+    mb = trainer.generator.generate_minibatch(state.params)
+    tokens, log_beta, mask = mb.gen.tokens, mb.gen.log_beta, mb.gen.mask
+    if resample is not None:
+        tokens, log_beta = resample(tokens)
+    adv = adv_of(mask.shape[0]).to(tokens.device)
+    update = make_update_step(trainer.bundle, hp, trainer.dataset.prompt_len)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    new, aux = update(state, tokens, log_beta, mask, adv)
+    torch.cuda.synchronize()
+    per_step = kernels.launch_counts()
+    check(all(per_step[k] == n for k, n in want.items()),
+          f"{tag}: the learner step launched {per_step}, want {want}")
+    loss_v, gn = aux["loss"].item(), aux["grad_norm"].item()
+    check(math.isfinite(loss_v) and math.isfinite(gn) and gn > 0,
+          f"{tag}: loss {loss_v}, grad norm {gn}")
+    moved = max((a - b_).abs().max().item() for a, b_ in
+                zip(tree_leaves(new.params), tree_leaves(state.params)))
+    check(moved > 0, f"{tag}: the params did not move")
+    del new
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        update(state, tokens, log_beta, mask, adv)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    wall_ms = sorted(walls)[1]
+    peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_step_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    busy_ms, rows = profile_kernels(
+        lambda: update(state, tokens, log_beta, mask, adv))
+    kernel_ms = {k: sum(ms for name, ms, _ in rows if k in name)
+                 for k in kernel_keys}
+    emit(phase=tag, rows=mask.shape[0], seq=tokens.shape[1],
+         loss=loss_v, grad_norm=gn, max_param_change=moved,
+         launches=per_step, wall_ms=wall_ms, walls_ms=walls,
+         device_busy_ms=busy_ms,
+         idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+         kernel_ms=kernel_ms, peak_memory_gib=peak_step,
+         peak_reserved_gib=peak_step_reserved,
+         kernel_launches=sum(n for _, _, n in rows), top_kernels=rows[:8])
+    return tokens, log_beta, mask, adv, gn
+
+
+def hymba_train_phase(torch):
+    """Phase 31: ``train rlvr --full-width --arch hymba-1.5b`` in-process
+    (2 warmup steps, one phase of 2 minibatches), then one learner step
+    with seeded rewards, counted and profiled.  Returns the run's
+    launches."""
+    from repro_torch.core.losses import group_advantages
+
+    run = _train_run(torch, HYMBA_TRAIN_ARGS)
+    trainer, res, warm_loss, _, launches, _, _, produce = run
+    cfg, hp = trainer.bundle.cfg, trainer.hp
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
            cfg.ssm.expand * cfg.d_model, cfg.vocab_size)
           == (HYMBA_L, 1600, HYMBA_H, HYMBA_KV, HYMBA_I, 32001),
@@ -4347,7 +4519,6 @@ def hymba_train_phase(torch):
     for name in ("fused_logprob", "fused_logprob_bwd"):
         check(launches[name] == steps,
               f"{name} launched {launches[name]} times in {steps} steps")
-    produce = _span_seconds(tracer, "produce")
     generates = len(produce) + 1 + len(res.eval_accuracy)
     check(len(produce) > 0 and launches["flash_attention"]
           == cfg.n_layers * (generates + grad_steps)
@@ -4358,71 +4529,22 @@ def hymba_train_phase(torch):
     gnorm = trainer.metrics.histogram("train_grad_norm").summary()
     check(gnorm["max"] > 0 and math.isfinite(gnorm["max"]),
           f"hymba train: grad norms {gnorm}")
-    step = trainer.metrics.histogram("train_step_s").summary()
-    batch = hp.prompts_per_minibatch * hp.completions_per_prompt
+    _train_record("hymba_train", *run)
 
-    # One more learner step with seeded rewards (nonzero advantages):
-    # exact launches a step, the params moved, timed and profiled.
-    state, p_len = trainer.state, trainer.dataset.prompt_len
-    mb = trainer.generator.generate_minibatch(state.params)
-    tokens, log_beta, mask = mb.gen.tokens, mb.gen.log_beta, mb.gen.mask
-    gen = torch.Generator().manual_seed(11)
-    rewards = (torch.rand(mask.shape[0], generator=gen) < 0.5).float()
-    adv = group_advantages(rewards.to(tokens.device),
-                           hp.completions_per_prompt)
-    update = make_update_step(bundle, hp, p_len)
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    new, aux = update(state, tokens, log_beta, mask, adv)
-    torch.cuda.synchronize()
-    per_step = kernels.launch_counts()
-    want = {"ssm_scan_bwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
-            "flash_attention": cfg.n_layers, "fused_logprob": 1,
-            "fused_logprob_bwd": 1}
-    check(all(per_step[k] == n for k, n in want.items()),
-          f"hymba learner step launched {per_step}, want {want}")
-    loss_v, gn = aux["loss"].item(), aux["grad_norm"].item()
-    check(math.isfinite(loss_v) and math.isfinite(gn) and gn > 0,
-          f"hymba learner step: loss {loss_v}, grad norm {gn}")
-    moved = max((a - b_).abs().max().item() for a, b_ in
-                zip(tree_leaves(new.params), tree_leaves(state.params)))
-    check(moved > 0, "hymba learner step: the params did not move")
-    del new
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        update(state, tokens, log_beta, mask, adv)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t1) * 1e3)
-    wall_ms = sorted(walls)[1]
-    peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
-    peak_step_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
-    busy_ms, rows = profile_kernels(
-        lambda: update(state, tokens, log_beta, mask, adv))
-    kernel_ms = {k: sum(ms for name, ms, _ in rows if k in name)
-                 for k in ("flash_bwd_", "flash_kernel", "ssm_scan_bwd",
-                           "ssm_scan_kernel", "logprob")}
-    emit(phase="hymba_train", config=cfg.name, layers=cfg.n_layers,
-         seconds=seconds, warmup_loss=warm_loss,
-         eval_accuracy=res.eval_accuracy, learner_steps=steps,
-         learner_step_p50_ms=step["p50"] * 1e3,
-         learner_step_mean_ms=step["mean"] * 1e3,
-         minibatches_generated=len(produce),
-         generation_tokens_per_s=(len(produce) * batch * hp.max_new_tokens
-                                  / sum(produce)),
-         tv=[l.tv for l in res.phase_logs], grad_norm_mean=gnorm["mean"],
-         peak_memory_gib=peak_run, peak_reserved_gib=peak_run_reserved,
-         launches=launches)
-    emit(phase="hymba_step_profile", rows=batch, seq=tokens.shape[1],
-         loss=loss_v, grad_norm=gn, max_param_change=moved,
-         launches=per_step, wall_ms=wall_ms, walls_ms=walls,
-         device_busy_ms=busy_ms,
-         idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-         kernel_ms=kernel_ms, peak_memory_gib=peak_step,
-         peak_reserved_gib=peak_step_reserved,
-         kernel_launches=sum(n for _, _, n in rows), top_kernels=rows[:8])
-    del trainer, state, mb, tokens
+    # One more learner step with seeded rewards (nonzero advantages).
+    def adv_of(rows):
+        gen = torch.Generator().manual_seed(11)
+        rewards = (torch.rand(rows, generator=gen) < 0.5).float()
+        return group_advantages(rewards, hp.completions_per_prompt)
+
+    _learner_step_profile(
+        torch, trainer, adv_of,
+        {"ssm_scan_bwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+         "flash_attention": cfg.n_layers, "fused_logprob": 1,
+         "fused_logprob_bwd": 1},
+        ("flash_bwd_", "flash_kernel", "ssm_scan_bwd", "ssm_scan_kernel",
+         "logprob"), "hymba_step_profile")
+    del trainer, run
     return launches
 
 
@@ -4431,11 +4553,7 @@ def hymba_train_parity_phase(torch):
     warmup + VACO step card against CPU, then one B 1 x S 2100 forward
     and backward (the CPU's chunked plain attention against the card's
     kernels) with its param grads compared."""
-    import torch.nn.functional as F
-
-    from repro_torch import kernels
     from repro_torch.kernels import ref
-    from repro_torch.utils.tree import tree_leaves, tree_map, tree_to
 
     cfg, bundle, params = train_parity_phase(
         torch, "hymba-1.5b", dense_scale=3.0, tag="hymba_train_parity",
@@ -4443,6 +4561,22 @@ def hymba_train_parity_phase(torch):
     s = HYMBA_LONG_TRAIN
     check(s > ref.CHUNKED_ATTN_THRESHOLD and s > cfg.window_for_layer(0),
           "phase 32's long forward must pass the chunked threshold")
+    _long_train_parity(torch, cfg, bundle, params, s,
+                       "hymba_long_train_parity",
+                       {"flash_attention_bwd": cfg.n_layers,
+                        "ssm_scan_bwd": cfg.n_layers})
+
+
+def _long_train_parity(torch, cfg, bundle, params, s, tag, want, **extra):
+    """One B 1 x S ``s`` forward and backward of ``params`` (the next
+    token's cross-entropy) on the CPU's plain path and on the card:
+    loss and every param grad within 1e-4 of its largest magnitude; the
+    card launches each kernel of ``want`` the times given."""
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_to
+
     tokens = torch.randint(3, cfg.vocab_size, (1, s),
                            generator=torch.Generator().manual_seed(12))
     out = {}
@@ -4463,25 +4597,464 @@ def hymba_train_parity_phase(torch):
                         launches=kernels.launch_counts())
         del logits, loss, grads, leaves, p
     cpu, card = out["cpu"], out["cuda"]
-    check(card["launches"]["flash_attention_bwd"] == cfg.n_layers
-          and card["launches"]["ssm_scan_bwd"] == cfg.n_layers,
-          f"long train step launches {card['launches']}")
+    check(all(card["launches"][k] == n for k, n in want.items()),
+          f"{tag}: launches {card['launches']}, want {want}")
     worst_rel, worst_leaf = 0.0, None
     for idx, (g, w) in enumerate(zip(card["grads"], cpu["grads"])):
-        check((g is None) == (w is None), f"long step: grad {idx} missing")
+        check((g is None) == (w is None), f"{tag}: grad {idx} missing")
         if w is None:
             continue
-        check(bool(torch.isfinite(g).all()), f"long step: grad {idx} NaN")
+        check(bool(torch.isfinite(g).all()), f"{tag}: grad {idx} NaN")
         rel = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
         if rel > worst_rel:
             worst_rel, worst_leaf = rel, idx
     rel_loss = abs(card["loss"] - cpu["loss"]) / max(1.0, abs(cpu["loss"]))
-    emit(phase="hymba_long_train_parity", S=s, layers=cfg.n_layers,
+    emit(phase=tag, S=s, layers=cfg.n_layers, **extra,
          loss_cpu=cpu["loss"], loss_cuda=card["loss"], loss_rel_err=rel_loss,
          grad_rel_err=worst_rel, worst_leaf=worst_leaf, tol=1e-4,
          cpu_s=cpu["seconds"], cuda_s=card["seconds"])
     check(rel_loss <= 1e-4 and worst_rel <= 1e-4,
-          f"hymba long train parity: loss {rel_loss}, grads {worst_rel}")
+          f"{tag}: loss {rel_loss}, grads {worst_rel}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 33-35: training rwkv6 (the wkv6 backward kernel)
+# ---------------------------------------------------------------------------
+
+WKV6_BWD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}   # of max(1, |ref|)
+RWKV_TRAIN_ARGS = [
+    "rlvr", "--full-width", "--arch", "rwkv6-1.6b", "--device", "cuda",
+    "--warmup-steps", "2", "--n-minibatches", "2", "--phases", "1"]
+
+
+def _wkv6_bwd_bound(b, s, h, kd, carried, esize, dname):
+    """``wkv6_bwd``'s bound: r, k, v, w and dy read, dr, dk, dv and dw
+    written once, u and du once each, and where the call carries them
+    the initial state and the final state's gradient read and the
+    state's gradient written; 12 operations per state element and step
+    (the recomputed state, the dr, dk, dw and dv products, the reverse
+    recurrence) at the peak of the inputs' type, as every bound of the
+    port takes it (the kernel's own arithmetic is float32 either way)."""
+    n_tok = b * s * h * kd
+    nbytes = ((9 * n_tok + 2 * h * kd) * esize
+              + (3 * b * h * kd * kd * 4 if carried else 0))
+    return bound(nbytes, 12 * n_tok * kd, dname)
+
+
+def wkv6_bwd_kernel_phase(torch):
+    """Phase 33: ``wkv6_bwd`` against ``ref_wkv6_backward`` and autograd
+    of ``ref_wkv6`` (up to S 64), float32 and bfloat16, two launches
+    bit-identical; the learner shape (both dtypes) and B 1 x S 2048
+    timed, and the forward at the learner shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import (wkv6_bwd_cuda, wkv6_bwd_info,
+                                          wkv6_cuda, wkv6_impl)
+
+    h = RWKV_H
+    cases = (   # (case, B, S, H, K, carried state + final grad, decay)
+        ("learner", LEARN_B, LEARN_S, h, 64, False, None),
+        ("b8_s32", RWKV_B, RWKV_P, h, 64, False, None),
+        ("s1", 2, 1, 3, 64, True, None),
+        ("ragged_s37", 2, 37, 3, 64, True, None),
+        ("edge_decay", 2, 33, 2, 64, True, "mix"),     # w = 0, 1, 1e-6
+        ("long_b1", 1, RWKV_LONG, h, 64, False, None),
+        ("scratch_s150", 1, 150, 2, 64, True, None),   # starts off chip
+        ("k8", 2, 17, 1, 8, True, None),
+        ("k16", 2, 32, 2, 16, False, None),
+        ("k32", 2, 50, 3, 32, True, "mix"))
+    timed = {"float32": ("learner", "long_b1"), "bfloat16": ("learner",)}
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    headline, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        tol = WKV6_BWD_TOL[dname]
+        for case, bb, s, hh, kd, carried, decay in cases:
+            t_case = time.perf_counter()
+            args = _wkv6_inputs(torch, dtype, bb, s, hh, kd, carried, decay,
+                                seed=s * hh + kd + 3)
+            gen = torch.Generator(device="cuda").manual_seed(s + 5)
+            gy = torch.randn(bb, s, hh, kd, generator=gen,
+                             device="cuda").to(dtype)
+            gs = (torch.randn(bb, hh, kd, kd, generator=gen, device="cuda")
+                  if carried else None)
+            got = wkv6_bwd_cuda(*args, gy, gs)
+            again = wkv6_bwd_cuda(*args, gy, gs)
+            plain = ref.ref_wkv6_backward(*args, gy, gs)
+            auto = [None] * 6
+            if s <= 64:        # autograd records S steps of graph
+                leaves = [None if x is None else
+                          x.detach().clone().requires_grad_(True)
+                          for x in args]
+                y, final = ref.ref_wkv6(*leaves)
+                outs = ((y, final), (gy, gs)) if carried else ((y,), (gy,))
+                it = iter(torch.autograd.grad(
+                    outs[0], [x for x in leaves if x is not None], outs[1]))
+                auto = [None if x is None else next(it) for x in leaves]
+                del y, final, leaves
+            torch.cuda.synchronize()
+            check(all((a is None and b_ is None) or torch.equal(a, b_)
+                      for a, b_ in zip(got, again)),
+                  f"wkv6_bwd/{case}/{dname}: two launches differ")
+            err = 0.0
+            for name, g, p_, a_ in zip(names, got, plain, auto):
+                if p_ is None:
+                    check(g is None, f"wkv6_bwd/{case}: dstate without state")
+                    continue
+                err = max(err, _grad_err(g, p_, tol,
+                                         f"wkv6_bwd/{case}/{dname}/{name}"))
+                if a_ is not None:
+                    _grad_err(g, a_.to(g.dtype), tol,
+                              f"wkv6_bwd/{case}/{dname}/{name} vs autograd")
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            del again, plain, auto
+            info = wkv6_bwd_info(dtype, kd, s)
+            if case not in timed[dname]:
+                emit(phase="kernel_check", kernel="wkv6_bwd", case=case,
+                     dtype=dname, B=bb, S=s, H=hh, K=kd, carried=carried,
+                     decay=decay, max_abs_err=err, tol=tol, **info,
+                     seconds=time.perf_counter() - t_case)
+                continue
+            kern = lambda: wkv6_bwd_cuda(*args, gy, gs)
+            plain_fn = lambda: ref.ref_wkv6_backward(*args, gy, gs)
+            short = s <= 64      # the plain loop takes seconds at S 2048
+            b_ms, b_by = _wkv6_bwd_bound(bb, s, hh, kd, carried, esize,
+                                         dname)
+            rec = dict(phase="kernel", kernel="wkv6_bwd", case=case,
+                       dtype=dname, B=bb, S=s, H=hh, K=kd, max_abs_err=err,
+                       tol=tol, **info, kernel_ms=time_ms(kern, iters=50),
+                       plain_ms=time_ms(plain_fn, iters=2 if short else 1,
+                                        warmup=1 if short else 0),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       kernel_device_ms=device_ms(kern, "wkv6_bwd"),
+                       plain_device_ms=(device_ms(plain_fn, iters=1)
+                                        if short else None))
+            if case == "learner":      # the main and the reduce kernel
+                rec["kernels_ms"] = profile_kernels(kern, lambda rows: sum(
+                    "wkv6_bwd" in r[0] for r in rows) >= 2)[1]
+                headline[("wkv6_bwd", dname)] = rec
+            rec["seconds"] = time.perf_counter() - t_case
+            emit(**rec)
+            check(rec["kernel_device_ms"] is not None,
+                  f"wkv6_bwd/{case}/{dname}: no wkv6_bwd in the profile")
+            if case != "learner":
+                continue
+            # Row 7's learner line: the forward every learner step runs.
+            fwd = lambda: wkv6_cuda(*args)
+            f_ms, f_by = _wkv6_bound(bb, s, hh, kd, False, esize, dname)
+            emit(phase="kernel", kernel="wkv6", case="learner", dtype=dname,
+                 B=bb, S=s, H=hh, K=kd, impl=wkv6_impl(bb, s, hh),
+                 kernel_ms=time_ms(fwd, iters=50),
+                 plain_ms=time_ms(lambda: ref.ref_wkv6(*args), iters=2,
+                                  warmup=1),
+                 library_ms=None, bound_ms=f_ms, bound_by=f_by,
+                 kernel_device_ms=device_ms(fwd, "wkv6_"))
+    for dname, err in worst.items():
+        headline[("wkv6_bwd", dname)] = dict(headline[("wkv6_bwd", dname)],
+                                             max_abs_err=err)
+    return headline
+
+
+def rwkv_train_phase(torch):
+    """Phase 34: ``train rlvr --full-width --arch rwkv6-1.6b`` in-process
+    (2 warmup steps, one phase of 2 minibatches), then one learner step
+    with seeded advantages on seeded completions, counted and profiled,
+    and its gradient held against the plain route's.  Returns the run's
+    launches."""
+    from repro_torch.rollout.sampler import score_tokens
+
+    run = _train_run(torch, RWKV_TRAIN_ARGS)
+    trainer, res, warm_loss, _, launches, _, _, produce = run
+    cfg, hp = trainer.bundle.cfg, trainer.hp
+    check(cfg.attn_free and (cfg.n_layers, cfg.d_model, cfg.d_ff,
+                             cfg.vocab_size) == (RWKV_L, 2048, 7168, 65536),
+          f"rwkv train phase is not full width: {cfg}")
+    steps = len(res.phase_logs)
+    check(steps == hp.n_minibatches and trainer.nonfinite_skipped == 0,
+          f"{steps} learner steps logged of {hp.n_minibatches}")
+    # Every warmup and learner step runs wkv6 and wkv6_bwd once a layer;
+    # every generate (each minibatch's, the one in flight, eval) once a
+    # layer for its prefill and once for each of its decode steps; the
+    # log-prob kernels once a learner step.
+    grad_steps = hp.warmup_steps + steps
+    generates = len(produce) + 1 + len(res.eval_accuracy)
+    want = {"wkv6_bwd": cfg.n_layers * grad_steps,
+            "wkv6": cfg.n_layers * (generates * (1 + hp.max_new_tokens)
+                                    + grad_steps),
+            "fused_logprob": steps, "fused_logprob_bwd": steps}
+    check(len(produce) > 0 and all(launches[k] == n
+                                   for k, n in want.items()),
+          f"rwkv train launched {launches}, want {want} ({generates} "
+          f"generates, {grad_steps} steps)")
+    check(all(math.isfinite(l.tv) for l in res.phase_logs)
+          and math.isfinite(warm_loss), "non-finite warmup loss or tv")
+    # A random init earns no reward: then every advantage, and so the
+    # learner steps' gradient, is exactly 0 (the seeded step below holds
+    # a non-zero one); a reward makes it positive.
+    gnorm = trainer.metrics.histogram("train_grad_norm").summary()
+    rewards = [l.mean_reward for l in res.phase_logs]
+    check(math.isfinite(gnorm["max"])
+          and (gnorm["max"] > 0) == any(r > 0 for r in rewards),
+          f"rwkv train: grad norms {gnorm}, rewards {rewards}")
+    _train_record("rwkv_train", *run, mean_reward=rewards)
+
+    # One more learner step with seeded advantages, N(0, 1) a row (the
+    # random init's completions of a prompt can coincide, and then
+    # group-normalised advantages cancel), on completions the model did
+    # not sample: the init puts p ~ 1 on its own samples, whose gradient
+    # is then ~1e-8 and would pass a wrong backward.  Seeded tokens,
+    # scored by the current params for log_beta (ratio 1).
+    def adv_of(rows):
+        return torch.randn(rows, generator=torch.Generator().manual_seed(11))
+
+    def resample(tokens):
+        p = trainer.dataset.prompt_len
+        comp = torch.randint(
+            3, cfg.vocab_size, tokens[:, p:].shape, dtype=tokens.dtype,
+            generator=torch.Generator().manual_seed(13)).to(tokens.device)
+        tokens = torch.cat([tokens[:, :p], comp], 1)
+        with torch.no_grad():
+            lp, _, _ = score_tokens(trainer.bundle, trainer.state.params,
+                                    tokens, p)
+        return tokens, lp
+
+    batch = _learner_step_profile(
+        torch, trainer, adv_of,
+        {"wkv6": cfg.n_layers, "wkv6_bwd": cfg.n_layers,
+         "fused_logprob": 1, "fused_logprob_bwd": 1},
+        ("wkv6_bwd", "wkv6_chunk", "wkv6_kernel", "logprob"),
+        "rwkv_step_profile", resample=resample)
+    _rwkv_step_against_plain(torch, trainer, *batch)
+    del trainer, run
+    return launches
+
+
+def _plain_wkv6_with_grad(torch):
+    """``ops.wkv6``'s plain stand-in for a full-width gradient on the
+    card: ``ref_wkv6`` forward, ``ref_wkv6_backward`` backward (autograd
+    through the step loop would keep ~100 MB of states a step and layer
+    at the learner shape)."""
+    from repro_torch.kernels import ref
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, w, u, state):
+            ctx.save_for_backward(r, k, v, w, u, state)
+            return ref.ref_wkv6(r, k, v, w, u, state)
+
+        @staticmethod
+        def backward(ctx, gy, gstate):
+            r, k, v, w, u, state = ctx.saved_tensors
+            return ref.ref_wkv6_backward(r, k, v, w, u, state,
+                                         gy.to(r.dtype).contiguous(), gstate)
+
+    return lambda r, k, v, w, u, state=None: Plain.apply(r, k, v, w, u,
+                                                         state)
+
+
+def _rwkv_step_against_plain(torch, trainer, tokens, log_beta, mask, adv,
+                             step_norm):
+    """The seeded step's gradient at full width, twice: through the
+    kernels (each layer's wkv6 inputs and its output's cotangent kept)
+    and with ``ops.wkv6`` on the plain versions on the card.  The
+    kernels' route launches ``wkv6_bwd`` once a layer and the plain one
+    never; the grad norm is at least 1e-3 (the loss is O(1)) and within
+    1e-4 of the plain route's (relative); on every layer's kept inputs
+    each output of ``wkv6_bwd`` (bit-identical to the step's own launch,
+    phase 33) is within 3e-4, phase 33's float32 gate, of its largest
+    magnitude in ``ref_wkv6_backward`` in float64 (the largest magnitude,
+    not max(1, |ref|): these gradients are ~1e-5, where an absolute
+    3e-4 would pass anything).  Recorded beside them: each param
+    grad's gap to the plain route over the leaf's largest magnitude
+    (the two routes' forwards differ too, so this gap is float32's over
+    24 layers, not the backward's), and each layer's gap of the kernel
+    and of the float32 plain backward to float64 over the output's
+    largest magnitude."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+    from repro_torch.train.trainer_rlvr import make_split_update_step
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    cfg = trainer.bundle.cfg
+    grad_step, _ = make_split_update_step(trainer.bundle, trainer.hp,
+                                          trainer.dataset.prompt_len)
+    kept, out, layers = ops.wkv6, {}, []
+
+    def recording(r, k, v, w, u, state=None):
+        y, final = kept(r, k, v, w, u, state)
+        entry = [t.detach() for t in (r, k, v, w, u)] + [None]
+        layers.append(entry)
+        y.register_hook(lambda g: entry.__setitem__(5, g.detach()))
+        return y, final
+
+    try:
+        for route, fn in (("kernels", recording),
+                          ("plain", _plain_wkv6_with_grad(torch))):
+            ops.wkv6 = fn
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            gr, _ = grad_step(trainer.state, tokens, log_beta, mask, adv)
+            torch.cuda.synchronize()
+            out[route] = dict(
+                seconds=time.perf_counter() - t0,
+                wkv6_bwd=kernels.launch_counts()["wkv6_bwd"],
+                grads=[(n, g.cpu()) for n, g in tree_leaves_with_path(gr)])
+            del gr
+    finally:
+        ops.wkv6 = kept
+    check(out["kernels"]["wkv6_bwd"] == cfg.n_layers
+          and out["plain"]["wkv6_bwd"] == 0
+          and len(layers) == cfg.n_layers
+          and all(e[5] is not None for e in layers),
+          f"rwkv step vs plain: wkv6_bwd launches "
+          f"{[out[r]['wkv6_bwd'] for r in out]}, {len(layers)} layers kept")
+    norm = {r: sum((g.double() ** 2).sum().item()
+                   for _, g in out[r]["grads"]) ** 0.5 for r in out}
+    worst_rel, worst_leaf = 0.0, None
+    for (name, g), (_, w) in zip(out["kernels"]["grads"],
+                                 out["plain"]["grads"]):
+        rel = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        if rel > worst_rel:
+            worst_rel, worst_leaf = rel, name
+    norm_rel = abs(norm["kernels"] - norm["plain"]) / norm["plain"]
+    del out["kernels"]["grads"], out["plain"]["grads"]
+    tol = WKV6_BWD_TOL["float32"]
+    names = ("dr", "dk", "dv", "dw", "du")
+    rel64 = {"kernel": {}, "plain32": {}}
+    for i, entry in enumerate(layers):
+        args = [t.contiguous() for t in entry[:5]]
+        gy = entry[5].contiguous()
+        got = wkv6_bwd_cuda(*args, None, gy, None)[:5]
+        plain = ref.ref_wkv6_backward(*args, None, gy, None)[:5]
+        want = ref.ref_wkv6_backward(*(t.double() for t in args), None,
+                                     gy.double(), None)[:5]
+        for name, g, p32, w64 in zip(names, got, plain, want):
+            check(g.shape == w64.shape and bool(g.isfinite().all()),
+                  f"rwkv step layer {i}: bad {name}")
+            scale = max(w64.abs().max().item(), 1e-30)
+            for route, x in (("kernel", g), ("plain32", p32)):
+                rel64[route][name] = max(
+                    rel64[route].get(name, 0.0),
+                    (x.double() - w64).abs().max().item() / scale)
+        del got, plain, want
+    del layers
+    emit(phase="rwkv_step_vs_plain", layers=cfg.n_layers,
+         grad_norm_kernels=norm["kernels"], grad_norm_plain=norm["plain"],
+         update_step_grad_norm=step_norm, grad_norm_rel_err=norm_rel,
+         norm_tol=1e-4, min_grad_norm=1e-3,
+         leaf_rel_err_to_plain=worst_rel, worst_leaf=worst_leaf,
+         wkv6_bwd_vs_float64=dict(rel_err=rel64, tol=tol),
+         wkv6_bwd={r: out[r]["wkv6_bwd"] for r in out},
+         seconds={r: out[r]["seconds"] for r in out})
+    check(norm["kernels"] >= 1e-3 and norm_rel <= 1e-4,
+          f"rwkv step vs plain: grad norms {norm}")
+    check(all(e <= tol for e in rel64["kernel"].values()),
+          f"rwkv step: wkv6_bwd from float64 by {rel64['kernel']} of each "
+          f"output's largest magnitude, tolerance {tol}")
+
+
+def rwkv_train_parity_phase(torch):
+    """Phase 35: 2 full-width rwkv6 layers: phase 9's warmup + VACO step
+    card against CPU, then one B 1 x S 2048 forward and backward (the
+    card's split forward and the backward with its chunk starts in
+    scratch; the CPU's ``WKV6Fn`` on the plain versions) with its param
+    grads compared."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd_info, wkv6_impl
+
+    # Unscaled weights: with dense x3 no float32 route holds the learner
+    # gradient to 1e-4 of float64 (``--grad-conditioning``); unscaled,
+    # every route does.
+    cfg, bundle, params = train_parity_phase(
+        torch, "rwkv6-1.6b", tag="rwkv_train_parity", same_start=True)
+    s = RWKV_LONG
+    _long_train_parity(torch, cfg, bundle, params, s,
+                       "rwkv_long_train_parity",
+                       {"wkv6": cfg.n_layers, "wkv6_bwd": cfg.n_layers},
+                       forward_impl=wkv6_impl(1, s, cfg.d_model // 64),
+                       backward=wkv6_bwd_info(torch.float32, 64, s))
+
+
+def rwkv_grad_conditioning(torch):
+    """``chip_smoke.py --grad-conditioning``: how far float32 holds the
+    learner gradient of phase 35's 2 full-width rwkv6 layers on phase
+    9's batch (the CPU's warmed params, ``log_beta`` 0.3 nats off), with
+    the dense weights x3 (warmed and not) and unscaled.  The yardstick
+    is the CPU in float64: every operation of the step, the recurrence
+    and its backward, the norms, the decay and the log-probs included,
+    keeps float64 inputs float64.  Against it: the CPU in float32, the
+    card through the kernels, and the card with ``ops.wkv6`` replaced by
+    ``ref_wkv6`` under autograd.  One JSON line a configuration: each
+    route's loss, grad norm, its gap to float64's norm and the leaves
+    furthest off (max abs error over the leaf's largest magnitude)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.registry import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.rollout.sampler import score_tokens
+    from repro_torch.train import RLVRHyperparams, make_warmup_step
+    from repro_torch.train.trainer_rlvr import (RLVRTrainState,
+                                                make_split_update_step)
+    from repro_torch.utils.tree import tree_leaves_with_path, tree_map
+
+    cfg = get_config("rwkv6-1.6b").replace(n_layers=2)
+    bundle = build(cfg)
+    hp = RLVRHyperparams(algorithm="grpo_vaco")
+    grad_step, _ = make_split_update_step(bundle, hp, 32)
+    norm = lambda gs: sum((x ** 2).sum().item() for x in gs) ** 0.5
+    for scale, warmed in ((3.0, True), (3.0, False), (None, True)):
+        params = bundle.init(torch.Generator().manual_seed(0))
+        if scale is not None:
+            params = _scale_dense(params, scale)
+        w_tok, w_mask, tokens, mask, adv, rng = _parity_batch(torch, hp)
+        if warmed:
+            st, _ = make_warmup_step(bundle, hp)(
+                RLVRTrainState(params, adamw_init(params), 0),
+                torch.as_tensor(w_tok), torch.as_tensor(w_mask))
+            params = st.params
+        tokens, mask = torch.as_tensor(tokens), torch.as_tensor(mask)
+        with torch.no_grad():
+            lp, _, _ = score_tokens(bundle, params, tokens, 32)
+        log_beta = lp + 0.3 * torch.from_numpy(
+            rng.standard_normal(lp.shape).astype(np.float32))
+
+        def grads(dev, dtype=torch.float32, plain=False):
+            kept = ops.wkv6
+            if plain:
+                ops.wkv6 = ref.ref_wkv6
+            try:
+                on = lambda t: (t.to(dev, dtype) if t.is_floating_point()
+                                else t.to(dev))
+                gr, aux = grad_step(
+                    RLVRTrainState(tree_map(on, params), None, 0),
+                    on(tokens), on(log_beta), on(mask), on(adv))
+                return aux["loss"].item(), [
+                    (name, g.double().cpu())
+                    for name, g in tree_leaves_with_path(gr)]
+            finally:
+                ops.wkv6 = kept
+
+        truth_loss, truth = grads("cpu", torch.float64)
+        rec = dict(phase="grad_conditioning", config=cfg.name,
+                   layers=cfg.n_layers, dense_scale=scale, warmed=warmed,
+                   truth_dtype=str(truth[0][1].dtype), truth_loss=truth_loss,
+                   truth_grad_norm=norm(g for _, g in truth))
+        for route, kw in (("cpu32", dict(dev="cpu")),
+                          ("card_kernels", dict(dev="cuda")),
+                          ("card_plain", dict(dev="cuda", plain=True))):
+            loss, gr = grads(**kw)
+            rel = {n: (g - t).abs().max().item()
+                   / max(t.abs().max().item(), 1e-30)
+                   for (n, g), (_, t) in zip(gr, truth)}
+            gn = norm(g for _, g in gr)
+            rec[route] = dict(
+                loss=loss, grad_norm=gn,
+                grad_norm_rel_err=(abs(gn - rec["truth_grad_norm"])
+                                   / rec["truth_grad_norm"]),
+                worst_leaves=sorted(rel.items(), key=lambda kv: -kv[1])[:4])
+        emit(**rec)
 
 
 KERNELS = (
@@ -4518,14 +5091,19 @@ KERNELS = (
      "src/repro/models/attention.py:79"),
     ("ssm_scan_bwd", "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
      "src/repro/models/ssm.py:50"),
+    # The gradient jax.grad takes through the plain recurrence (the
+    # Pallas kernel is forward-only).
+    ("wkv6_bwd", "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+     "src/repro/models/rwkv6.py:74"),
 )
 
 
 # ---------------------------------------------------------------------------
 # Comparison mode: ``chip_smoke.py --ab SRC`` measures ``paged_kv_write``,
 # ``ssm_scan``, ``wkv6`` and ``vtrace`` as the model calls them,
-# ``flash_attention_bwd`` and ``ssm_scan_bwd`` at the learner shapes (and
-# the qwen, hymba and rwkv6 serve paths), with the port found under SRC
+# ``flash_attention_bwd``, ``ssm_scan_bwd`` and ``wkv6_bwd`` at the
+# learner shapes (``wkv6_bwd`` also at B 1 x S 2048), and the qwen,
+# hymba and rwkv6 serve paths, with the port found under SRC
 # (this tree's ``src`` or an unpacked parent commit's), through the entry
 # points both trees share.  Run it for the parent and the change in turns
 # on one card; it prints JSON lines only (``profile_serve``'s result also
@@ -4654,6 +5232,19 @@ def ab_main(src: str) -> int:
             emit(phase="ab_wkv6", case=case, dtype=dname, B=bb, S=s,
                  impl=pick(bb, s, RWKV_H), ms=time_ms(kern, iters=50),
                  device_ms=device_ms(kern, "wkv6_"))
+        # The backward at the learner's shape and B 1 x S 2048 (trees
+        # that have it).
+        for case, bb, s in (("learner", LEARN_B, LEARN_S),
+                            ("long_b1", 1, RWKV_LONG)):
+            if not hasattr(wkv6_mod, "wkv6_bwd_cuda"):
+                break
+            args = _wkv6_inputs(torch, dtype, bb, s, RWKV_H, 64, False,
+                                seed=s + 1)
+            gy = torch.randn(bb, s, RWKV_H, 64, device="cuda").to(dtype)
+            kern = lambda: wkv6_mod.wkv6_bwd_cuda(*args, gy, None)
+            emit(phase="ab_wkv6_bwd", case=case, dtype=dname, B=bb, S=s,
+                 ms=time_ms(kern, iters=50),
+                 device_ms=device_ms(kern, "wkv6_bwd"))
         args = _vtrace_inputs(torch, RL_ACTORS, RL_STEPS, dtype, seed=1)
         kern = lambda: vtrace_cuda(*args)
         emit(phase="ab_vtrace", dtype=dname, B=RL_ACTORS, T=RL_STEPS,
@@ -4726,6 +5317,7 @@ def ab_main(src: str) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -4766,58 +5358,73 @@ def main() -> int:
              for name, log in build.build_log.items()}
     emit(phase="build", seconds=time.perf_counter() - t0, nvcc_s=times,
          ptxas=ptxas)
+    phase_s = {"1-2 device, build": time.perf_counter() - t_start}
 
-    headline = kernel_phase(torch)
-    headline.update(logprob_kernel_phase(torch))
-    launches = serve_phase(torch)
-    parity_phase(torch)
-    trainer, train_launches = train_phase(torch)
+    def run(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t
+        return out
+
+    def release():
+        gc.collect()              # the earlier phases' trainers (cycles)
+        torch.cuda.empty_cache()
+
+    headline = run("3 kernels", kernel_phase, torch)
+    headline.update(run("6 logprob kernels", logprob_kernel_phase, torch))
+    launches = run("4 serve", serve_phase, torch)
+    run("5 parity", parity_phase, torch)
+    trainer, train_launches = run("7 train", train_phase, torch)
     launches.update({k: train_launches[k]
                      for k in ("fused_logprob", "fused_logprob_bwd")})
-    step_phase(torch, trainer)
+    run("8 step", step_phase, torch, trainer)
     del trainer
     torch.cuda.empty_cache()
-    train_parity_phase(torch)
-    headline.update(vtrace_kernel_phase(torch))
-    launches["vtrace"] = rl_phase(torch)["vtrace"]
-    rl_profile_phase(torch)
-    rl_parity_phase(torch)
-    headline.update(wkv6_kernel_phase(torch))
-    launches["wkv6"] = rwkv_serve_phase(torch)["wkv6"]
-    rwkv_parity_phase(torch)
-    headline.update(flash_kernel_phase(torch))
-    headline.update(ssm_kernel_phase(torch))
-    hymba = hymba_serve_phase(torch)
+    run("9 train parity", train_parity_phase, torch)
+    headline.update(run("10 vtrace kernel", vtrace_kernel_phase, torch))
+    launches["vtrace"] = run("11 rl", rl_phase, torch)["vtrace"]
+    run("11 rl profile", rl_profile_phase, torch)
+    run("12 rl parity", rl_parity_phase, torch)
+    headline.update(run("13 wkv6 kernel", wkv6_kernel_phase, torch))
+    launches["wkv6"] = run("14 rwkv serve", rwkv_serve_phase, torch)["wkv6"]
+    run("15 rwkv parity", rwkv_parity_phase, torch)
+    headline.update(run("16 flash kernel", flash_kernel_phase, torch))
+    headline.update(run("16 ssm kernel", ssm_kernel_phase, torch))
+    hymba = run("17 hymba serve", hymba_serve_phase, torch)
     launches.update({k: hymba[k] for k in ("flash_attention", "ssm_scan")})
-    hymba_parity_phase(torch)
-    rlvr_baseline = serve_rlvr_phase(torch)
-    swap_parity_phase(torch)
-    threaded_rl_phase(torch)
-    threaded_serve_rlvr_phase(torch)
-    harness_phase(torch)
-    gc.collect()                  # the earlier phases' trainers (cycles)
-    torch.cuda.empty_cache()
-    trainer = controllers_phase(torch)
-    chaos_phase(torch)
-    checkpoint_phase(torch, trainer)
+    run("18 hymba parity", hymba_parity_phase, torch)
+    rlvr_baseline = run("19 serve rlvr", serve_rlvr_phase, torch)
+    run("20 swap parity", swap_parity_phase, torch)
+    run("21 threaded rl", threaded_rl_phase, torch)
+    run("22 threaded serve rlvr", threaded_serve_rlvr_phase, torch)
+    run("23 harnesses", harness_phase, torch)
+    release()
+    trainer = run("24 controllers", controllers_phase, torch)
+    run("25 chaos", chaos_phase, torch)
+    run("26 checkpoints", checkpoint_phase, torch, trainer)
     del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches["paged_attention_multi"] = spec_serve_phase(torch)[
-        "paged_attention_multi"]
-    prefix_cache_phase(torch)
-    spec_rlvr_phase(torch, rlvr_baseline)
-    gc.collect()
-    torch.cuda.empty_cache()
-    headline.update(bwd_kernel_phase(torch))
-    gc.collect()
-    torch.cuda.empty_cache()
-    hymba_train = hymba_train_phase(torch)
+    release()
+    launches["paged_attention_multi"] = run(
+        "27 spec serve", spec_serve_phase, torch)["paged_attention_multi"]
+    run("28 prefix cache", prefix_cache_phase, torch)
+    run("29 spec rlvr", spec_rlvr_phase, torch, rlvr_baseline)
+    release()
+    headline.update(run("30 bwd kernels", bwd_kernel_phase, torch))
+    release()
+    hymba_train = run("31 hymba train", hymba_train_phase, torch)
     launches.update({k: hymba_train[k]
                      for k in ("flash_attention_bwd", "ssm_scan_bwd")})
-    gc.collect()
-    torch.cuda.empty_cache()
-    hymba_train_parity_phase(torch)
+    release()
+    run("32 hymba train parity", hymba_train_parity_phase, torch)
+    release()
+    headline.update(run("33 wkv6 bwd kernel", wkv6_bwd_kernel_phase, torch))
+    release()
+    launches["wkv6_bwd"] = run("34 rwkv train", rwkv_train_phase,
+                               torch)["wkv6_bwd"]
+    release()
+    run("35 rwkv train parity", rwkv_train_parity_phase, torch)
+    print(json.dumps({"phase_seconds": phase_s,
+                      "total_s": time.perf_counter() - t_start}))
 
     rows = []
     for name, source, replaces in KERNELS:
@@ -4836,7 +5443,31 @@ def main() -> int:
     return 0
 
 
+def conditioning_main() -> int:
+    """``--grad-conditioning``: builds the kernels and prints
+    :func:`rwkv_grad_conditioning`'s lines and the ``nvidia-smi`` line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --grad-conditioning: torch.cuda.is_available() "
+              "is false", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import build
+
+    build.build_all()
+    rwkv_grad_conditioning(torch)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip())
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(ab_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--grad-conditioning"]:
+        sys.exit(conditioning_main())
     sys.exit(main())

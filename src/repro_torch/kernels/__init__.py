@@ -1,6 +1,7 @@
 """Kernels of the port: plain versions (``ref``), CUDA wrappers (one
 module per kernel, each backward kernel with its forward: ``logprobs``,
-``flash_attention``, ``ssm_scan``) and the device dispatch (``ops``)."""
+``flash_attention``, ``ssm_scan``, ``wkv6``) and the device dispatch
+(``ops``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -14,7 +15,7 @@ _KERNELS = (paged_kv_write.KERNEL, paged_attention.KERNEL,
             logprobs.BWD_KERNEL, vtrace.KERNEL, wkv6.KERNEL,
             flash_attention.KERNEL, ssm_scan.KERNEL,
             flash_attention.BWD_KERNEL, ssm_scan.BWD_KERNEL,
-            paged_attention_varlen.MULTI)
+            wkv6.BWD_KERNEL, paged_attention_varlen.MULTI)
 
 
 def launch_counts() -> Dict[str, int]:

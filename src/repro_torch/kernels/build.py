@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_kv_write", "paged_attention", "paged_attention_varlen",
            "fused_logprob", "fused_logprob_bwd", "vtrace", "wkv6",
            "flash_attention", "ssm_scan", "flash_attention_bwd",
-           "ssm_scan_bwd")
+           "ssm_scan_bwd", "wkv6_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

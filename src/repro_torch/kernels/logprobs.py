@@ -100,7 +100,8 @@ class LogprobsFn(torch.autograd.Function):
         else:
             logp = ref.ref_logprobs_from_logits(logits, targets)
             ent = ref.ref_entropy_from_logits(logits)
-            lse = torch.logsumexp(logits.float(), dim=-1)
+            lse = torch.logsumexp(logits.to(torch.promote_types(
+                logits.dtype, torch.float32)), dim=-1)
         ctx.save_for_backward(logits, targets, lse, ent)
         return logp, ent
 
@@ -109,8 +110,9 @@ class LogprobsFn(torch.autograd.Function):
         if g_lp is None and g_ent is None:
             return None, None
         logits, targets, lse, ent = ctx.saved_tensors
-        g_lp = None if g_lp is None else g_lp.float().contiguous()
-        g_ent = None if g_ent is None else g_ent.float().contiguous()
+        acc = torch.promote_types(logits.dtype, torch.float32)
+        g_lp = None if g_lp is None else g_lp.to(acc).contiguous()
+        g_ent = None if g_ent is None else g_ent.to(acc).contiguous()
         if logits.device.type == "cuda":
             return fused_logprob_bwd_cuda(logits, targets, lse, ent, g_lp,
                                           g_ent), None

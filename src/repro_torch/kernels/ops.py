@@ -2,11 +2,13 @@
 
 The JAX signatures are kept, minus ``mode`` and ``mesh``: the kernel is
 chosen by the tensor's device.  A CPU tensor takes the plain PyTorch
-version (``kernels.ref``), which autograd differentiates; a CUDA tensor
-takes the hand-written CUDA kernel, or the call raises, and where a
-gradient is needed (``attention``, ``ssm_scan``, ``logprobs_from_logits``)
-its autograd function, whose backward is a hand-written kernel too.
-Nothing routes a CUDA tensor to the plain path.
+version (``kernels.ref``), which autograd differentiates (``wkv6`` and
+``logprobs_from_logits`` through their autograd functions' plain
+backwards); a CUDA tensor takes the hand-written CUDA kernel, or the
+call raises, and where a gradient is needed (``attention``,
+``ssm_scan``, ``wkv6``, ``logprobs_from_logits``) its autograd function,
+whose backward is a hand-written kernel too.  Nothing routes a CUDA
+tensor to the plain path.
 
 ``paged_kv_write`` updates the pools in place (JAX returns new, donated
 pools) and returns the same tensors, so callers may keep either form.
@@ -28,7 +30,7 @@ from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
 from repro_torch.kernels.ssm_scan import (SSMScanFn, bc_row_stride,
                                           ssm_scan_cuda)
 from repro_torch.kernels.vtrace import vtrace_cuda
-from repro_torch.kernels.wkv6 import wkv6_cuda
+from repro_torch.kernels.wkv6 import WKV6Fn, wkv6_cuda
 
 
 def _route(t: torch.Tensor) -> str:
@@ -157,13 +159,20 @@ def vtrace(
 def wkv6(r, k, v, w, u, state=None):
     """The RWKV-6 recurrence over ``[B, S, H, K]`` heads: ``(y [B, S, H,
     V]`` in ``r``'s dtype, ``final_state [B, H, K, V]`` float32)``;
-    ``state=None`` starts from zeros.  No gradient on the card (the
-    kernel raises on inputs that require grad).  On the card every input
-    is made contiguous."""
-    if _route(r) == "cpu":
+    ``state=None`` starts from zeros.  Inputs that need a gradient go
+    through ``WKV6Fn`` on either device (the backward is ``wkv6_bwd`` on
+    the card, ``ref_wkv6_backward`` on the CPU); others take the kernel
+    on the card and ``ref_wkv6`` on the CPU.  On the card every input is
+    made contiguous."""
+    cpu = _route(r) == "cpu"
+    if not cpu:
+        r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+        state = None if state is None else state.contiguous()
+    if _needs_grad(r, k, v, w, u, state):
+        return WKV6Fn.apply(r, k, v, w, u, state)
+    if cpu:
         return ref.ref_wkv6(r, k, v, w, u, state)
-    return wkv6_cuda(*(t.contiguous() for t in (r, k, v, w, u)),
-                     None if state is None else state.contiguous())
+    return wkv6_cuda(r, k, v, w, u, state)
 
 
 def attention(q, k, v, *, window: Optional[int] = None,

@@ -181,16 +181,18 @@ def ref_logprobs_from_logits(
     logits: torch.Tensor,    # [N, V] (callers flatten [B, S, V])
     targets: torch.Tensor,   # [N] int
 ) -> torch.Tensor:
-    """log softmax gathered at targets, float32 accumulation."""
-    logits32 = logits.float()
+    """log softmax gathered at targets, float32 accumulation (float64
+    for float64 logits)."""
+    logits32 = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(logits32, dim=-1)
     tgt = torch.gather(logits32, 1, targets.long()[:, None])[:, 0]
     return tgt - lse
 
 
 def ref_entropy_from_logits(logits: torch.Tensor) -> torch.Tensor:
-    """Per-row softmax entropy, float32."""
-    lp = torch.log_softmax(logits.float(), dim=-1)
+    """Per-row softmax entropy, float32 (float64 for float64 logits)."""
+    lp = torch.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     return -torch.sum(torch.exp(lp) * lp, dim=-1)
 
 
@@ -206,7 +208,7 @@ def ref_logprobs_backward(
     in their dtype: with ``p = exp(x - lse)`` and ``H = ent``,
     ``dx = g_lp * (onehot(t) - p) - g_ent * p * (x - lse + H)``.  An
     absent gradient contributes nothing."""
-    x = logits.float()
+    x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     p = torch.exp(x - lse[:, None])
     dx = torch.zeros_like(x)
     if g_lp is not None:
@@ -323,19 +325,20 @@ def ref_wkv6(
 ):
     """The WKV6 recurrence step by step (``repro.models.rwkv6.wkv6_scan``):
     ``y_t = (S + diag(u) k_t v_t^T)^T r_t`` then
-    ``S <- diag(w_t) S + k_t v_t^T``, in float32 from a float32 state
-    (zeros when ``state`` is None).  Returns ``(y [B, S, H, V]`` in
-    ``r``'s dtype, ``final_state [B, H, K, V]`` float32)``."""
+    ``S <- diag(w_t) S + k_t v_t^T``, in float32 (float64 for float64
+    inputs) from the state (zeros when ``state`` is None).  Returns
+    ``(y [B, S, H, V]`` in ``r``'s dtype, ``final_state [B, H, K, V]``
+    in the compute dtype)``."""
     bsz, s, h, kd = r.shape
     vd = v.shape[-1]
+    acc = torch.promote_types(r.dtype, torch.float32)
     if state is None:
-        state = torch.zeros((bsz, h, kd, vd), dtype=torch.float32,
-                            device=r.device)
-    big_s = state.float()
-    u32 = u.float()[None, :, :, None]
+        state = torch.zeros((bsz, h, kd, vd), dtype=acc, device=r.device)
+    big_s = state.to(acc)
+    u32 = u.to(acc)[None, :, :, None]
     ys = []
     for t in range(s):
-        r_t, k_t, v_t, w_t = (a[:, t].float() for a in (r, k, v, w))
+        r_t, k_t, v_t, w_t = (a[:, t].to(acc) for a in (r, k, v, w))
         kv = k_t[..., :, None] * v_t[..., None, :]              # [B,H,K,V]
         ys.append(torch.einsum("bhkv,bhk->bhv", big_s + u32 * kv, r_t))
         big_s = w_t[..., :, None] * big_s + kv
@@ -428,6 +431,82 @@ def ref_wkv6_chunked(
         y, big_s = run(t0, t1, start)
         ys += y
     return torch.cat(ys, dim=1).to(r.dtype), big_s
+
+
+# Steps a chunk of the WKV6 backward recomputes from its start and walks
+# back (``csrc/wkv6_bwd.cu``: kChunk).
+WKV6_BWD_CHUNK = 8
+
+
+def ref_wkv6_backward(
+    r: torch.Tensor,                           # [B, S, H, K]
+    k: torch.Tensor,                           # [B, S, H, K]
+    v: torch.Tensor,                           # [B, S, H, V]
+    w: torch.Tensor,                           # [B, S, H, K]
+    u: torch.Tensor,                           # [H, K]
+    state: Optional[torch.Tensor],             # [B, H, K, V] or None (zeros)
+    y_grad: torch.Tensor,                      # [B, S, H, V]
+    state_grad: Optional[torch.Tensor],        # [B, H, K, V] or None (zeros)
+    *,
+    chunk: int = WKV6_BWD_CHUNK,
+):
+    """Gradient of :func:`ref_wkv6` by an explicit reverse recurrence, in
+    the algebra the card's backward kernel uses.  A forward walk keeps
+    the state at the start of every ``chunk`` steps; the chunks are then
+    taken last to first, each chunk's states recomputed from its start
+    and walked in reverse.  With ``S_t`` the state after step t,
+    ``G_t`` the gradient reaching it (``G_{S-1}`` = ``state_grad``) and
+    ``g_t = dy_t . v_t``:
+    ``dr_t = S_{t-1} dy_t + u k_t g_t``,
+    ``dk_t = u r_t g_t + G_t v_t``,
+    ``dv_t = (r_t . u k_t) dy_t + G_t^T k_t``,
+    ``dw_t = sum_v G_t S_{t-1}``, ``du = sum_{b,t} r_t k_t g_t`` and
+    ``G_{t-1} = diag(w_t) G_t + r_t dy_t^T``; the initial state's
+    gradient is the last G.  Nothing divides by w or takes its
+    logarithm, so w = 0 gives exact, finite gradients.  Everything runs
+    in float32 (float64 for float64 inputs).  Returns ``(dr, dk, dv,
+    dw)`` in their inputs' dtype, ``du`` in u's, and the initial state's
+    gradient in the compute dtype (None when ``state`` is None)."""
+    bsz, s, h, kd = r.shape
+    vd = v.shape[-1]
+    acc = torch.promote_types(r.dtype, torch.float32)
+    r32, k32, v32, w32, dy32 = (x.to(acc) for x in (r, k, v, w, y_grad))
+    u32 = u.to(acc)
+    zeros = torch.zeros((bsz, h, kd, vd), dtype=acc, device=r.device)
+    big_s = zeros if state is None else state.to(acc)
+    spans = [(t0, min(t0 + chunk, s)) for t0 in range(0, s, chunk)]
+    starts = []
+    for t0, t1 in spans:
+        starts.append(big_s)
+        for t in range(t0, t1):
+            big_s = (w32[:, t, ..., None] * big_s
+                     + k32[:, t, ..., None] * v32[:, t, :, None, :])
+    dr, dk, dw = (torch.empty_like(r32) for _ in range(3))
+    dv = torch.empty_like(v32)
+    du = torch.zeros_like(u32)
+    g_s = zeros if state_grad is None else state_grad.to(acc)
+    for (t0, t1), start in zip(reversed(spans), reversed(starts)):
+        before, hh = [], start                  # before[j] = S_{t0+j-1}
+        for t in range(t0, t1):
+            before.append(hh)
+            hh = (w32[:, t, ..., None] * hh
+                  + k32[:, t, ..., None] * v32[:, t, :, None, :])
+        for j in reversed(range(t1 - t0)):
+            t = t0 + j
+            r_t, k_t, v_t, w_t, dy_t = (x[:, t] for x in (r32, k32, v32,
+                                                          w32, dy32))
+            g = (dy_t * v_t).sum(-1, keepdim=True)              # [B, H, 1]
+            dr[:, t] = (torch.einsum("bhkv,bhv->bhk", before[j], dy_t)
+                        + u32 * k_t * g)
+            dk[:, t] = u32 * r_t * g + torch.einsum("bhkv,bhv->bhk", g_s,
+                                                     v_t)
+            dv[:, t] = ((r_t * u32 * k_t).sum(-1, keepdim=True) * dy_t
+                        + torch.einsum("bhkv,bhk->bhv", g_s, k_t))
+            dw[:, t] = (g_s * before[j]).sum(-1)
+            du += (r_t * k_t * g).sum(0)
+            g_s = w_t[..., None] * g_s + r_t[..., None] * dy_t[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), None if state is None else g_s)
 
 
 # ---------------------------------------------------------------------------

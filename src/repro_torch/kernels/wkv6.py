@@ -1,10 +1,18 @@
-"""Wrapper of the CUDA WKV6 kernels (``csrc/wkv6.cu``).
+"""Wrappers of the CUDA WKV6 kernels (``csrc/wkv6.cu`` and
+``csrc/wkv6_bwd.cu``) and their autograd function.
 
-Replaces the Pallas kernel ``repro.kernels.wkv6_pallas.wkv6_pallas``.
-The plain version is ``kernels.ref.ref_wkv6``; ``ref.ref_wkv6_chunked``
-is the plain form of the chunked and split instantiations.  The kernels
-have no backward yet (serving needs none), so the wrapper refuses inputs
-that require grad.
+The forward replaces the Pallas kernel
+``repro.kernels.wkv6_pallas.wkv6_pallas``; the backward replaces the
+gradient that ``jax.grad`` takes through ``repro.models.rwkv6.wkv6_scan``
+(the Pallas kernel is forward-only).  The plain versions are
+``kernels.ref.ref_wkv6`` and ``ref_wkv6_backward``;
+``ref.ref_wkv6_chunked`` is the plain form of the chunked and split
+instantiations.  ``wkv6_cuda`` refuses inputs that require grad: those
+go through ``WKV6Fn``, which runs the kernels on CUDA tensors and the
+plain versions on CPU tensors, so the CPU tests drive the same
+forward/backward wiring the card runs.  The backward recomputes the
+states from the inputs, so a forward that will be differentiated saves
+nothing more than its inputs and costs what a no-grad forward costs.
 
 Three instantiations (:func:`wkv6_impl` picks one and names it):
 ``serial``, a thread per value column walking every step, for a decode
@@ -17,12 +25,14 @@ batch (rwkv6's B 1 x S 2048 forward).
 """
 from __future__ import annotations
 
+import ctypes
 from ctypes import c_int, c_void_p
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import Kernel
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import Kernel, check, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KEY_DIMS = (8, 16, 32, 64)
@@ -45,6 +55,9 @@ SPLIT_BLOCKS_PER_SM = 2
 # r, k, v, w, u, state_in, y, state_out, scratch | B S H K V dtype impl
 # seg | stream
 KERNEL = Kernel("wkv6", [c_void_p] * 9 + [c_int] * 8 + [c_void_p])
+# r, k, v, w, u, state_in, dy, dstate_final, dr, dk, dv, dw, du, dstate,
+# scratch | B S H K V dtype | stream
+BWD_KERNEL = Kernel("wkv6_bwd", [c_void_p] * 15 + [c_int] * 6 + [c_void_p])
 
 
 def wkv6_impl(batch: int, steps: int, heads: int) -> str:
@@ -65,30 +78,12 @@ def split_steps(batch: int, steps: int, heads: int) -> int:
     return -(-seg // SUB_STEPS) * SUB_STEPS
 
 
-def wkv6_cuda(
-    r: torch.Tensor,                       # [B, S, H, K]
-    k: torch.Tensor,                       # [B, S, H, K]
-    v: torch.Tensor,                       # [B, S, H, V]
-    w: torch.Tensor,                       # [B, S, H, K] decay in [0, 1]
-    u: torch.Tensor,                       # [H, K]
-    state: Optional[torch.Tensor] = None,  # [B, H, K, V] float32
-    *,
-    impl: Optional[str] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(y [B, S, H, V]`` in the inputs' dtype, ``final_state [B, H, K,
-    V]`` float32)`` from inputs of one dtype (float32 or bfloat16),
-    contiguous, on one CUDA device; ``state=None`` starts from zeros.
-    ``K`` is 8, 16, 32 or 64 and ``V`` at most 64 (a multiple of 8 for
-    the chunked and split instantiations).  ``impl`` forces an
-    instantiation (one of :data:`IMPLS`); None takes
-    :func:`wkv6_impl`'s (``serial`` where V is not a multiple of 8)."""
-    name = KERNEL.name
+def _check(name, r, k, v, w, u, state) -> Tuple[int, ...]:
+    """Device, layout, dtype and shape checks shared by both kernels;
+    returns ``(B, S, H, K, V)``."""
     tensors = (r, k, v, w, u) + (() if state is None else (state,))
     if any(t.device.type != "cuda" or t.device != r.device for t in tensors):
         raise ValueError(f"{name}: every tensor must be on one CUDA device")
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name}: the kernel has no backward; pass inputs "
-                         "that do not require grad")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype
@@ -107,6 +102,32 @@ def wkv6_cuda(
             or min(b, s, h) < 1 or kd not in _KEY_DIMS or not 1 <= vd <= 64):
         shapes = [tuple(t.shape) for t in tensors]
         raise ValueError(f"{name}: bad shapes {shapes}")
+    return b, s, h, kd, vd
+
+
+def wkv6_cuda(
+    r: torch.Tensor,                       # [B, S, H, K]
+    k: torch.Tensor,                       # [B, S, H, K]
+    v: torch.Tensor,                       # [B, S, H, V]
+    w: torch.Tensor,                       # [B, S, H, K] decay in [0, 1]
+    u: torch.Tensor,                       # [H, K]
+    state: Optional[torch.Tensor] = None,  # [B, H, K, V] float32
+    *,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y [B, S, H, V]`` in the inputs' dtype, ``final_state [B, H, K,
+    V]`` float32)`` from inputs of one dtype (float32 or bfloat16),
+    contiguous, on one CUDA device; ``state=None`` starts from zeros.
+    ``K`` is 8, 16, 32 or 64 and ``V`` at most 64 (a multiple of 8 for
+    the chunked and split instantiations).  ``impl`` forces an
+    instantiation (one of :data:`IMPLS`); None takes
+    :func:`wkv6_impl`'s (``serial`` where V is not a multiple of 8)."""
+    name = KERNEL.name
+    if any(t is not None and t.requires_grad for t in (r, k, v, w, u, state)):
+        raise ValueError(f"{name}: the forward kernel has no backward of "
+                         "its own; inputs that require grad go through "
+                         "WKV6Fn (ops.wkv6), whose backward is wkv6_bwd")
+    b, s, h, kd, vd = _check(name, r, k, v, w, u, state)
     if impl is None:
         impl = wkv6_impl(b, s, h) if vd % 8 == 0 else "serial"
     if impl not in IMPLS:
@@ -128,3 +149,104 @@ def wkv6_cuda(
                   None if scratch is None else scratch.data_ptr(), b, s, h,
                   kd, vd, _DTYPES[r.dtype], IMPLS.index(impl), seg)
     return y, final
+
+
+def bwd_scratch_floats(batch: int, steps: int, heads: int, kd: int,
+                       vd: int) -> int:
+    """float32 scratch of the backward kernel, as the C side sizes it
+    (``csrc/wkv6_bwd.cu``: ``wkv6_bwd_scratch_floats``): du's per-(b, h)
+    partials, and the chunk starts when the sequence has more chunks
+    than shared memory keeps."""
+    fn = load(BWD_KERNEL.name).wkv6_bwd_scratch_floats
+    fn.argtypes = [c_int] * 5
+    fn.restype = ctypes.c_longlong
+    floats = fn(batch, steps, heads, kd, vd)
+    if floats < 0:
+        raise ValueError(f"{BWD_KERNEL.name}: bad sizes B {batch} S {steps} "
+                         f"H {heads} K {kd} V {vd}")
+    return floats
+
+
+def wkv6_bwd_info(dtype: torch.dtype, kd: int, steps: int) -> dict:
+    """What the backward's main kernel takes at K keys and ``steps``
+    steps on the current card: registers and spilled (local) bytes a
+    thread, blocks resident on an SM, dynamic shared bytes a block,
+    whether the chunk starts stay on chip, and the steps of a chunk
+    (``csrc/wkv6_bwd.cu``: ``wkv6_bwd_info``)."""
+    fn = load(BWD_KERNEL.name).wkv6_bwd_info
+    fn.argtypes = [c_int, c_int, c_int, ctypes.POINTER(c_int)]
+    fn.restype = c_int
+    out = (c_int * 6)()
+    check(fn(_DTYPES[dtype], kd, steps, out), "wkv6_bwd_info")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                smem_bytes=out[3], starts_on_chip=bool(out[4]),
+                chunk=out[5])
+
+
+def wkv6_bwd_cuda(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, state: Optional[torch.Tensor], y_grad: torch.Tensor,
+    state_grad: Optional[torch.Tensor],
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """``(dr, dk, dv, dw, du, dstate)`` of :func:`wkv6_cuda` at the
+    gradients ``y_grad`` [B, S, H, V] (r's dtype, contiguous) and
+    ``state_grad`` [B, H, K, V] float32 (None: zeros) of its outputs.
+    The inputs as the forward takes them; dr, dk, dv, dw and du in their
+    dtype, dstate [B, H, K, V] float32 (None when ``state`` is None)."""
+    name = BWD_KERNEL.name
+    b, s, h, kd, vd = _check(name, r, k, v, w, u, state)
+    if (y_grad.device != r.device or y_grad.dtype != r.dtype
+            or y_grad.shape != v.shape or not y_grad.is_contiguous()):
+        raise ValueError(f"{name}: y_grad must match v, got {y_grad.dtype} "
+                         f"{tuple(y_grad.shape)}")
+    if state_grad is not None and (
+            state_grad.device != r.device
+            or state_grad.dtype != torch.float32
+            or state_grad.shape != (b, h, kd, vd)
+            or not state_grad.is_contiguous()):
+        raise ValueError(f"{name}: state_grad must be float32 [B, H, K, V]")
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    dv, du = torch.empty_like(v), torch.empty_like(u)
+    dstate = None if state is None else torch.empty_like(state)
+    scratch = torch.empty(bwd_scratch_floats(b, s, h, kd, vd),
+                          dtype=torch.float32, device=r.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    BWD_KERNEL.launch(r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      w.data_ptr(), u.data_ptr(), ptr(state),
+                      y_grad.data_ptr(), ptr(state_grad), dr.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                      du.data_ptr(), ptr(dstate), scratch.data_ptr(), b, s, h,
+                      kd, vd, _DTYPES[r.dtype])
+    return dr, dk, dv, dw, du, dstate
+
+
+class WKV6Fn(torch.autograd.Function):
+    """The WKV6 recurrence ``(y, final_state)`` with its gradient w.r.t.
+    r, k, v, w, u and the initial state: on CUDA tensors the forward
+    kernel (the instantiation :func:`wkv6_impl` picks) and the backward
+    kernel, on CPU tensors ``ref_wkv6`` and ``ref_wkv6_backward``.  An
+    output the loss does not use reaches ``backward`` as None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.set_materialize_grads(False)
+        if r.device.type == "cuda":     # the saved inputs keep their grad
+            y, final = wkv6_cuda(*(None if t is None else t.detach()
+                                   for t in (r, k, v, w, u, state)))
+        else:
+            y, final = ref.ref_wkv6(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        if gy is None and gstate is None:
+            return (None,) * 6
+        r, k, v, w, u, state = ctx.saved_tensors
+        gy = (torch.zeros_like(v) if gy is None
+              else gy.to(r.dtype).contiguous())
+        gstate = (None if gstate is None else gstate.to(
+            torch.promote_types(r.dtype, torch.float32)).contiguous())
+        if r.device.type == "cuda":
+            return wkv6_bwd_cuda(r, k, v, w, u, state, gy, gstate)
+        return ref.ref_wkv6_backward(r, k, v, w, u, state, gy, gstate)

@@ -25,6 +25,9 @@ which refuses attention-free and hybrid archs as the reference's engine
 does.  ``--runtime versioned`` serves through a ``PolicyStore`` holding
 the init as v0 and the ``--checkpoint`` (when given) as v1; the
 continuous engine polls it every ``--swap-interval`` steps.
+``--controller SPEC`` (continuous only) replays the retired requests
+through a lag controller's admission hook and prints its verdicts
+(shadow scoring: nothing is dropped).
 ``--full-width`` serves ``get_config(--arch)`` (qwen2.5-0.5b: 24 layers,
 vocab 151936; rwkv6-1.6b: 24 layers, d 2048, vocab 65536; hymba-1.5b:
 32 layers, d 1600, vocab 32001) instead of ``reduced_config``; the math
@@ -35,8 +38,8 @@ Weights are a random init from ``--seed``, or the checkpoint
 saved), loaded into that init's structure.  SIGINT/SIGTERM flush the
 trace and metrics before exiting.
 
-Not ported yet (each exits with a message): ``--controller``,
-``--mesh`` and ``--no-chunked-prefill``.
+Not ported yet (each exits with a message): ``--mesh`` and
+``--no-chunked-prefill``.
 """
 from __future__ import annotations
 
@@ -44,12 +47,12 @@ import argparse
 import signal
 import sys
 import time
+from collections import Counter
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 _NOT_PORTED = (
-    ("--controller", lambda a: a.controller),
     ("--mesh", lambda a: a.mesh),
     ("--no-chunked-prefill", lambda a: a.no_chunked_prefill),
 )
@@ -141,7 +144,11 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["direct", "versioned"],
                     help="versioned: serve through the PolicyStore (v0 "
                          "the init, v1 the --checkpoint)")
-    ap.add_argument("--controller", default=None, metavar="SPEC")
+    ap.add_argument("--controller", default=None, metavar="SPEC",
+                    help="continuous: shadow-evaluate a lag controller "
+                         "('name:key=val,...', the training launcher's "
+                         "grammar) over the retired requests: verdicts "
+                         "and reasons only, nothing dropped")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="append one metrics-registry snapshot as a "
                          "JSONL line at exit")
@@ -412,6 +419,78 @@ def report(args: argparse.Namespace, engine: Any, trajs: List[Any],
               f"{t.finish_reason}, gold {ans}, reward {r}){vtag}")
 
 
+def shadow_admission(args: argparse.Namespace, engine: Any,
+                     trajs: List[Any]) -> List[Tuple[int, str, str, Any]]:
+    """Replay retired trajectories through the ``--controller`` lag
+    controller's admission hook, verdict only (nothing is removed from
+    the serve output), as ``repro.launch.serve`` does.  ``tv_gate``
+    scores each request's completion against the latest policy (the
+    store head under ``--runtime versioned``, else the engine's params)
+    through ``score_tokens`` (the fused log-prob kernel on the card);
+    ``tv_gate_tokenwise`` also segments by the request's own per-token
+    versions.  Verdicts land on the engine's metrics registry as
+    ``serve_shadow_admission_total{controller,outcome,reason}``; returns
+    each request's ``(request_id, outcome, reason, tv)``."""
+    import numpy as np
+
+    from repro_torch.core.tv_filter import tv_estimate
+    from repro_torch.rollout.sampler import score_tokens
+    from repro_torch.runtime import make_controller, parse_controller_spec
+    from repro_torch.runtime.queue import TrajectoryItem
+
+    spec = parse_controller_spec(args.controller)
+    store, device = engine.store, engine.device
+    ref_version = store.version if store is not None else engine.version
+
+    def _score(traj):
+        params = store.latest()[0] if store is not None else engine.params
+        row = np.concatenate([np.asarray(traj.prompt),
+                              np.asarray(traj.tokens)])
+        with torch.no_grad():
+            log_pi, _, _ = score_tokens(
+                engine.bundle, params,
+                torch.as_tensor(row, device=device)[None, :],
+                len(traj.prompt))
+        return log_pi
+
+    def tv_fn(traj):
+        log_pi = _score(traj)
+        on = lambda a: torch.as_tensor(np.asarray(a), device=device)[None, :]
+        return float(tv_estimate(log_pi - on(traj.log_beta), on(traj.mask)))
+
+    def token_tv_fn(traj):
+        log_pi = _score(traj)[0].cpu().numpy()
+        tv = 0.5 * np.abs(np.exp(log_pi - np.asarray(traj.log_beta)) - 1.0)
+        valid = np.asarray(traj.mask) > 0
+        return tv[valid], np.asarray(traj.versions)[valid]
+
+    controller = make_controller(spec, tv_fn=tv_fn, token_tv_fn=token_tv_fn)
+    decisions = []
+    for t in trajs:
+        versions = np.asarray(t.versions)
+        oldest = int(versions.min()) if versions.size else ref_version
+        newest = int(versions.max()) if versions.size else ref_version
+        item = TrajectoryItem(
+            payload=t, behavior_version=oldest,
+            enqueue_learner_version=ref_version,
+            behavior_version_newest=newest)
+        item.learner_version_at_consume = ref_version
+        d = controller.admit(item)
+        outcome = ("drop" if not d.admit
+                   else "admit" if d.weight == 1.0 else "downweight")
+        decisions.append((t.request_id, outcome, d.reason, d.tv))
+        engine.metrics.counter(
+            "serve_shadow_admission_total", controller=controller.name,
+            outcome=outcome, reason=d.reason).inc()
+    total = len(trajs)
+    counts = Counter((outcome, reason) for _, outcome, reason, _ in decisions)
+    print(f"  shadow controller {spec.canonical()!r} over {total} "
+          f"retired requests (verdict-only, nothing dropped):")
+    for (outcome, reason), n in sorted(counts.items()):
+        print(f"    {outcome:<10} reason={reason:<24} {n}/{total}")
+    return decisions
+
+
 def serve(args: argparse.Namespace, tracer: Any = None,
           flush_state: Optional[dict] = None
           ) -> Tuple[Any, List[Any], float]:
@@ -423,6 +502,8 @@ def serve(args: argparse.Namespace, tracer: Any = None,
         flush_state["engine"] = engine
     trajs, dt = run(args, engine)
     report(args, engine, trajs, dt, meta)
+    if args.controller:
+        shadow_admission(args, engine, trajs)
     return engine, trajs, dt
 
 
@@ -434,6 +515,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if on(args):
             raise SystemExit(f"{flag} is not ported to the PyTorch serve "
                              "path yet; use repro.launch.serve for it")
+    if args.controller and args.engine != "continuous":
+        raise SystemExit("--controller needs --engine continuous "
+                         "(shadow admission runs over retired requests)")
 
     from repro_torch.obs.tracer import make_tracer
     from repro_torch.resilience import install_flush_handlers

@@ -40,11 +40,14 @@ all five envs under the ``backward_mixture``, ``forward_n`` and
 ``threaded``; ``--full-width`` trains
 ``get_config(--arch)`` (qwen2.5-0.5b: 24 layers, vocab 151936) instead
 of ``reduced_config``.  ``--arch hymba-1.5b`` (hybrid attention+SSM:
-32 layers, d 1600) trains through the legacy producer; on the card its
+32 layers, d 1600) and ``--arch rwkv6-1.6b`` (attention-free: 24
+layers, d 2048) train through the legacy producer; on the card hymba's
 attention and SSM recurrence run forward and backward kernels
 (``flash_attention``/``flash_attention_bwd``, ``ssm_scan``/
-``ssm_scan_bwd``), and ``--producer serve`` refuses it with the
-reference engine's reason (hybrid archs carry unpaged state).  Weights are a random init from ``--seed``.  Both
+``ssm_scan_bwd``) and rwkv6's time-mix ``wkv6``/``wkv6_bwd``, and
+``--producer serve`` refuses both with the reference engine's reason
+(``models.transformer.paged_arch_unsupported``: unpaged or recurrent
+state).  Weights are a random init from ``--seed``.  Both
 take every controller of ``runtime.controllers`` (``rl`` builds the
 queue's; the learner hooks of ``gac``, ``stable_async`` and ``asympo``
 run in ``rlvr``).  ``rlvr`` takes the resilience flags
@@ -54,9 +57,6 @@ trained params under ``--checkpoint-dir``; as in the JAX launcher,
 ``rl`` accepts ``--checkpoint-dir`` and writes nothing, and
 ``--metrics-out`` writes nothing for ``rl``.  SIGINT/SIGTERM stop the
 producer and flush the trace and metrics before exiting.
-
-Not ported yet (exits with a message): training attention-free archs
-(``--arch rwkv6-1.6b``: the ``wkv6`` kernel has no backward yet).
 """
 from __future__ import annotations
 
@@ -198,17 +198,11 @@ def _refuse_unported(args) -> None:
     from repro_torch.configs import get_config
 
     cfg = get_config(args.arch)
-    if cfg.attn_free:
-        raise SystemExit(
-            f"train rlvr --arch {args.arch}: training an attention-free "
-            "(rwkv) arch needs a backward of the wkv6 kernel, which is "
-            "not ported yet; the port serves it (repro_torch.launch."
-            "serve --engine static), repro.launch.train trains it")
     if args.producer == "serve":
         from repro_torch.models.transformer import paged_arch_unsupported
 
         reason = paged_arch_unsupported(cfg)
-        if cfg.hybrid_attn_ssm and reason is not None:
+        if reason is not None:
             # The engine (both packages') refuses it: the same words.
             raise SystemExit(f"train rlvr --arch {args.arch} --producer "
                              f"serve: {cfg.name}: {reason}")

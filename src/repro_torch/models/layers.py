@@ -4,7 +4,8 @@ Conventions kept from the JAX package:
 
 * params are nested dicts of tensors; ``*_init`` functions build them.
 * dense weights are ``[d_in, d_out]`` and apply as ``x @ w``.
-* compute dtype follows the input ``x``; norms and rope run in float32.
+* compute dtype follows the input ``x``; norms and rope run in float32
+  (norms in float64 for float64 inputs).
 * matmul inits are truncated normal on [-2, 2] with 1/sqrt(fan_in)
   scaling, drawn from an explicit ``torch.Generator``.  ``lead`` prepends
   axes (the ``[L]`` layer stack) to every leaf.
@@ -62,10 +63,11 @@ def rmsnorm_init(d: int, dtype=torch.float32, lead: Sequence[int] = (),
 
 def rmsnorm_apply(p: Dict, x: torch.Tensor, eps: float = 1e-6
                   ) -> torch.Tensor:
-    x32 = x.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    return (y * p["scale"].to(acc)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,12 @@ The time-mix runs the recurrence through ``kernels.ops.wkv6``, so the
 tensors' device picks the route: the plain loop ``wkv6_scan`` on the CPU
 (the recurrence the JAX block runs by default), the hand-written CUDA
 kernel on the card.  The JAX block's ``use_kernel`` switch is dropped
-for that reason.
+for that reason.  Training differentiates through the same call: inputs
+that need a gradient go through ``kernels.wkv6.WKV6Fn`` (the backward is
+the ``wkv6_bwd`` kernel on the card, ``ref_wkv6_backward`` on the CPU),
+so the gradient reaches r, k, v, the decay (its LoRA and
+``decay_base``), ``bonus_u`` and, through them, the mixes; ``ln_x_scale``
+and the gate are outside the recurrence.
 
 The reference's simplifications of the released Finch are kept: the
 token-shift LoRA mixers are plain learned interpolation vectors, and the
@@ -102,8 +107,9 @@ def rwkv6_time_mix(
     g = F.silu(dense_apply(p["w_g"], _mix(x, xp, p["mu_g"])))
 
     wx = _mix(x, xp, p["mu_w"])
-    decay_raw = p["decay_base"].float()[None, None, :] + dense_apply(
-        p["decay_b"], torch.tanh(dense_apply(p["decay_a"], wx))).float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    decay_raw = p["decay_base"].to(acc)[None, None, :] + dense_apply(
+        p["decay_b"], torch.tanh(dense_apply(p["decay_a"], wx))).to(acc)
     # w_t = exp(-exp(decay_raw)) in (0,1): the Finch parameterization.
     w = torch.exp(-torch.exp(decay_raw)).to(x.dtype)
 
@@ -112,11 +118,12 @@ def rwkv6_time_mix(
 
     y, new_state = kops.wkv6(heads(r), heads(k), heads(v), heads(w),
                              p["bonus_u"].to(x.dtype), wkv_state)
-    # group-norm-lite over heads (Finch uses GroupNorm(h)), in float32.
-    y32 = y.float()
+    # group-norm-lite over heads (Finch uses GroupNorm(h)), in float32
+    # (float64 for float64 inputs, as the decay above).
+    y32 = y.to(acc)
     y32 = y32 * torch.rsqrt(torch.mean(y32 * y32, dim=-1, keepdim=True)
                             + 1e-5)
-    y = (y32.reshape(b, s, d) * p["ln_x_scale"].float()).to(x.dtype)
+    y = (y32.reshape(b, s, d) * p["ln_x_scale"].to(acc)).to(x.dtype)
     out = dense_apply(p["w_o"], y * g)
     return out, (new_state, x[:, -1:])
 

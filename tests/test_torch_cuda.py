@@ -1095,3 +1095,125 @@ def test_hymba_learner_step_on_card_launches_backwards_and_matches_cpu(dev):
             continue
         assert (x.cpu() - w).abs().max().item() <= 1e-4 * max(
             1.0, w.abs().max().item())
+
+
+def _wkv6_cotangents(dev, dtype, b, s, h, kd, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, s, h, kd, generator=g).to(dtype).to(dev),
+            torch.randn(b, h, kd, kd, generator=g).to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kd,state,decay", [
+    (4, 40, 32, 64, False, None),       # the learner's layout
+    (2, 1, 3, 64, True, None), (2, 37, 3, 64, True, None),
+    (2, 33, 2, 64, True, 0.0), (2, 33, 2, 64, True, 1.0),
+    # More than 8 chunks: the chunk starts go to device scratch.
+    (1, 150, 2, 64, True, None),
+    (2, 17, 1, 8, True, None), (2, 32, 2, 16, False, None),
+    (2, 50, 3, 32, True, None)])
+def test_wkv6_backward_matches_plain(dev, dtype, tol, b, s, h, kd, state,
+                                     decay):
+    """``wkv6_bwd`` against ``ref_wkv6_backward`` with cotangents on y and
+    on the final state, within ``tol`` of max(1, |ref|); a second launch
+    gives bit-identical gradients (fixed-order sums, no atomics)."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+
+    args = _wkv6_case(dev, dtype, b, s, h, kd, state, decay, seed=s * h + kd)
+    gy, gs = _wkv6_cotangents(dev, dtype, b, s, h, kd)
+    kernels.reset_launch_counts()
+    got = wkv6_bwd_cuda(*args, gy, gs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wkv6_bwd"] == 1
+    want = ref.ref_wkv6_backward(*args, gy, gs)
+    for name, x, w in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got,
+                          want):
+        if not state and name == "dstate":
+            assert x is None
+            continue
+        assert x.shape == w.shape and x.dtype == w.dtype, name
+        assert bool(torch.isfinite(x).all()), name
+        err = (x.float() - w.float()).abs().max().item()
+        assert err <= tol * max(1.0, w.float().abs().max().item()), (name,
+                                                                     err)
+    again = wkv6_bwd_cuda(*args, gy, gs)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_wkv6_backward_scratch_query_matches_the_launch(dev, dtype, tol):
+    """The C side reports the scratch its launcher takes: the kernel
+    writes nothing past the floats reported, with the chunk starts on
+    chip (the learner's S 40) and off it (S 150) as ``wkv6_bwd_info``
+    says; the gradients against the plain backward."""
+    from repro_torch.kernels.wkv6 import (BWD_KERNEL, bwd_scratch_floats,
+                                          wkv6_bwd_info)
+
+    dcode = 0 if dtype == torch.float32 else 1
+    for b, s, h, kd, on_chip in ((4, 40, 3, 64, True),
+                                 (1, 150, 2, 64, False)):
+        info = wkv6_bwd_info(dtype, kd, s)
+        assert info["starts_on_chip"] == on_chip and info["local_bytes"] == 0
+        r, k, v, w, u, s0 = _wkv6_case(dev, dtype, b, s, h, kd, True, seed=s)
+        gy, gs = _wkv6_cotangents(dev, dtype, b, s, h, kd)
+        grads = [torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+                 torch.empty_like(w), torch.empty_like(u),
+                 torch.empty_like(s0)]
+        floats = bwd_scratch_floats(b, s, h, kd, kd)
+        scratch = _guarded(floats, dev)
+        BWD_KERNEL.launch(r.device, *(t.data_ptr() for t in (
+            r, k, v, w, u, s0, gy, gs, *grads, scratch)), b, s, h, kd, kd,
+            dcode)
+        torch.cuda.synchronize()
+        assert torch.isnan(scratch[floats:]).all()
+        want = ref.ref_wkv6_backward(r, k, v, w, u, s0, gy, gs)
+        for got, w_ in zip(grads, want):
+            assert (got.float() - w_.float()).abs().max().item() <= tol * max(
+                1.0, w_.float().abs().max().item())
+
+
+def test_rwkv_learner_step_on_card_launches_wkv6_bwd_and_matches_cpu(dev):
+    """A reduced rwkv6 GRPO+VACO loss and its param grads on the card
+    (``wkv6`` and ``wkv6_bwd`` once a layer) against the CPU's plain
+    path."""
+    from repro_torch.core.losses import GRPOConfig, grpo_token_loss
+    from repro_torch.models import transformer as tf
+    from repro_torch.rollout.sampler import score_tokens
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = reduced_config("rwkv6-1.6b", vocab=64)
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(3, 64, (4, 24), generator=g)
+    log_beta = torch.randn(4, 8, generator=g) - 4.0
+    adv = torch.randn(4, generator=g)
+
+    def grads_on(p, dev_):
+        leaves = tree_map(lambda t: t.clone().requires_grad_(True), p)
+        log_pi, _, _ = score_tokens(bundle, leaves, tokens.to(dev_), 16)
+        loss, _ = grpo_token_loss(
+            log_pi=log_pi, log_beta=log_beta.to(dev_),
+            advantages=adv.to(dev_), token_mask=torch.ones(4, 8,
+                                                           device=dev_),
+            cfg=GRPOConfig(use_vaco=True))
+        return loss, torch.autograd.grad(loss, tree_leaves(leaves),
+                                         allow_unused=True)
+
+    want_loss, want = grads_on(params, "cpu")
+    kernels.reset_launch_counts()
+    loss, got = grads_on(tf.tree_to(params, dev), dev)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["wkv6"] == counts["wkv6_bwd"] == cfg.n_layers
+    assert abs(loss.item() - want_loss.item()) <= 1e-4
+    for x, w in zip(got, want):
+        if w is None:
+            assert x is None
+            continue
+        assert (x.cpu() - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())

@@ -414,10 +414,3 @@ def test_continuous_engine_refuses_rwkv_with_the_reference_message():
         serve.main(["--engine", "continuous", "--arch", "rwkv6-1.6b",
                     "--device", "cpu", "--requests", "1"])
     assert paged_arch_unsupported(JCFG) in str(err.value)
-
-
-def test_train_launcher_refuses_rwkv():
-    from repro_torch.launch import train
-
-    with pytest.raises(SystemExit, match="wkv6 kernel, which is not ported"):
-        train.main(["rlvr", "--arch", "rwkv6-1.6b", "--device", "cpu"])

@@ -296,3 +296,71 @@ def test_inflight_swap_matches_jax(versions, swap_interval, temperature):
               if e[1] in ("policy_lag", "token") and e[5]["lag"] > 0}
     assert lagged == ({"policy_lag", "token"} if swap_interval > 1
                       else set())
+
+
+@pytest.mark.parametrize("spec", [
+    "tv_gate:delta=0.5,mode=drop",
+    "tv_gate_tokenwise:delta=0.5,mode=downweight"])
+def test_shadow_admission_matches_jax(versions, spec, monkeypatch, capsys):
+    """``serve --controller``'s shadow scoring over one greedy run of the
+    engine over a store with a publish mid-run (requests span v0 and v1),
+    against ``repro.launch.serve._shadow_admission`` on the JAX engine's
+    run: the same decisions and printed verdicts, the same
+    ``serve_shadow_admission_total`` counters, the TVs and weights within
+    1e-4 (float32 log-probs summed in another order).  No
+    TV is within 0.05 of the gate's delta / 2, so the verdicts are not
+    decided by rounding."""
+    import argparse
+
+    import repro.runtime as jax_runtime
+    import repro_torch.runtime as runtime
+    from repro.launch.serve import _shadow_admission
+    from repro_torch.launch.serve import shadow_admission
+
+    def recording(module):
+        made, seen = module.make_controller, []
+
+        def make(*a, **kw):
+            ctl = made(*a, **kw)
+            admit = ctl.admit
+
+            def record(item):
+                d = admit(item)
+                seen.append((item.payload.request_id, d.admit, d.weight,
+                             d.reason, d.tv))
+                return d
+            ctl.admit = record
+            return ctl
+        monkeypatch.setattr(module, "make_controller", make)
+        return seen
+
+    kw = dict(ENGINE_KW, temperature=0.0, seed=3, swap_interval=1)
+    args = argparse.Namespace(controller=spec)
+    jstore = JaxPolicyStore(versions[0][0], capacity=2)
+    jeng = JaxServeEngine(jax_build(JCFG), store=jstore, **kw)
+    jtrajs = list(_serve_with_publishes(jeng, jstore, [versions[1][0]],
+                                        [2]).values())
+    want = recording(jax_runtime)
+    _shadow_admission(args, jeng, jstore, jax_build(JCFG), jtrajs)
+    want_out = capsys.readouterr().out
+    store = PolicyStore(versions[0][1], capacity=2)
+    eng = ServeEngine(build(CFG), store=store, device="cpu", **kw)
+    trajs = list(_serve_with_publishes(eng, store, [versions[1][1]],
+                                       [2]).values())
+    got = recording(runtime)
+    decisions = shadow_admission(args, eng, trajs)
+    assert capsys.readouterr().out == want_out
+    assert any(len(set(t.versions.tolist())) > 1 for t in trajs)
+    assert len(got) == len(want) == len(PROMPTS)
+    delta = float(spec.split("delta=")[1].split(",")[0])
+    for g, w in zip(got, want):
+        assert (g[0], g[1], g[3]) == (w[0], w[1], w[3])
+        assert abs(g[2] - w[2]) <= 1e-4 and abs(g[4] - w[4]) <= 1e-4
+        assert abs(w[4] - delta / 2) > 0.05
+    assert {d[3] for d in want} != {"admit"}   # the gate bites
+    assert [d[0] for d in decisions] == [g[0] for g in got]
+    assert [d[3] for d in decisions] == [g[4] for g in got]
+    name = "serve_shadow_admission_total"
+    assert eng.metrics.counter_values(name) == jeng.metrics.counter_values(
+        name)
+    assert sum(eng.metrics.counter_values(name).values()) == len(trajs)
