@@ -310,16 +310,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 33. wkv6 backward kernel: ``wkv6_bwd`` against ``ref_wkv6_backward`` and
     against autograd of ``ref_wkv6`` (up to S 64), float32 within 3e-4
-    and bfloat16 within 2e-2, of max(1, |ref|): the learner shape (B 64
-    x S 40, 32 heads of 64, zero state), B 8 x S 32, S 1, a ragged S 37
-    with a carried state and a final-state cotangent, decays of exactly
-    0 and 1 (and 1e-6), B 1 x S 2048, S 150 (chunk starts in device
-    scratch), K 8, 16 and 32; two launches on the same inputs
-    bit-identical.  The learner shape (both dtypes) and B 1 x S 2048
-    (float32) timed beside the plain backward and the bound (no single
-    PyTorch call computes it), with the kernel's registers, spills,
-    residency and where its chunk starts live; and the forward at the
-    learner shape (``chunked``), row 7's learner line.
+    and bfloat16 within 2e-2, of max(1, |ref|), each instantiation
+    (``chunked``; ``split`` with ~3 segments) forced at every case and
+    the picked one: the learner shape (B 64 x S 40, 32 heads of 64, zero
+    state), B 8 x S 32, S 1, a ragged S 37 with a carried state and a
+    final-state cotangent, decays of exactly 0 and 1 (and 1e-6), B 1 x S
+    2048, S 150 (sub-chunk starts in device scratch), S 1000 over many
+    segments, K 8, 16 and 32; two launches on the same inputs
+    bit-identical.  The learner shape and B 1 x S 2048 (both dtypes)
+    timed beside the plain backward and the bound (no single PyTorch
+    call computes it), with each kernel's registers, spills and
+    residency and the call's kernels by device time; the forward at the
+    learner shape (``chunked``), row 7's learner line; then the
+    ``wkv6_bwd_crossover`` records (both instantiations forced, B 1-8 x
+    S 64-2048, and the split's segment length at B 1 x S 2048).
 34. rwkv6 training: ``repro_torch.launch.train rlvr --full-width --arch
     rwkv6-1.6b`` in-process (24 layers, d 2048, vocab 65536, 2 warmup
     steps, one phase of 2 minibatches): ``wkv6_bwd`` 24 times a warmup
@@ -337,16 +341,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
     forward and backward on the card: grad norm at least 1e-3 and within
     1e-4 of the plain route's; and on every layer's own inputs and
     output cotangent of that step, each output of ``wkv6_bwd`` within
-    3e-4 of its largest magnitude from ``ref_wkv6_backward`` in float64.
+    3e-4 of its largest magnitude from ``ref_wkv6_backward`` in float64,
+    and du within 1e-5 of it.
 35. rwkv6 train parity: phase 9 at 2 full-width rwkv6 layers, the card's
     learner step from the CPU's warmed params (as phase 32 holds hymba,
     but unscaled: with dense weights x3 float32 cannot hold this
     gradient to 1e-4, as ``chip_smoke.py --grad-conditioning`` measures
     against float64; the chained step's plain route swaps ``ops.wkv6``
     for ``ref_wkv6`` too), then one B 1 x S 2048 forward and backward (the card's split
-    forward and the backward with its chunk starts in scratch; the
-    CPU's ``WKV6Fn`` on the plain versions), loss and every param grad
-    within 1e-4 of its largest magnitude.
+    forward and split backward; the CPU's ``WKV6Fn`` on the plain
+    versions), loss and every param grad within 1e-4 of its largest
+    magnitude.
 
 Then one JSON line of every phase's wall seconds and the total, one of
 every kernel's numbers (``paged_attention_multi``'s launches are phase
@@ -4622,6 +4627,11 @@ def _long_train_parity(torch, cfg, bundle, params, s, tag, want, **extra):
 # ---------------------------------------------------------------------------
 
 WKV6_BWD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}   # of max(1, |ref|)
+# Phase 34: du against float64 on the learner's own inputs, as a share
+# of its largest magnitude (ROADMAP C8: a float32 sum of those ~2,560
+# cancelling terms is ~1e-5 off in any order; the kernel's compensated
+# sums keep ~1e-7).
+WKV6_BWD_DU_TOL = 1e-5
 RWKV_TRAIN_ARGS = [
     "rlvr", "--full-width", "--arch", "rwkv6-1.6b", "--device", "cuda",
     "--warmup-steps", "2", "--n-minibatches", "2", "--phases", "1"]
@@ -4643,12 +4653,16 @@ def _wkv6_bwd_bound(b, s, h, kd, carried, esize, dname):
 
 def wkv6_bwd_kernel_phase(torch):
     """Phase 33: ``wkv6_bwd`` against ``ref_wkv6_backward`` and autograd
-    of ``ref_wkv6`` (up to S 64), float32 and bfloat16, two launches
-    bit-identical; the learner shape (both dtypes) and B 1 x S 2048
-    timed, and the forward at the learner shape."""
+    of ``ref_wkv6`` (up to S 64), float32 and bfloat16, each instantiation
+    forced at every case (``split`` with ~3 segments) and the one picked,
+    two launches bit-identical; the learner shape and B 1 x S 2048 timed
+    (both dtypes), the forward at the learner shape, and the
+    ``wkv6_bwd_crossover`` sweep that sets the backward's thresholds."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.wkv6 import (wkv6_bwd_cuda, wkv6_bwd_info,
-                                          wkv6_cuda, wkv6_impl)
+    from repro_torch.kernels.wkv6 import (BWD_IMPLS, bwd_split_steps,
+                                          wkv6_bwd_cuda, wkv6_bwd_impl,
+                                          wkv6_bwd_info, wkv6_cuda,
+                                          wkv6_impl)
 
     h = RWKV_H
     cases = (   # (case, B, S, H, K, carried state + final grad, decay)
@@ -4659,16 +4673,18 @@ def wkv6_bwd_kernel_phase(torch):
         ("edge_decay", 2, 33, 2, 64, True, "mix"),     # w = 0, 1, 1e-6
         ("long_b1", 1, RWKV_LONG, h, 64, False, None),
         ("scratch_s150", 1, 150, 2, 64, True, None),   # starts off chip
+        ("split_ragged", 1, 1000, 3, 64, True, "mix"),  # many segments
         ("k8", 2, 17, 1, 8, True, None),
         ("k16", 2, 32, 2, 16, False, None),
         ("k32", 2, 50, 3, 32, True, "mix"))
-    timed = {"float32": ("learner", "long_b1"), "bfloat16": ("learner",)}
+    timed = ("learner", "long_b1")
     names = ("dr", "dk", "dv", "dw", "du", "dstate")
     headline, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         esize = torch.empty((), dtype=dtype).element_size()
         tol = WKV6_BWD_TOL[dname]
+        info = wkv6_bwd_info(dtype)
         for case, bb, s, hh, kd, carried, decay in cases:
             t_case = time.perf_counter()
             args = _wkv6_inputs(torch, dtype, bb, s, hh, kd, carried, decay,
@@ -4678,8 +4694,6 @@ def wkv6_bwd_kernel_phase(torch):
                              device="cuda").to(dtype)
             gs = (torch.randn(bb, hh, kd, kd, generator=gen, device="cuda")
                   if carried else None)
-            got = wkv6_bwd_cuda(*args, gy, gs)
-            again = wkv6_bwd_cuda(*args, gy, gs)
             plain = ref.ref_wkv6_backward(*args, gy, gs)
             auto = [None] * 6
             if s <= 64:        # autograd records S steps of graph
@@ -4692,27 +4706,45 @@ def wkv6_bwd_kernel_phase(torch):
                     outs[0], [x for x in leaves if x is not None], outs[1]))
                 auto = [None if x is None else next(it) for x in leaves]
                 del y, final, leaves
-            torch.cuda.synchronize()
-            check(all((a is None and b_ is None) or torch.equal(a, b_)
-                      for a, b_ in zip(got, again)),
-                  f"wkv6_bwd/{case}/{dname}: two launches differ")
-            err = 0.0
-            for name, g, p_, a_ in zip(names, got, plain, auto):
-                if p_ is None:
-                    check(g is None, f"wkv6_bwd/{case}: dstate without state")
-                    continue
-                err = max(err, _grad_err(g, p_, tol,
-                                         f"wkv6_bwd/{case}/{dname}/{name}"))
-                if a_ is not None:
-                    _grad_err(g, a_.to(g.dtype), tol,
-                              f"wkv6_bwd/{case}/{dname}/{name} vs autograd")
+            picked = wkv6_bwd_impl(bb, s, hh)
+            forced_seg = 16 * max(1, -(-s // 48))      # ~3 segments
+            errs = {}
+            for impl in BWD_IMPLS:
+                seg = forced_seg if impl == "split" else None
+                got = wkv6_bwd_cuda(*args, gy, gs, impl=impl, seg=seg)
+                again = wkv6_bwd_cuda(*args, gy, gs, impl=impl, seg=seg)
+                torch.cuda.synchronize()
+                check(all((a is None and b_ is None) or torch.equal(a, b_)
+                          for a, b_ in zip(got, again)),
+                      f"wkv6_bwd/{case}/{dname}/{impl}: two launches differ")
+                err = 0.0
+                for name, g, p_, a_ in zip(names, got, plain, auto):
+                    if p_ is None:
+                        check(g is None,
+                              f"wkv6_bwd/{case}: dstate without state")
+                        continue
+                    what = f"wkv6_bwd/{case}/{dname}/{impl}/{name}"
+                    err = max(err, _grad_err(g, p_, tol, what))
+                    if a_ is not None:
+                        _grad_err(g, a_.to(g.dtype), tol, what + " vs autograd")
+                errs[impl] = err
+                del got, again
+            if picked == "split":       # the picked segment length too
+                got = wkv6_bwd_cuda(*args, gy, gs)
+                errs["picked"] = max(
+                    _grad_err(g, p_, tol, f"wkv6_bwd/{case}/{dname}/picked")
+                    for g, p_ in zip(got, plain) if p_ is not None)
+                del got
+            err = max(errs.values())
             worst[dname] = max(worst.get(dname, 0.0), err)
-            del again, plain, auto
-            info = wkv6_bwd_info(dtype, kd, s)
-            if case not in timed[dname]:
+            del plain, auto
+            seg_picked = (bwd_split_steps(bb, s, hh) if picked == "split"
+                          else 0)
+            if case not in timed:
                 emit(phase="kernel_check", kernel="wkv6_bwd", case=case,
                      dtype=dname, B=bb, S=s, H=hh, K=kd, carried=carried,
-                     decay=decay, max_abs_err=err, tol=tol, **info,
+                     decay=decay, impl=picked, seg=seg_picked,
+                     forced_split_seg=forced_seg, max_abs_err=errs, tol=tol,
                      seconds=time.perf_counter() - t_case)
                 continue
             kern = lambda: wkv6_bwd_cuda(*args, gy, gs)
@@ -4721,17 +4753,20 @@ def wkv6_bwd_kernel_phase(torch):
             b_ms, b_by = _wkv6_bwd_bound(bb, s, hh, kd, carried, esize,
                                          dname)
             rec = dict(phase="kernel", kernel="wkv6_bwd", case=case,
-                       dtype=dname, B=bb, S=s, H=hh, K=kd, max_abs_err=err,
-                       tol=tol, **info, kernel_ms=time_ms(kern, iters=50),
+                       dtype=dname, B=bb, S=s, H=hh, K=kd, impl=picked,
+                       seg=seg_picked, max_abs_err=err, errs=errs, tol=tol,
+                       kernels=info, kernel_ms=time_ms(kern, iters=50),
                        plain_ms=time_ms(plain_fn, iters=2 if short else 1,
                                         warmup=1 if short else 0),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
                        kernel_device_ms=device_ms(kern, "wkv6_bwd"),
                        plain_device_ms=(device_ms(plain_fn, iters=1)
                                         if short else None))
-            if case == "learner":      # the main and the reduce kernel
-                rec["kernels_ms"] = profile_kernels(kern, lambda rows: sum(
-                    "wkv6_bwd" in r[0] for r in rows) >= 2)[1]
+            # Each of the call's kernels by device time.
+            n_kern = 4 if picked == "split" else 2
+            rec["kernels_ms"] = profile_kernels(kern, lambda rows: sum(
+                "wkv6_bwd" in r[0] for r in rows) >= n_kern)[1]
+            if case == "learner":
                 headline[("wkv6_bwd", dname)] = rec
             rec["seconds"] = time.perf_counter() - t_case
             emit(**rec)
@@ -4752,6 +4787,28 @@ def wkv6_bwd_kernel_phase(torch):
     for dname, err in worst.items():
         headline[("wkv6_bwd", dname)] = dict(headline[("wkv6_bwd", dname)],
                                              max_abs_err=err)
+    # Where each instantiation pays: device time of both, forced (split
+    # at the picked segment length), at rwkv6's 32 heads of 64, float32,
+    # zero state; then the split's segment length at B 1 x S 2048.
+    for bb in (1, 2, 4, 8):
+        for s in (64, 128, 256, 512, 2048):
+            args = _wkv6_inputs(torch, torch.float32, bb, s, h, 64, False,
+                                seed=s)
+            gy = torch.randn(bb, s, h, 64, device="cuda")
+            seg = bwd_split_steps(bb, s, h)
+            ms = {impl: device_ms(lambda: wkv6_bwd_cuda(
+                *args, gy, None, impl=impl, seg=seg), "wkv6_bwd")
+                for impl in BWD_IMPLS}
+            emit(phase="wkv6_bwd_crossover", B=bb, S=s, H=h, device_ms=ms,
+                 picked=wkv6_bwd_impl(bb, s, h), seg=seg)
+    args = _wkv6_inputs(torch, torch.float32, 1, RWKV_LONG, h, 64, False,
+                        seed=7)
+    gy = torch.randn(1, RWKV_LONG, h, 64, device="cuda")
+    emit(phase="wkv6_bwd_crossover", B=1, S=RWKV_LONG, H=h, seg_ms={
+        seg: device_ms(lambda: wkv6_bwd_cuda(*args, gy, None, impl="split",
+                                             seg=seg), "wkv6_bwd")
+        for seg in (32, 64, 128, 256, 512)},
+        seg=bwd_split_steps(1, RWKV_LONG, h))
     return headline
 
 
@@ -4944,7 +5001,8 @@ def _rwkv_step_against_plain(torch, trainer, tokens, log_beta, mask, adv,
          update_step_grad_norm=step_norm, grad_norm_rel_err=norm_rel,
          norm_tol=1e-4, min_grad_norm=1e-3,
          leaf_rel_err_to_plain=worst_rel, worst_leaf=worst_leaf,
-         wkv6_bwd_vs_float64=dict(rel_err=rel64, tol=tol),
+         wkv6_bwd_vs_float64=dict(rel_err=rel64, tol=tol,
+                                  du_tol=WKV6_BWD_DU_TOL),
          wkv6_bwd={r: out[r]["wkv6_bwd"] for r in out},
          seconds={r: out[r]["seconds"] for r in out})
     check(norm["kernels"] >= 1e-3 and norm_rel <= 1e-4,
@@ -4952,27 +5010,35 @@ def _rwkv_step_against_plain(torch, trainer, tokens, log_beta, mask, adv,
     check(all(e <= tol for e in rel64["kernel"].values()),
           f"rwkv step: wkv6_bwd from float64 by {rel64['kernel']} of each "
           f"output's largest magnitude, tolerance {tol}")
+    check(rel64["kernel"]["du"] <= WKV6_BWD_DU_TOL,
+          f"rwkv step: wkv6_bwd's du from float64 by "
+          f"{rel64['kernel']['du']} of its largest magnitude, tolerance "
+          f"{WKV6_BWD_DU_TOL}")
 
 
 def rwkv_train_parity_phase(torch):
     """Phase 35: 2 full-width rwkv6 layers: phase 9's warmup + VACO step
     card against CPU, then one B 1 x S 2048 forward and backward (the
-    card's split forward and the backward with its chunk starts in
-    scratch; the CPU's ``WKV6Fn`` on the plain versions) with its param
-    grads compared."""
-    from repro_torch.kernels.wkv6 import wkv6_bwd_info, wkv6_impl
+    card's split forward and split backward; the CPU's ``WKV6Fn`` on
+    the plain versions) with its param grads compared."""
+    from repro_torch.kernels.wkv6 import (bwd_split_steps, wkv6_bwd_impl,
+                                          wkv6_bwd_info, wkv6_impl)
 
     # Unscaled weights: with dense x3 no float32 route holds the learner
     # gradient to 1e-4 of float64 (``--grad-conditioning``); unscaled,
     # every route does.
     cfg, bundle, params = train_parity_phase(
         torch, "rwkv6-1.6b", tag="rwkv_train_parity", same_start=True)
-    s = RWKV_LONG
+    s, heads = RWKV_LONG, cfg.d_model // 64
     _long_train_parity(torch, cfg, bundle, params, s,
                        "rwkv_long_train_parity",
                        {"wkv6": cfg.n_layers, "wkv6_bwd": cfg.n_layers},
-                       forward_impl=wkv6_impl(1, s, cfg.d_model // 64),
-                       backward=wkv6_bwd_info(torch.float32, 64, s))
+                       forward_impl=wkv6_impl(1, s, heads),
+                       backward=dict(impl=wkv6_bwd_impl(1, s, heads),
+                                     seg=bwd_split_steps(1, s, heads),
+                                     kernels=wkv6_bwd_info(torch.float32)))
+    check(wkv6_bwd_impl(1, s, heads) == "split",
+          f"rwkv long backward: {wkv6_bwd_impl(1, s, heads)}, not split")
 
 
 def rwkv_grad_conditioning(torch):

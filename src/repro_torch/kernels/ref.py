@@ -345,28 +345,35 @@ def ref_wkv6(
     return torch.stack(ys, dim=1).to(r.dtype), big_s
 
 
+def _wkv6_decays(w):
+    """Decay products of a sub-chunk, w [B, L, H, K], none above 1 and
+    none divided, for the forward's and the backward's chunked forms:
+    ``pre_t`` over the steps before t, ``suf_t`` over those after it,
+    ``total`` over all of them, and ``pair[b, t, i]`` over those strictly
+    between i and t for i < t (0 for i >= t)."""
+    n = w.shape[1]
+    ones = torch.ones_like(w[:, :1])
+    pre = torch.cat([ones, torch.cumprod(w, 1)[:, :-1]], 1)
+    suf = torch.cat([torch.cumprod(w.flip(1), 1).flip(1)[:, 1:], ones], 1)
+    idx = torch.arange(n, device=w.device)
+    rows = torch.where((idx[None, :] < idx[:, None])[None, :, :, None, None],
+                       w[:, None], torch.ones_like(w[:, None]))  # [B,t,m,H,K]
+    between = torch.cumprod(rows.flip(2), 2).flip(2)
+    pair = torch.cat([between[:, :, 1:], torch.zeros_like(between[:, :, :1])],
+                     2)
+    pair = pair * (idx[None, :] < idx[:, None]).to(w.dtype)[None, :, :, None,
+                                                             None]
+    return pre, suf, torch.cumprod(w, 1)[:, -1], pair
+
+
 def _wkv6_sub(r, k, v, w, u, big_s):
     """One sub-chunk of L steps from state ``big_s`` [B, H, K, V], every
     operand float32: ``(y [B, L, H, V], the state after it)``.  Decays
-    enter only as products of w over spans of steps, each at most 1:
-    ``pre_t`` over the steps before t, ``suf_i`` over those after i, and
-    ``pair[t, i]`` over those strictly between i and t (a row of w with
-    the steps at or after t set to 1, its suffix products, shifted).  No
-    logarithm and no division, so w = 0 gives an exact 0."""
-    n = r.shape[1]
-    ones = torch.ones_like(w[:, :1])
-    pre = torch.cat([ones, torch.cumprod(w, 1)[:, :-1]], 1)
-    total = torch.cumprod(w, 1)[:, -1]                          # [B, H, K]
-    suf = torch.cat([torch.cumprod(w.flip(1), 1).flip(1)[:, 1:], ones], 1)
-    idx = torch.arange(n, device=r.device)
-    before = (idx[None, :] < idx[:, None])                      # [t, j]
-    rows = torch.where(before[None, :, :, None, None], w[:, None],
-                       torch.ones_like(w[:, None]))             # [B,t,j,H,K]
-    between = torch.cumprod(rows.flip(2), 2).flip(2)
-    pair = torch.cat([between[:, :, 1:], torch.ones_like(between[:, :, :1])],
-                     2)                                         # [B,t,i,H,K]
+    enter only as products of w over spans of steps, each at most 1
+    (:func:`_wkv6_decays`).  No logarithm and no division, so w = 0 gives
+    an exact 0."""
+    pre, suf, total, pair = _wkv6_decays(w)
     scores = torch.einsum("bthk,bihk,btihk->bhti", r, k, pair)
-    scores = scores * before[None, None].float()
     scores = scores + torch.diag_embed(
         torch.einsum("bthk,hk,bthk->bht", r, u, k))
     y = (torch.einsum("bhti,bihv->bthv", scores, v)
@@ -433,8 +440,8 @@ def ref_wkv6_chunked(
     return torch.cat(ys, dim=1).to(r.dtype), big_s
 
 
-# Steps a chunk of the WKV6 backward recomputes from its start and walks
-# back (``csrc/wkv6_bwd.cu``: kChunk).
+# Steps a chunk of the plain WKV6 backward recomputes from its start and
+# walks back.
 WKV6_BWD_CHUNK = 8
 
 
@@ -450,8 +457,9 @@ def ref_wkv6_backward(
     *,
     chunk: int = WKV6_BWD_CHUNK,
 ):
-    """Gradient of :func:`ref_wkv6` by an explicit reverse recurrence, in
-    the algebra the card's backward kernel uses.  A forward walk keeps
+    """Gradient of :func:`ref_wkv6` by an explicit reverse recurrence,
+    step by step (the card's kernel computes the same gradient in the
+    chunked form, :func:`ref_wkv6_backward_chunked`).  A forward walk keeps
     the state at the start of every ``chunk`` steps; the chunks are then
     taken last to first, each chunk's states recomputed from its start
     and walked in reverse.  With ``S_t`` the state after step t,
@@ -507,6 +515,154 @@ def ref_wkv6_backward(
             g_s = w_t[..., None] * g_s + r_t[..., None] * dy_t[..., None, :]
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
             du.to(u.dtype), None if state is None else g_s)
+
+
+def _wkv6_bwd_sub(r, k, v, w, u, s0, g_end, dy):
+    """The backward of one sub-chunk of L steps (operands [B, L, H, *] in
+    the compute dtype) from its start state ``s0`` and the gradient
+    ``g_end`` [B, H, K, V] reaching its end state.  With A_ji = dy_j . v_i
+    (g_t = A_tt), SdY_t = S0 dy_t, GV_t = G_end v_t, c = rowsum(G_end *
+    S0) and P_jt = r_j . (pair_jt * k_t) (P_tt = r_t . u k_t):
+    ``dr_t = pre_t SdY_t + sum_{i<t} pair_ti k_i A_ti + u k_t g_t``,
+    ``dk_t = suf_t GV_t + sum_{j>t} pair_jt r_j A_jt + u r_t g_t``,
+    ``dv_t = G_end^T (k_t suf_t) + sum_{j>=t} P_jt dy_j``,
+    ``dw_t = pre_t suf_t c + pre_t Z_t + suf_t W_t + sum_{i<t<j} pair_ti
+    pair_jt k_i r_j A_ji`` with ``Z_t = sum_{j>t} pair_jt r_j SdY_j`` and
+    ``W_t = sum_{i<t} pair_ti k_i GV_i``, and the gradient before the
+    sub-chunk ``diag(total) G_end + (r pre)^T dy``.  Returns ``(dr, dk,
+    dv, dw, du`` summed over the L steps [B, H, K], that gradient)."""
+    pre, suf, total, pair = _wkv6_decays(w)
+    a = torch.einsum("bjhv,bihv->bhji", dy, v)
+    g = torch.diagonal(a, dim1=2, dim2=3).permute(0, 2, 1)[..., None]
+    sdy = torch.einsum("bhkv,bthv->bthk", s0, dy)
+    gv = torch.einsum("bhkv,bthv->bthk", g_end, v)
+    c = (g_end * s0).sum(-1)                                   # [B, H, K]
+    uu = u[None, None]
+    dr = (pre * sdy + torch.einsum("btihk,bihk,bhti->bthk", pair, k, a)
+          + uu * k * g)
+    dk = (suf * gv + torch.einsum("bjthk,bjhk,bhjt->bthk", pair, r, a)
+          + uu * r * g)
+    p = (torch.einsum("bjhk,bjthk,bthk->bhjt", r, pair, k)
+         + torch.diag_embed(torch.einsum("bthk,hk,bthk->bht", r, u, k)))
+    dv = (torch.einsum("bthk,bhkv->bthv", k * suf, g_end)
+          + torch.einsum("bhjt,bjhv->bthv", p, dy))
+    z = torch.einsum("bjthk,bjhk,bjhk->bthk", pair, r, sdy)
+    wsum = torch.einsum("btihk,bihk,bihk->bthk", pair, k, gv)
+    cross = torch.einsum("bjthk,btihk,bihk,bjhk,bhji->bthk", pair, pair, k,
+                         r, a)
+    dw = pre * suf * c[:, None] + pre * z + suf * wsum + cross
+    du = (r * k * g).sum(1)
+    g_before = (total[..., None] * g_end
+                + torch.einsum("bthk,bthv->bhkv", r * pre, dy))
+    return dr, dk, dv, dw, du, g_before
+
+
+def _pairwise_sum(parts):
+    """Sum of a list of equal-shaped tensors in a fixed tree: stride 1,
+    2, 4, ...: part i takes part i + stride (the order ``wkv6_bwd``'s
+    reduction kernel sums du's per-(b, segment) partials in)."""
+    parts = list(parts)
+    stride = 1
+    while stride < len(parts):
+        for i in range(0, len(parts) - stride, 2 * stride):
+            parts[i] = parts[i] + parts[i + stride]
+        stride *= 2
+    return parts[0]
+
+
+def ref_wkv6_backward_chunked(
+    r: torch.Tensor,                           # [B, S, H, K]
+    k: torch.Tensor,                           # [B, S, H, K]
+    v: torch.Tensor,                           # [B, S, H, V]
+    w: torch.Tensor,                           # [B, S, H, K]
+    u: torch.Tensor,                           # [H, K]
+    state: Optional[torch.Tensor],             # [B, H, K, V] or None (zeros)
+    y_grad: torch.Tensor,                      # [B, S, H, V]
+    state_grad: Optional[torch.Tensor],        # [B, H, K, V] or None (zeros)
+    *,
+    sub: int = 16,
+    seg: Optional[int] = None,
+):
+    """:func:`ref_wkv6_backward` in the chunked form the card's
+    ``wkv6_bwd`` computes, written plainly to pin down its algebra.  The
+    sequence is cut into segments of ``seg`` steps (None: one segment,
+    the ``chunked`` instantiation; else ``split``, ``seg`` a multiple of
+    ``sub`` on the card), each into sub-chunks of ``sub`` steps:
+    (1) every segment, from a zero state and a zero end-gradient, gives
+    its local end state (sub-chunk by sub-chunk, ``S <- diag(total) S +
+    (k suf)^T v``), its local start-gradient ``sum_t (prod_{m<t} w_m) r_t
+    dy_t^T`` and its decay product; (2) the carries: segment c + 1
+    starts at ``diag(D_c) S_c + local_c`` from ``state``, and segment
+    c - 1 ends at ``diag(D_c) G_c + local_c`` from ``state_grad``; (3)
+    every segment walks its sub-chunks forward from its true start,
+    keeping each sub-chunk's start state, then back from its true
+    end-gradient through :func:`_wkv6_bwd_sub`.  du sums over the steps
+    of each (b, segment), then over those partials in
+    :func:`_pairwise_sum`'s tree.  Nothing divides by w or takes its
+    logarithm.  Float32 arithmetic (float64 for float64 inputs); returns
+    what :func:`ref_wkv6_backward` returns."""
+    bsz, s, h, kd = r.shape
+    vd = v.shape[-1]
+    acc = torch.promote_types(r.dtype, torch.float32)
+    r32, k32, v32, w32, dy32 = (x.to(acc) for x in (r, k, v, w, y_grad))
+    u32 = u.to(acc)
+    zero = torch.zeros((bsz, h, kd, vd), dtype=acc, device=r.device)
+    seg = s if seg is None else seg
+    spans = [(t0, min(t0 + seg, s)) for t0 in range(0, s, seg)]
+
+    def subs(t0, t1):
+        return [(a, min(a + sub, t1)) for a in range(t0, t1, sub)]
+
+    # (1) Each segment's local end state, start-gradient and decay.
+    local_s, local_g, decay = [], [], []
+    for t0, t1 in spans:
+        big_s, big_g = zero, zero
+        before = torch.ones_like(w32[:, 0])          # prod of w before
+        for a, b in subs(t0, t1):
+            pre, suf, total, _ = _wkv6_decays(w32[:, a:b])
+            big_s = (total[..., None] * big_s
+                     + torch.einsum("bthk,bthv->bhkv",
+                                    k32[:, a:b] * suf, v32[:, a:b]))
+            big_g = big_g + torch.einsum(
+                "bthk,bthv->bhkv", r32[:, a:b] * pre * before[:, None],
+                dy32[:, a:b])
+            before = before * total
+        local_s.append(big_s)
+        local_g.append(big_g)
+        decay.append(before)
+    # (2) The carries.
+    starts = [zero if state is None else state.to(acc)]
+    for c in range(len(spans) - 1):
+        starts.append(decay[c][..., None] * starts[c] + local_s[c])
+    ends = [zero if state_grad is None else state_grad.to(acc)]
+    for c in range(len(spans) - 1, 0, -1):
+        ends.insert(0, decay[c][..., None] * ends[0] + local_g[c])
+    # (3) Every segment from its true start state and end-gradient.
+    dr, dk, dw = (torch.empty_like(r32) for _ in range(3))
+    dv = torch.empty_like(v32)
+    du_parts = [[None] * len(spans) for _ in range(bsz)]
+    for c, (t0, t1) in enumerate(spans):
+        sub_starts, big_s = [], starts[c]
+        for a, b in subs(t0, t1):
+            sub_starts.append(big_s)
+            _, suf, total, _ = _wkv6_decays(w32[:, a:b])
+            big_s = (total[..., None] * big_s
+                     + torch.einsum("bthk,bthv->bhkv",
+                                    k32[:, a:b] * suf, v32[:, a:b]))
+        big_g, du_c = ends[c], torch.zeros_like(r32[:, 0])
+        for (a, b), s0 in zip(reversed(subs(t0, t1)), reversed(sub_starts)):
+            out = _wkv6_bwd_sub(r32[:, a:b], k32[:, a:b], v32[:, a:b],
+                                w32[:, a:b], u32, s0, big_g, dy32[:, a:b])
+            dr[:, a:b], dk[:, a:b], dv[:, a:b], dw[:, a:b] = out[:4]
+            du_c = du_c + out[4]
+            big_g = out[5]
+        for bi in range(bsz):
+            du_parts[bi][c] = du_c[bi]
+        if c == 0:
+            dstate = big_g
+    du = _pairwise_sum([p for row in du_parts for p in row])
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), None if state is None else dstate)
 
 
 # ---------------------------------------------------------------------------

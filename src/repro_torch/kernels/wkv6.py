@@ -22,6 +22,15 @@ and long sequences; ``split``, the chunked form over segments of the
 sequence in parallel (segment end states, a carry across segments, the
 output from each segment's true start), for long sequences of a small
 batch (rwkv6's B 1 x S 2048 forward).
+
+The backward has two (:func:`wkv6_bwd_impl`): ``chunked``, a block per
+(b, h) walking 16-step sub-chunks forward for their start states, then
+back with the products on the tensor cores, for the learner's shape;
+``split``, the same over segments of the sequence in parallel (each
+segment's local end state and start-gradient, a carry pass both ways,
+then each segment from its true start state and end-gradient), for long
+sequences of a small batch.  ``ref.ref_wkv6_backward_chunked`` is their
+plain form.
 """
 from __future__ import annotations
 
@@ -56,8 +65,24 @@ SPLIT_BLOCKS_PER_SM = 2
 # seg | stream
 KERNEL = Kernel("wkv6", [c_void_p] * 9 + [c_int] * 8 + [c_void_p])
 # r, k, v, w, u, state_in, dy, dstate_final, dr, dk, dv, dw, du, dstate,
-# scratch | B S H K V dtype | stream
-BWD_KERNEL = Kernel("wkv6_bwd", [c_void_p] * 15 + [c_int] * 6 + [c_void_p])
+# scratch | B S H K V dtype seg | stream
+BWD_KERNEL = Kernel("wkv6_bwd", [c_void_p] * 15 + [c_int] * 7 + [c_void_p])
+BWD_IMPLS = ("chunked", "split")
+# The backward's split instantiation pays a first pass over every segment
+# and a carry, and wins where B x H blocks leave SMs idle.  From
+# chip_smoke.py phase 33's wkv6_bwd_crossover records (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md row 7b) at rwkv6's 32 heads of 64, chunked /
+# split ms: split wins from S 64 while B x H fills at most half the SMs
+# (B 1 and 2: 0.040 / 0.024 and 0.041 / 0.030 at S 64), and from S 512
+# while it fills at most all of them (B 4: 0.156 / 0.169 at S 256, 0.312
+# / 0.308 at S 512, 1.176 / 1.134 at S 2048); at B 8 chunked wins
+# everywhere.
+BWD_SPLIT_MIN_STEPS = 64
+BWD_SPLIT_MIN_STEPS_FULL = 512
+# The backward's split instantiation aims at BWD_SPLIT_BLOCKS_PER_SM
+# blocks an SM: at B 1 x S 2048 segments of 128 steps, 0.315 ms, where
+# 64 / 256 steps take 0.332 / 0.300 and 32 / 512 0.387 / 0.392.
+BWD_SPLIT_BLOCKS_PER_SM = 4
 
 
 def wkv6_impl(batch: int, steps: int, heads: int) -> str:
@@ -74,6 +99,24 @@ def split_steps(batch: int, steps: int, heads: int) -> int:
     multiple of the sub-chunk, as many segments as keep the emitting
     kernel's grid within SPLIT_BLOCKS_PER_SM blocks an SM (one wave)."""
     n_seg = max(1, SPLIT_BLOCKS_PER_SM * SM_COUNT // (batch * heads))
+    seg = -(-steps // n_seg)
+    return -(-seg // SUB_STEPS) * SUB_STEPS
+
+
+def wkv6_bwd_impl(batch: int, steps: int, heads: int) -> str:
+    """The backward instantiation a call of these sizes takes."""
+    blocks = batch * heads
+    if ((steps >= BWD_SPLIT_MIN_STEPS and 2 * blocks <= SM_COUNT)
+            or (steps >= BWD_SPLIT_MIN_STEPS_FULL and blocks <= SM_COUNT)):
+        return "split"
+    return "chunked"
+
+
+def bwd_split_steps(batch: int, steps: int, heads: int) -> int:
+    """Steps per segment of the backward's split instantiation: a
+    multiple of the sub-chunk, as many segments as keep its grids within
+    BWD_SPLIT_BLOCKS_PER_SM blocks an SM."""
+    n_seg = max(1, BWD_SPLIT_BLOCKS_PER_SM * SM_COUNT // (batch * heads))
     seg = -(-steps // n_seg)
     return -(-seg // SUB_STEPS) * SUB_STEPS
 
@@ -152,47 +195,56 @@ def wkv6_cuda(
 
 
 def bwd_scratch_floats(batch: int, steps: int, heads: int, kd: int,
-                       vd: int) -> int:
-    """float32 scratch of the backward kernel, as the C side sizes it
-    (``csrc/wkv6_bwd.cu``: ``wkv6_bwd_scratch_floats``): du's per-(b, h)
-    partials, and the chunk starts when the sequence has more chunks
-    than shared memory keeps."""
+                       vd: int, seg: int = 0) -> int:
+    """float32 scratch of the backward at these sizes and segment length
+    (0: chunked), as the C side sizes it (``csrc/wkv6_bwd.cu``:
+    ``wkv6_bwd_scratch_floats``): du's per-(b, segment) partials, the
+    sub-chunk start states a block keeps off chip, and for the split
+    instantiation the carried states, end-gradients and decays."""
     fn = load(BWD_KERNEL.name).wkv6_bwd_scratch_floats
-    fn.argtypes = [c_int] * 5
+    fn.argtypes = [c_int] * 6
     fn.restype = ctypes.c_longlong
-    floats = fn(batch, steps, heads, kd, vd)
+    floats = fn(batch, steps, heads, kd, vd, seg)
     if floats < 0:
         raise ValueError(f"{BWD_KERNEL.name}: bad sizes B {batch} S {steps} "
-                         f"H {heads} K {kd} V {vd}")
+                         f"H {heads} K {kd} V {vd} seg {seg}")
     return floats
 
 
-def wkv6_bwd_info(dtype: torch.dtype, kd: int, steps: int) -> dict:
-    """What the backward's main kernel takes at K keys and ``steps``
-    steps on the current card: registers and spilled (local) bytes a
-    thread, blocks resident on an SM, dynamic shared bytes a block,
-    whether the chunk starts stay on chip, and the steps of a chunk
-    (``csrc/wkv6_bwd.cu``: ``wkv6_bwd_info``)."""
+def wkv6_bwd_info(dtype: torch.dtype) -> dict:
+    """What the backward's kernels take on the current card, by name
+    (``main``: the per-segment kernel both instantiations run; ``local``:
+    the split's first pass): registers and spilled (local) bytes a
+    thread, blocks resident on an SM, dynamic shared bytes a block, and
+    the steps of a sub-chunk (``csrc/wkv6_bwd.cu``: ``wkv6_bwd_info``)."""
     fn = load(BWD_KERNEL.name).wkv6_bwd_info
-    fn.argtypes = [c_int, c_int, c_int, ctypes.POINTER(c_int)]
+    fn.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
     fn.restype = c_int
-    out = (c_int * 6)()
-    check(fn(_DTYPES[dtype], kd, steps, out), "wkv6_bwd_info")
-    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
-                smem_bytes=out[3], starts_on_chip=bool(out[4]),
-                chunk=out[5])
+    out = {}
+    for which, name in enumerate(("main", "local")):
+        vals = (c_int * 5)()
+        check(fn(_DTYPES[dtype], which, vals), "wkv6_bwd_info")
+        out[name] = dict(registers=vals[0], local_bytes=vals[1],
+                         blocks_per_sm=vals[2], smem_bytes=vals[3],
+                         sub=vals[4])
+    return out
 
 
 def wkv6_bwd_cuda(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     u: torch.Tensor, state: Optional[torch.Tensor], y_grad: torch.Tensor,
-    state_grad: Optional[torch.Tensor],
+    state_grad: Optional[torch.Tensor], *, impl: Optional[str] = None,
+    seg: Optional[int] = None,
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """``(dr, dk, dv, dw, du, dstate)`` of :func:`wkv6_cuda` at the
     gradients ``y_grad`` [B, S, H, V] (r's dtype, contiguous) and
     ``state_grad`` [B, H, K, V] float32 (None: zeros) of its outputs.
-    The inputs as the forward takes them; dr, dk, dv, dw and du in their
-    dtype, dstate [B, H, K, V] float32 (None when ``state`` is None)."""
+    The inputs as the forward takes them, V a multiple of 8; dr, dk, dv,
+    dw and du in their dtype, dstate [B, H, K, V] float32 (None when
+    ``state`` is None).  ``impl`` forces an instantiation (one of
+    :data:`BWD_IMPLS`), ``seg`` the split one's segment length (a
+    multiple of 16); None takes :func:`wkv6_bwd_impl`'s and
+    :func:`bwd_split_steps`'."""
     name = BWD_KERNEL.name
     b, s, h, kd, vd = _check(name, r, k, v, w, u, state)
     if (y_grad.device != r.device or y_grad.dtype != r.dtype
@@ -205,10 +257,22 @@ def wkv6_bwd_cuda(
             or state_grad.shape != (b, h, kd, vd)
             or not state_grad.is_contiguous()):
         raise ValueError(f"{name}: state_grad must be float32 [B, H, K, V]")
+    if vd % 8:
+        raise ValueError(f"{name}: V must be a multiple of 8, got {vd}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w, y_grad)):
+        raise ValueError(f"{name}: r, k, v, w and y_grad must start on a "
+                         "16-byte boundary")
+    impl = wkv6_bwd_impl(b, s, h) if impl is None else impl
+    if impl not in BWD_IMPLS:
+        raise ValueError(f"{name}: impl is one of {BWD_IMPLS}, got {impl}")
+    if impl == "chunked":
+        seg = 0
+    elif seg is None:
+        seg = bwd_split_steps(b, s, h)
     dr, dk, dw = (torch.empty_like(r) for _ in range(3))
     dv, du = torch.empty_like(v), torch.empty_like(u)
     dstate = None if state is None else torch.empty_like(state)
-    scratch = torch.empty(bwd_scratch_floats(b, s, h, kd, vd),
+    scratch = torch.empty(bwd_scratch_floats(b, s, h, kd, vd, seg),
                           dtype=torch.float32, device=r.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     BWD_KERNEL.launch(r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -216,7 +280,7 @@ def wkv6_bwd_cuda(
                       y_grad.data_ptr(), ptr(state_grad), dr.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
                       du.data_ptr(), ptr(dstate), scratch.data_ptr(), b, s, h,
-                      kd, vd, _DTYPES[r.dtype])
+                      kd, vd, _DTYPES[r.dtype], seg)
     return dr, dk, dv, dw, du, dstate
 
 
@@ -224,8 +288,9 @@ class WKV6Fn(torch.autograd.Function):
     """The WKV6 recurrence ``(y, final_state)`` with its gradient w.r.t.
     r, k, v, w, u and the initial state: on CUDA tensors the forward
     kernel (the instantiation :func:`wkv6_impl` picks) and the backward
-    kernel, on CPU tensors ``ref_wkv6`` and ``ref_wkv6_backward``.  An
-    output the loss does not use reaches ``backward`` as None."""
+    kernel (:func:`wkv6_bwd_impl`'s), on CPU tensors ``ref_wkv6`` and
+    ``ref_wkv6_backward``.  An output the loss does not use reaches
+    ``backward`` as None."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):

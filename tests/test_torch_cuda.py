@@ -1103,27 +1103,31 @@ def _wkv6_cotangents(dev, dtype, b, s, h, kd, seed=5):
             torch.randn(b, h, kd, kd, generator=g).to(dev))
 
 
+@pytest.mark.parametrize("impl,seg", [("chunked", None), ("split", 16),
+                                      ("split", 32)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,s,h,kd,state,decay", [
     (4, 40, 32, 64, False, None),       # the learner's layout
     (2, 1, 3, 64, True, None), (2, 37, 3, 64, True, None),
     (2, 33, 2, 64, True, 0.0), (2, 33, 2, 64, True, 1.0),
-    # More than 8 chunks: the chunk starts go to device scratch.
+    # More than two sub-chunks: their starts go to device scratch.
     (1, 150, 2, 64, True, None),
     (2, 17, 1, 8, True, None), (2, 32, 2, 16, False, None),
     (2, 50, 3, 32, True, None)])
 def test_wkv6_backward_matches_plain(dev, dtype, tol, b, s, h, kd, state,
-                                     decay):
-    """``wkv6_bwd`` against ``ref_wkv6_backward`` with cotangents on y and
-    on the final state, within ``tol`` of max(1, |ref|); a second launch
-    gives bit-identical gradients (fixed-order sums, no atomics)."""
+                                     decay, impl, seg):
+    """``wkv6_bwd`` (each instantiation forced; split with segments of
+    16 and 32 steps) against ``ref_wkv6_backward`` with cotangents on y
+    and on the final state, within ``tol`` of max(1, |ref|); a second
+    launch gives bit-identical gradients (fixed-order sums, no
+    atomics)."""
     from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
 
     args = _wkv6_case(dev, dtype, b, s, h, kd, state, decay, seed=s * h + kd)
     gy, gs = _wkv6_cotangents(dev, dtype, b, s, h, kd)
     kernels.reset_launch_counts()
-    got = wkv6_bwd_cuda(*args, gy, gs)
+    got = wkv6_bwd_cuda(*args, gy, gs, impl=impl, seg=seg)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["wkv6_bwd"] == 1
     want = ref.ref_wkv6_backward(*args, gy, gs)
@@ -1137,7 +1141,7 @@ def test_wkv6_backward_matches_plain(dev, dtype, tol, b, s, h, kd, state,
         err = (x.float() - w.float()).abs().max().item()
         assert err <= tol * max(1.0, w.float().abs().max().item()), (name,
                                                                      err)
-    again = wkv6_bwd_cuda(*args, gy, gs)
+    again = wkv6_bwd_cuda(*args, gy, gs, impl=impl, seg=seg)
     torch.cuda.synchronize()
     for x, y in zip(got, again):
         assert (x is None and y is None) or torch.equal(x, y)
@@ -1146,28 +1150,29 @@ def test_wkv6_backward_matches_plain(dev, dtype, tol, b, s, h, kd, state,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_wkv6_backward_scratch_query_matches_the_launch(dev, dtype, tol):
-    """The C side reports the scratch its launcher takes: the kernel
-    writes nothing past the floats reported, with the chunk starts on
-    chip (the learner's S 40) and off it (S 150) as ``wkv6_bwd_info``
-    says; the gradients against the plain backward."""
+    """The C side reports the scratch its launcher takes: the kernels
+    write nothing past the floats reported, chunked (the learner's S 40,
+    one sub-chunk start off chip; S 150) and split (segments of 32 and
+    48); the gradients against the plain backward.  Both kernels keep
+    two blocks an SM (``wkv6_bwd_info``)."""
     from repro_torch.kernels.wkv6 import (BWD_KERNEL, bwd_scratch_floats,
                                           wkv6_bwd_info)
 
+    for name, info in wkv6_bwd_info(dtype).items():
+        assert info["blocks_per_sm"] >= 2 and info["sub"] == 16, (name, info)
     dcode = 0 if dtype == torch.float32 else 1
-    for b, s, h, kd, on_chip in ((4, 40, 3, 64, True),
-                                 (1, 150, 2, 64, False)):
-        info = wkv6_bwd_info(dtype, kd, s)
-        assert info["starts_on_chip"] == on_chip and info["local_bytes"] == 0
+    for b, s, h, kd, seg in ((4, 40, 3, 64, 0), (1, 150, 2, 64, 0),
+                             (1, 150, 2, 64, 32), (2, 100, 1, 32, 48)):
         r, k, v, w, u, s0 = _wkv6_case(dev, dtype, b, s, h, kd, True, seed=s)
         gy, gs = _wkv6_cotangents(dev, dtype, b, s, h, kd)
         grads = [torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
                  torch.empty_like(w), torch.empty_like(u),
                  torch.empty_like(s0)]
-        floats = bwd_scratch_floats(b, s, h, kd, kd)
+        floats = bwd_scratch_floats(b, s, h, kd, kd, seg)
         scratch = _guarded(floats, dev)
         BWD_KERNEL.launch(r.device, *(t.data_ptr() for t in (
             r, k, v, w, u, s0, gy, gs, *grads, scratch)), b, s, h, kd, kd,
-            dcode)
+            dcode, seg)
         torch.cuda.synchronize()
         assert torch.isnan(scratch[floats:]).all()
         want = ref.ref_wkv6_backward(r, k, v, w, u, s0, gy, gs)

@@ -1,6 +1,6 @@
 """Port vs JAX: training rwkv6, at ``reduced_config("rwkv6-1.6b")`` (2
 layers, d 128, two 64-wide WKV heads, the math tokenizer's vocab), and
-the plain backward that the card's ``wkv6_bwd`` kernel is held to.
+the plain backwards that the card's ``wkv6_bwd`` kernel is held to.
 
 Inputs are made with numpy and handed to both packages; the trainer test
 replays the JAX key chain, so sampling is token-exact.  The kernel
@@ -78,16 +78,22 @@ def _wkv6_inputs(b, s, h, kd, vd, state, edges, seed):
             f(b, s, h, vd), f(b, h, kd, vd))
 
 
-@pytest.mark.parametrize("edges", [False, True], ids=["mid", "w0_w1"])
-@pytest.mark.parametrize("state", [False, True])
-def test_wkv6_backward_matches_jax_grad(state, edges):
-    """``ref_wkv6_backward`` at chunks of 1, 4 and S, autograd of
+@pytest.mark.parametrize("state,edges,s", [
+    pytest.param(state, edges, 13, id=f"{state}-{tag}")
+    for state in (False, True)
+    for edges, tag in ((False, "mid"), (True, "w0_w1"))] + [
+    pytest.param(False, False, 37, id="False-mid-s37"),
+    pytest.param(True, True, 37, id="True-w0_w1-s37")])
+def test_wkv6_backward_matches_jax_grad(state, edges, s):
+    """``ref_wkv6_backward`` at chunks of 1, 4 and S, the chunked form
+    ``ref_wkv6_backward_chunked`` (the card kernel's algebra: sub-chunks
+    that do not divide S, one segment and several), autograd of
     ``ref_wkv6`` and ``WKV6Fn`` on the CPU, against ``jax.grad`` of
     ``repro.models.rwkv6.wkv6_scan`` with cotangents on y and on the
     final state, and on y alone (``WKV6Fn``'s unused output)."""
-    b, s, h, kd, vd = 2, 13, 3, 8, 5
+    b, h, kd, vd = 2, 3, 8, 5
     *inputs, gy, gs = _wkv6_inputs(b, s, h, kd, vd, state, edges,
-                                   seed=3 + 2 * state + edges)
+                                   seed=3 + 2 * state + edges + s - 13)
 
     def jloss(with_state, r, k, v, w, u, s0):
         y, final = jax_rwkv.wkv6_scan(r, k, v, w, u, s0)
@@ -97,12 +103,22 @@ def test_wkv6_backward_matches_jax_grad(state, edges):
     want = {c: jax.jit(jax.grad(jloss, argnums=argnums),
                        static_argnums=0)(c, *inputs) for c in (0, 1)}
     t = lambda x: None if x is None else torch.from_numpy(x)
+    targs = list(map(t, (*inputs, gy, gs)))
     for chunk in (1, 4, s):
-        got = ref.ref_wkv6_backward(*map(t, (*inputs, gy, gs)), chunk=chunk)
+        got = ref.ref_wkv6_backward(*targs, chunk=chunk)
         assert (got[5] is None) == (not state)
         for g, w, name in zip(got, want[1], NAMES):
             assert bool(torch.isfinite(g).all()), name
             _close(g, w, 1e-4, f"chunk {chunk} {name}")
+    # (sub, seg): one segment; segments of sub-chunks with a ragged end.
+    forms = ((16, None), (4, 8)) if s == 13 else ((16, None), (16, 16),
+                                                  (8, 24))
+    for sub, seg in forms:
+        got = ref.ref_wkv6_backward_chunked(*targs, sub=sub, seg=seg)
+        assert (got[5] is None) == (not state)
+        for g, w, name in zip(got, want[1], NAMES):
+            assert bool(torch.isfinite(g).all()), name
+            _close(g, w, 1e-4, f"chunked sub {sub} seg {seg} {name}")
     for via_fn in (False, True):
         for with_state in (1, 0) if via_fn else (1,):
             leaves = [None if x is None else t(x).requires_grad_(True)
