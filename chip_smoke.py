@@ -76,7 +76,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
     defaults (VACO, ``backward_mixture``, ``pass_through``) for 2
     phases: finite returns and metrics, ``vtrace`` launched once per
     phase, the policy moved.  Then one collection and one learner phase
-    at that scale, each timed and profiled (device busy / idle share).
+    of 100 actors x 100 steps (the paper's 500 x 1000, cut in depth for
+    time),
+    each timed and profiled (device busy / idle share).
 12. rl parity: hidden 64, 8 actors x 32 steps, on ``cpu`` and ``cuda``
     with the same draws: one ``collect_rollout`` over a 4-slot mixture
     (obs, actions, log_beta within 1e-4 of max(1, |cpu|), equal slots
@@ -98,6 +100,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
     version and the bound; no single PyTorch call computes the
     recurrence, so no library time.  Then the crossover: all three
     instantiations' device time, forced, at B 1 to 8 over S 4 to 2048
+    (S 4, 16, 64, 256, 2048)
     (``wkv6_crossover``).
 14. rwkv6 serve: ``repro_torch.launch.serve --engine static --arch
     rwkv6-1.6b --full-width --batch 8 --max-new-tokens 16`` in-process
@@ -135,6 +138,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
     record names the instantiation that ran (``impl``: ``serial`` or
     ``chunked``, with its ``chunk`` steps).  Then the crossover: both
     instantiations' device time, forced, at B 1 to 8 over S 64 to 2048
+    (B 1, 2, 4, 8)
     (``ssm_crossover``).  Each timed beside its plain version
     and bound, flash also beside ``F.scaled_dot_product_attention``
     (timed only); no single PyTorch call computes the scan, so no
@@ -185,7 +189,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     tensors (no copy); log_beta within 1e-4.
 
 21. threaded classic RL: ``train rl --runtime threaded`` in-process at
-    the paper's scale (500 actors x 1000 steps, VACO) for 3 phases with
+    100 actors x 100 steps (the paper's 500 x 1000 cut in depth for
+    time; VACO) for 3 phases with
     K 4 and K 1, beside ``backward_mixture`` at K 4: every consumed
     item's ``log_beta`` within 1e-5 (of max(1, |ref|)) of its actions
     re-scored, step by step, under a copy of the version it is stamped
@@ -208,13 +213,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
     Generation tokens/s, learner step p50, swaps, lags, peak memory;
     then one more minibatch timed and profiled (device idle share).
 23. figure harnesses: each ``repro_torch.experiments`` runner's ``main``
-    on a reduced grid (fig3 at 500 x 1000: pendulum, vaco and ppo, K 1
-    and 4, 1 seed, 3 phases; fig4, fig11 and the ablations at their own
-    scale, pendulum, 1 seed, 2 phases; fig5 ``--full-width`` with N 1
-    and 2, 1 phase, 4 warmup steps): each report finite with its
-    reference's keys, its kernel launched.
+    on a grid cut for time (fig3 at 100 x 100, the paper's 500 x 1000
+    cut in depth: pendulum, vaco, K 1 and 4, 1 seed, 2 phases; fig4 at
+    48 rollout steps; fig11 at K 8, the realignment ablation at K 16,
+    the delta and rho sweeps at their two ends (deltas 0.05 and 0.4,
+    rho 1 and 8), each at its own scale, pendulum, 1 seed, 2 phases;
+    fig5 ``--full-width`` with N 1 and 2, 1 phase, 4 warmup steps):
+    each report finite with its reference's keys, its kernel launched.
 24. the learner controllers: ``train rlvr --full-width --producer serve
-    --forced-lag 2`` in-process (2 warmup steps, 3 minibatches, rewards
+    --forced-lag 2`` in-process (2 warmup steps, 2 minibatches, rewards
     drawn from a seed) under ``gac``, ``stable_async:var_max=0.5`` and
     ``asympo``: GAC's cosine of every stale step within 1e-5 of a
     float64 one of the same gradients and anchor on the host; the loss
@@ -323,7 +330,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
     residency and the call's kernels by device time; the forward at the
     learner shape (``chunked``), row 7's learner line; then the
     ``wkv6_bwd_crossover`` records (both instantiations forced, B 1-8 x
-    S 64-2048, and the split's segment length at B 1 x S 2048).
+    S 64, 256, 2048, and the split's segment length at B 1 x S 2048).
 34. rwkv6 training: ``repro_torch.launch.train rlvr --full-width --arch
     rwkv6-1.6b`` in-process (24 layers, d 2048, vocab 65536, 2 warmup
     steps, one phase of 2 minibatches): ``wkv6_bwd`` 24 times a warmup
@@ -353,14 +360,54 @@ Phases, each printing one JSON line (any failure exits non-zero):
     versions), loss and every param grad within 1e-4 of its largest
     magnitude.
 
+36. head dim 128: ``flash_attention`` against ``ref_attention`` at
+    qwen2.5-14b's batched-prefill shape (B 8 x S 32, 40 / 8 heads),
+    codeqwen1.5-7b's (32 / 32), a ragged S 37 and B 1 x S 2048 global
+    (operations-bound), each timed beside the plain version, SDPA (timed
+    only) and the bound, plus S 1 and windowed cases; then
+    ``paged_attention`` (decode), ``paged_attention_varlen`` (T 16) and
+    ``paged_kv_write`` (bit-exact, directly and through
+    ``ops.paged_kv_write``) at both head geometries, timed the same way;
+    float32 within 2e-5, bfloat16 within 2e-2.
+37. qwen2.5-14b serve: full width (48 layers, d 5120, 40 / 8 heads of
+    128, vocab 152064, 14.77 B params, seeded random init, float32)
+    with the launcher's defaults (8 prompts, 4 slots, 128 blocks of 8,
+    16 tokens, greedy: the launcher's own draws at the floor
+    temperature, with each token's untempered log-prob as
+    ``log_beta``), one set of params through three
+    continuous engines: chunked prefill, ``--no-chunked-prefill`` and
+    ``--no-batch-prefill``.  Equal tokens, but at a step where the
+    chunked engine's top-2 log-prob gap is under 1e-4 (each such step
+    printed); the first tokens' log-probs within 1e-4; ``flash_attention``
+    48 x each batched engine's prefill dispatches and the varlen kernel
+    never there, the chunked engine the reverse; tokens/s, TTFT, the
+    batched engine's idle share over its first wave of 4 prompts (a
+    profiled repeat's kernel time over an unprofiled one's wall), peak
+    memory, the parameter count.
+38. codeqwen1.5-7b serve: full width (32 layers, d 4096, 32 / 32 heads
+    of 128, vocab 92416) through the launcher's ``serve
+    --no-chunked-prefill``: every request retires, ``flash_attention``
+    32 x the prefill dispatches.
+39. batched parity: 2 layers of qwen2.5-14b's widths (the math
+    tokenizer's vocab), dense weights x3, ``cpu`` against ``cuda``: the
+    prefill ``forward`` with a right-padding mask (logits within 1e-4,
+    K/V rows within 1e-5 of their largest magnitude; a mask with a hole
+    raises on the card), then the batched engine greedy and sampled on
+    the same noise: equal tokens and prefill counts, log_beta within
+    1e-4, pools within 1e-5 of their largest magnitude.
+
 Then one JSON line of every phase's wall seconds and the total, one of
 every kernel's numbers (``paged_attention_multi``'s launches are phase
 27's first run's; the hymba backward kernels' phase 31's, ``wkv6_bwd``'s
-phase 34's), the ``nvidia-smi`` line, and last ``{"ok": true,
-"device": {...}}``.
+phase 34's; ``flash_attention_d128`` is ``flash_attention`` at head dim
+128, its numbers phase 36's at qwen2.5-14b's prefill shape, its
+launches phase 37's batched engine's), the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
 import gc
 import json
 import math
@@ -387,6 +434,11 @@ SERVE_KERNELS = ("paged_kv_write", "paged_attention", "paged_attention_varlen")
 SHADOW_SPEC = "tv_gate:delta=0.05,mode=downweight"   # phase 4's --controller
 # The paper's classic-RL scale (Table 1): 500 envs x 1000 steps.
 RL_ACTORS, RL_STEPS, RL_PHASES = 500, 1000, 2
+# Host-bound runs cut in depth to keep the script in its time limit:
+# phase 11's profiled collection and learner phase, phase 21's threaded
+# runs and phase 23's fig3 run 100 actors x 100 steps a phase (the
+# paper's 500 x 1000 before).
+CUT_RL_ACTORS, CUT_RL_STEPS = 100, 100
 VTRACE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # rwkv6-1.6b's static serve: 8 prompts of 32 tokens, 16 new tokens, 32
 # WKV heads of 64 over 24 layers.
@@ -434,6 +486,38 @@ def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _kernel_rows(prof, kind=None):
+    """``[name, device ms, records]`` of each kernel name in a finished
+    ``torch.profiler`` capture (``kind``: the device type, CUDA by
+    default), largest first.  Read from the raw Kineto records, as
+    ``key_averages`` groups them (demangled names, async and hidden
+    records left out): ``key_averages`` first builds a Python event of
+    every record, ~90 us each, which for the ~150k launches of one
+    serve minibatch took longer than the minibatch."""
+    from torch.autograd import DeviceType
+
+    kind = DeviceType.CUDA if kind is None else kind
+    agg, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != kind or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        ns = e.end_ns() - e.start_ns()
+        if ns <= 0:
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            import torch
+            name = names[raw] = (torch._C._demangle(raw) if len(raw) > 1
+                                 else raw)
+        row = agg.setdefault(name, [name, 0.0, 0])
+        row[1] += ns / 1e6
+        row[2] += 1
+    return sorted(agg.values(), key=lambda r: -r[1])
+
+
 def device_ms(fn, match=None, iters: int = 20, attempts: int = 6):
     """Device time per call from a ``torch.profiler`` capture: the CUDA
     kernels whose name contains ``match`` (None: every kernel the call
@@ -447,7 +531,6 @@ def device_ms(fn, match=None, iters: int = 20, attempts: int = 6):
     kernel's mean over the records it has.  Without it the total is
     divided by ``iters`` and reads low when records are missing."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -457,15 +540,13 @@ def device_ms(fn, match=None, iters: int = 20, attempts: int = 6):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.count
-               and e.self_device_time_total
-               and (match is None or match in e.key)]
-        if not evs:
+        rows = [r for r in _kernel_rows(prof)
+                if match is None or match in r[0]]
+        if not rows:
             continue
         if match is None:
-            return sum(e.self_device_time_total for e in evs) / iters / 1e3
-        return sum(e.self_device_time_total / e.count for e in evs) / 1e3
+            return sum(ms for _, ms, _ in rows) / iters
+        return sum(ms / n for _, ms, n in rows)
     return None
 
 
@@ -478,7 +559,6 @@ def profile_kernels(fn, complete=None, attempts: int = 6):
     and up to ``attempts`` captures are taken until one is whole; the
     last is returned either way and the caller's own check decides."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts if complete else 1):
@@ -486,12 +566,7 @@ def profile_kernels(fn, complete=None, attempts: int = 6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total]
-        rows.sort(key=lambda r: -r[1])
-        rows = [[name[:80], ms, n] for name, ms, n in rows]
+        rows = [[name[:80], ms, n] for name, ms, n in _kernel_rows(prof)]
         if complete is None or complete(rows):
             break
     return sum(r[1] for r in rows), rows
@@ -550,7 +625,8 @@ def _attention_cases():
     yield "multi_t2", 2, [43, 15, 62, 31], [2, 2, 2, 2], None
 
 
-def _attention_bound(q, rows, lens, window, n_scalars, esize, dtype):
+def _attention_bound(q, rows, lens, window, n_scalars, esize, dtype,
+                     h=H, kv=KV, dh=DH):
     """Least time for one call.  Bytes: the whole output written once;
     ``n_scalars`` int32 per slot; for each live slot its live query rows,
     the K/V rows its oldest row can see and the table entries of their
@@ -561,12 +637,12 @@ def _attention_bound(q, rows, lens, window, n_scalars, esize, dtype):
         if n <= 0:
             continue
         first = 0 if window is None else max(0, start - window + 1)
-        nbytes += n * H * DH * esize
-        nbytes += 2 * KV * (ctx - first) * DH * esize
+        nbytes += n * h * dh * esize
+        nbytes += 2 * kv * (ctx - first) * dh * esize
         nbytes += (-(-ctx // BS) - first // BS) * 4
         for qpos in range(start, start + n):
             keys = qpos + 1 if window is None else min(qpos + 1, window)
-            flops += 4 * H * keys * DH
+            flops += 4 * h * keys * dh
     return bound(nbytes, flops, dtype)
 
 
@@ -1545,7 +1621,7 @@ def rl_phase(torch):
 
 
 def rl_profile_phase(torch):
-    """One collection and one learner phase at the paper's scale, each
+    """One collection and one learner phase at 100 actors x 100 steps, each
     timed once plain and once under the profiler: device busy time, idle
     share and launches, by kernel."""
     from repro_torch.envs import make_env, wrap_autoreset
@@ -1559,8 +1635,8 @@ def rl_profile_phase(torch):
     params = mlp_policy_init(torch.Generator(device="cuda").manual_seed(0),
                              env.obs_dim, env.act_dim)
     store = PolicyStore(params, 4)
-    producer = MixtureRolloutProducer(env, act, n_actors=RL_ACTORS,
-                                      rollout_steps=RL_STEPS, seed=1,
+    producer = MixtureRolloutProducer(env, act, n_actors=CUT_RL_ACTORS,
+                                      rollout_steps=CUT_RL_STEPS, seed=1,
                                       device="cuda")
     train_phase = make_train_phase(RLHyperparams())
     state = init_train_state(params)
@@ -1574,7 +1650,7 @@ def rl_profile_phase(torch):
     def learn():
         return train_phase(state, batch, default_draws(2, "cuda"))
 
-    rec = dict(phase="rl_profile", actors=RL_ACTORS, steps=RL_STEPS)
+    rec = dict(phase="rl_profile", actors=CUT_RL_ACTORS, steps=CUT_RL_STEPS)
     for name, fn in (("collect", collect), ("learner", learn)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1589,7 +1665,7 @@ def rl_profile_phase(torch):
                          vtrace_ms=sum(ms for k, ms, _ in rows
                                        if "vtrace" in k))
     rec["collect"]["launches_per_env_step"] = (
-        rec["collect"]["kernel_launches"] / RL_STEPS)
+        rec["collect"]["kernel_launches"] / CUT_RL_STEPS)
     emit(**rec)
 
 
@@ -1781,7 +1857,7 @@ def wkv6_kernel_phase(torch):
     # Where each instantiation pays: device time of all three, forced,
     # at rwkv6's 32 heads of 64, float32, zero state.
     for bb in (1, 2, 4, 8):
-        for s in (4, 8, 12, 16, 32, 64, 128, 256, 512, 2048):
+        for s in (4, 16, 64, 256, 2048):
             args = _wkv6_inputs(torch, torch.float32, bb, s, h, 64, False,
                                 seed=s)
             ms = {impl: device_ms(lambda: wkv6_cuda(*args, impl=impl),
@@ -1989,12 +2065,6 @@ def _attended_pairs(s, window):
 
 
 def flash_kernel_phase(torch):
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_impl)
-
     h, kv, w = HYMBA_H, HYMBA_KV, HYMBA_WINDOW
     cases = (   # (case, B, S, H, KV, D, window); the first five timed
         ("prefill_local", HYMBA_B, HYMBA_P, h, kv, 64, w),
@@ -2018,68 +2088,82 @@ def flash_kernel_phase(torch):
     headline, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        esize = torch.empty((), dtype=dtype).element_size()
-        for case, b, s, hh, kk, d, window in cases:
-            gen = torch.Generator(device="cuda").manual_seed(s + hh + d)
-            q, k, v = (torch.randn(b, s, n, d, generator=gen,
-                                   device="cuda").to(dtype)
-                       for n in (hh, kk, kk))
-            got = flash_attention_cuda(q, k, v, window=window)
-            want = ref.ref_attention(q, k, v, window=window)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()) and got.shape == want.shape
-                  and got.dtype == dtype, f"flash/{case}/{dname}: bad output")
-            err = (got.float() - want.float()).abs().max().item()
-            check(err <= FLASH_TOL[dname],
-                  f"flash/{case}/{dname}: max_abs_err {err}")
+        for case in cases:
+            err, rec = _flash_case(torch, dtype, *case,
+                                   timed=case[0] in timed)
             worst[dname] = max(worst.get(dname, 0.0), err)
-            if case not in timed:
-                continue
-            kern = lambda: flash_attention_cuda(q, k, v, window=window)
-            plain = lambda: ref.ref_attention(q, k, v, window=window)
-            # Library yardstick, timed only: SDPA on [B, H, S, D] with the
-            # kv heads repeated (not timed), causal or with the band mask.
-            qt = q.transpose(1, 2).contiguous()
-            kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
-                      .contiguous() for x in (k, v))
-            if window is None:
-                lib = lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True)
-            else:
-                i = torch.arange(s, device="cuda")
-                band = (i[:, None] >= i[None, :]) & (
-                    i[:, None] - i[None, :] < window)
-                lib = lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=band)
-            # q, k, v read once and out written once; 4 D operations
-            # (the two products) per attended (query, key) pair and head.
-            nbytes = (2 * b * s * hh * d + 2 * b * s * kk * d) * esize
-            flops = 4 * d * hh * b * _attended_pairs(s, window)
-            b_ms, b_by = bound(nbytes, flops, dname)
-            # The instantiation that ran, by its profiled name.
-            impl = flash_impl(dtype, d)
-            symbol = ("flash_kernel_wgmma" if impl == "wgmma"
-                      else "flash_kernel<")
-            rec = dict(phase="kernel", kernel="flash_attention", case=case,
-                       dtype=dname, impl=impl, B=b, S=s, H=hh, KV=kk, D=d,
-                       window=window, max_abs_err=err, tol=FLASH_TOL[dname],
-                       kernel_ms=time_ms(kern, iters=50),
-                       plain_ms=time_ms(plain, iters=5, warmup=1),
-                       library_ms=time_ms(lib, iters=50),
-                       bound_ms=b_ms, bound_by=b_by,
-                       kernel_device_ms=device_ms(kern, symbol),
-                       plain_device_ms=device_ms(plain, iters=3),
-                       library_device_ms=device_ms(lib, iters=5))
-            emit(**rec)
-            check(rec["kernel_device_ms"] is not None,
-                  f"flash/{case}/{dname}: no {symbol} in the profile")
-            if case == "prefill_local":      # 30 of a generate's 32 launches
+            if case[0] == "prefill_local":  # 30 of a generate's 32 launches
                 headline[("flash_attention", dname)] = rec
-            del qt, kt, vt
     for dname, err in worst.items():
         headline[("flash_attention", dname)] = dict(
             headline[("flash_attention", dname)], max_abs_err=err)
     return headline
+
+
+def _flash_case(torch, dtype, case, b, s, hh, kk, d, window, timed,
+                tol=FLASH_TOL):
+    """``flash_attention_cuda`` against ``ref_attention`` on one case,
+    within ``tol``; a timed case also beside the plain version,
+    SDPA (timed only) and its bound, emitted.  Returns ``(max_abs_err,
+    record or None)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_impl)
+
+    dname = str(dtype).split(".")[-1]
+    esize = torch.empty((), dtype=dtype).element_size()
+    gen = torch.Generator(device="cuda").manual_seed(s + hh + d)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen,
+                           device="cuda").to(dtype)
+               for n in (hh, kk, kk))
+    got = flash_attention_cuda(q, k, v, window=window)
+    want = ref.ref_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+          and got.dtype == dtype, f"flash/{case}/{dname}: bad output")
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= tol[dname], f"flash/{case}/{dname}: max_abs_err {err}")
+    if not timed:
+        return err, None
+    kern = lambda: flash_attention_cuda(q, k, v, window=window)
+    plain = lambda: ref.ref_attention(q, k, v, window=window)
+    # Library yardstick, timed only: SDPA on [B, H, S, D] with the kv
+    # heads repeated (not timed), causal or with the band mask.
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+    else:
+        i = torch.arange(s, device="cuda")
+        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=band)
+    # q, k, v read once and out written once; 4 D operations (the two
+    # products) per attended (query, key) pair and head.
+    nbytes = (2 * b * s * hh * d + 2 * b * s * kk * d) * esize
+    flops = 4 * d * hh * b * _attended_pairs(s, window)
+    b_ms, b_by = bound(nbytes, flops, dname)
+    # The instantiation that ran, by its profiled name.
+    impl = flash_impl(dtype, d)
+    symbol = "flash_kernel_wgmma" if impl == "wgmma" else "flash_kernel<"
+    rec = dict(phase="kernel", kernel="flash_attention", case=case,
+               dtype=dname, impl=impl, B=b, S=s, H=hh, KV=kk, D=d,
+               window=window, max_abs_err=err, tol=tol[dname],
+               kernel_ms=time_ms(kern, iters=50),
+               plain_ms=time_ms(plain, iters=5, warmup=1),
+               library_ms=time_ms(lib, iters=50),
+               bound_ms=b_ms, bound_by=b_by,
+               kernel_device_ms=device_ms(kern, symbol),
+               plain_device_ms=device_ms(plain, iters=3),
+               library_device_ms=device_ms(lib, iters=5))
+    emit(**rec)
+    check(rec["kernel_device_ms"] is not None,
+          f"flash/{case}/{dname}: no {symbol} in the profile")
+    return err, rec
 
 
 def _ssm_args(torch, dtype, bb, s, ii, nn, state, dt_scale=1.0,
@@ -2183,8 +2267,8 @@ def ssm_kernel_phase(torch):
                                              max_abs_err=err)
     # Where the chunked scan starts to beat the serial kernel: device time
     # of each, forced, at hymba's width, float32, zero state.
-    for bb, s in ([(1, s) for s in (64, 96, 192, 256)]
-                  + [(bb, s) for bb in (1, 2, 3, 4, 5, 6, 8)
+    for bb, s in ([(1, s) for s in (64, 256)]
+                  + [(bb, s) for bb in (1, 2, 4, 8)
                      for s in (128, 512, 2048)]):
         args = _ssm_args(torch, torch.float32, bb, s, i, n, False, seed=s)
         ms = {impl: device_ms(lambda: ssm_scan_cuda(*args, impl=impl),
@@ -2708,7 +2792,7 @@ def _span_end_s(tracer, name):
 
 
 def _rl_run(torch, capacity, runtime):
-    """``train rl`` at the paper's scale for THREADED_RL_PHASES phases,
+    """``train rl`` at 100 actors x 100 steps for THREADED_RL_PHASES phases,
     recorded (``_Recorder``); returns (result, recorder, seconds,
     launches, produce spans, learner spans, seconds to the end of the
     last phase's eval: the run's wall without the threaded producer's
@@ -2719,8 +2803,8 @@ def _rl_run(torch, capacity, runtime):
     from repro_torch.runtime import LagRegime
 
     args = launcher.build_parser().parse_args([
-        "rl", "--device", "cuda", "--n-actors", str(RL_ACTORS),
-        "--rollout-steps", str(RL_STEPS), "--buffer-capacity",
+        "rl", "--device", "cuda", "--n-actors", str(CUT_RL_ACTORS),
+        "--rollout-steps", str(CUT_RL_STEPS), "--buffer-capacity",
         str(capacity), "--phases", str(THREADED_RL_PHASES),
         "--runtime", runtime])
     rec = _Recorder(torch, LagRegime)
@@ -2757,8 +2841,8 @@ def _rescore_rollout(torch, params, batch):
 
 
 def threaded_rl_phase(torch):
-    """``train rl --runtime threaded`` at the paper's scale (500 actors x
-    1000 steps, VACO) with K 4 and K 1, beside ``backward_mixture`` at K
+    """``train rl --runtime threaded`` at 100 actors x 100 steps (VACO)
+    with K 4 and K 1, beside ``backward_mixture`` at K
     4 for the same phases: every consumed item's ``log_beta`` against
     its actions re-scored under a copy of the version it is stamped with
     (the check against torn weights; re-scored under another version it
@@ -2804,7 +2888,7 @@ def threaded_rl_phase(torch):
                   f"{tag}: a neighbouring version re-scores within "
                   f"{wrong}: the check cannot tell versions apart")
         queue = res.runtime_stats["queue"]
-        env_steps = RL_ACTORS * RL_STEPS
+        env_steps = CUT_RL_ACTORS * CUT_RL_STEPS
         recs.append(dict(
             runtime=runtime, buffer_capacity=capacity,
             phases=THREADED_RL_PHASES, seconds=seconds, loop_s=loop_s,
@@ -2819,7 +2903,7 @@ def threaded_rl_phase(torch):
             other_version_min_rel_err=None if wrong == math.inf else wrong,
             launches=launches))
     base = recs[0]["consumed_env_steps_per_s"]
-    emit(phase="threaded_rl", actors=RL_ACTORS, steps=RL_STEPS,
+    emit(phase="threaded_rl", actors=CUT_RL_ACTORS, steps=CUT_RL_STEPS,
          tol=LOG_BETA_TOL, runs=recs,
          threaded_speedup_k4=recs[1]["consumed_env_steps_per_s"] / base,
          threaded_speedup_k1=recs[2]["consumed_env_steps_per_s"] / base)
@@ -3012,26 +3096,33 @@ def _finite_report(tree) -> bool:
 
 HARNESSES = (
     # (module, argv, top-level keys of its report, kernel that must run)
+    # Cut for time: each learner phase is ~3 s of host-bound launches
+    # whatever the rollout size, so the grids are cut, not the rollouts.
+    # fig3 runs VACO alone (PPO runs in fig4 and fig11), fig11 and the
+    # realignment ablation their most lagged capacity (8 of 1, 8; 16 of
+    # 4, 16), the delta and rho sweeps their two ends (0.05 and 0.4 of
+    # 0.05-0.4; 1 and 8 of 1, 2, 8).
     ("fig3_backward_lag",
-     ["--envs", "pendulum", "--algorithms", "vaco", "ppo", "--capacities",
-      "1", "4", "--seeds", "0", "--phases", "3", "--n-actors",
-      str(RL_ACTORS), "--rollout-steps", str(RL_STEPS)],
+     ["--envs", "pendulum", "--algorithms", "vaco", "--capacities", "1",
+      "4", "--seeds", "0", "--phases", "2", "--n-actors",
+      str(CUT_RL_ACTORS), "--rollout-steps", str(CUT_RL_STEPS)],
      {"K=1", "K=4", "_raw", "_seconds"}, "vtrace"),
     ("fig4_sample_efficiency",
-     ["--envs", "pendulum", "--seeds", "0", "--phases", "2"],
+     ["--envs", "pendulum", "--seeds", "0", "--phases", "2",
+      "--rollout-steps", "48"],
      {"vaco", "ppo", "spo", "impala"}, "vtrace"),
     ("fig11_tv_tracking", ["--envs", "pendulum", "--seeds", "0",
-                           "--phases", "2"],
+                           "--phases", "2", "--capacities", "8"],
      {"vaco", "ppo", "ppo_kl"}, "vtrace"),
     ("ablation_delta", ["--envs", "pendulum", "--seeds", "0", "--phases",
-                        "2"],
-     {f"delta={d}" for d in (0.05, 0.1, 0.2, 0.4)}, "vtrace"),
+                        "2", "--deltas", "0.05", "0.4"],
+     {f"delta={d}" for d in (0.05, 0.4)}, "vtrace"),
     ("ablation_rho", ["--envs", "pendulum", "--seeds", "0", "--phases",
-                      "2"],
-     {f"rho={r}" for r in (1.0, 2.0, 8.0)}, "vtrace"),
+                      "2", "--rhos", "1.0", "8.0"],
+     {f"rho={r}" for r in (1.0, 8.0)}, "vtrace"),
     ("ablation_realignment", ["--envs", "pendulum", "--seeds", "0",
-                              "--phases", "2"],
-     {"K=4", "K=16"}, "vtrace"),
+                              "--phases", "2", "--capacities", "16"],
+     {"K=16"}, "vtrace"),
     ("fig5_rlvr_forward_lag",
      ["--full-width", "--minibatches", "1", "2", "--phases", "1",
       "--warmup-steps", "4"],
@@ -3040,9 +3131,9 @@ HARNESSES = (
 
 
 def harness_phase(torch):
-    """The figure runners (``repro_torch.experiments``) on reduced grids:
-    fig3 at the paper's collection scale, the rest at their own, fig5 at
-    full width; each report finite, with its keys, its kernel launched."""
+    """The figure runners (``repro_torch.experiments``) on reduced grids
+    (``HARNESSES``): fig3 at 100 actors x 100 steps, the rest at their
+    own, fig5 at full width; each report finite, with its keys, its kernel launched."""
     import importlib
 
     from repro_torch import kernels
@@ -3077,7 +3168,7 @@ def harness_phase(torch):
 
 CONTROLLER_ARGS = [
     "rlvr", "--full-width", "--device", "cuda", "--warmup-steps", "2",
-    "--n-minibatches", "3", "--phases", "1", "--producer", "serve",
+    "--n-minibatches", "2", "--phases", "1", "--producer", "serve",
     "--forced-lag", "2"]
 CONTROLLER_SPECS = ("gac", "stable_async:var_max=0.5", "asympo")
 GAC_COS_TOL = 1e-5           # against a float64 cosine of the same grads
@@ -3251,7 +3342,7 @@ def _score_check(torch, trainer, mb):
 def controllers_phase(torch):
     """``train rlvr --full-width --producer serve --forced-lag 2`` under
     ``gac``, ``stable_async:var_max=0.5`` and ``asympo`` (2 warmup steps,
-    3 minibatches, seeded rewards): GAC's cosine against float64,
+    2 minibatches, seeded rewards): GAC's cosine against float64,
     ``_score_log_pi`` against the plain version, the loss weights
     recomputed on the CPU, launch counts a step, the step timed.  Returns the last run's trainer (phase 26 saves its params)."""
     import numpy as np
@@ -4791,7 +4882,7 @@ def wkv6_bwd_kernel_phase(torch):
     # at the picked segment length), at rwkv6's 32 heads of 64, float32,
     # zero state; then the split's segment length at B 1 x S 2048.
     for bb in (1, 2, 4, 8):
-        for s in (64, 128, 256, 512, 2048):
+        for s in (64, 256, 2048):
             args = _wkv6_inputs(torch, torch.float32, bb, s, h, 64, False,
                                 seed=s)
             gy = torch.randn(bb, s, h, 64, device="cuda")
@@ -5123,6 +5214,563 @@ def rwkv_grad_conditioning(torch):
         emit(**rec)
 
 
+# ---------------------------------------------------------------------------
+# Phases 36-39: head dim 128 and the batched prefill (qwen2.5-14b and
+# codeqwen1.5-7b at full width)
+# ---------------------------------------------------------------------------
+
+# (arch, query heads, kv heads) at head dim 128.
+D128_GEOMS = (("qwen2.5-14b", 40, 8), ("codeqwen1.5-7b", 32, 32))
+D128_FLASH = (  # (case, B, S, H, KV, D, window); the first four timed
+    ("q14b_prefill", 8, 32, 40, 8, 128, None),    # the batched prefill
+    ("codeqwen_prefill", 8, 32, 32, 32, 128, None),
+    ("q14b_ragged", 8, 37, 40, 8, 128, None),
+    ("q14b_long", 1, 2048, 40, 8, 128, None),     # operations-bound
+    ("edge_s1", 2, 1, 40, 8, 128, None),
+    ("q14b_window", 2, 300, 40, 8, 128, 64),
+    ("codeqwen_s65w", 2, 65, 32, 32, 128, 16))
+D128_TIMED = 4
+Q14_ARGS = ["--engine", "continuous", "--arch", "qwen2.5-14b",
+            "--full-width", "--device", "cuda", "--temperature", "0"]
+Q14_ENGINES = (("chunked", []), ("batched", ["--no-chunked-prefill"]),
+               ("unbatched", ["--no-chunked-prefill", "--no-batch-prefill"]))
+CODEQWEN_ARGS = ["--engine", "continuous", "--arch", "codeqwen1.5-7b",
+                 "--full-width", "--device", "cuda", "--temperature", "0",
+                 "--no-chunked-prefill"]
+# The first token's log-prob, engine against engine, over 48 float32
+# layers; a divergence of greedy tokens must sit at a top-2 log-prob gap
+# under it.
+FIRST_TOKEN_TOL = 1e-4
+
+
+def _paged_d128(torch, dtype, geom, hh, kk):
+    """The three paged kernels at head dim 128 and ``hh`` / ``kk`` heads
+    against their plain versions (decode at contexts 45/17/64/33, a
+    varlen round of T 16, a decode step's K/V rows, bit-exact also
+    through ``ops.paged_kv_write``), each timed beside its plain version,
+    a library call and its bound; returns the records by kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention_varlen import \
+        paged_attention_varlen_cuda
+    from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
+
+    dev, d = torch.device("cuda"), 128
+    dname = str(dtype).split(".")[-1]
+    esize = torch.empty((), dtype=dtype).element_size()
+    gen = torch.Generator().manual_seed(hh * 100 + kk)
+    kp, vp = (torch.randn(kk, NB, BS, d, generator=gen) for _ in range(2))
+    kp[:, 0] = vp[:, 0] = 1e4         # the pad page: poison, as phase 3
+    kp, vp = (x.to(dtype).to(dev) for x in (kp, vp))
+    out = {}
+    for case, row_start, lens in (("decode", None, [45, 17, 64, 33]),
+                                  ("varlen_t16", [40, 16, 0, 9],
+                                   [1, 16, 7, 0])):
+        decode = row_start is None
+        rows = ([(c - 1, 1) for c in lens] if decode
+                else list(zip(row_start, lens)))
+        ctx = lens if decode else [a + n for a, n in rows]
+        tables = _tables(gen, [max(c, 1) for c in ctx], torch).to(dev)
+        shape = (B, hh, d) if decode else (B, 16, hh, d)
+        q = torch.randn(shape, generator=gen).to(dtype).to(dev)
+        if decode:
+            args = (q, kp, vp, tables,
+                    torch.tensor(ctx, dtype=torch.int32, device=dev))
+            kern = lambda: paged_attention_cuda(*args)
+            plain = lambda: ref.ref_paged_attention(*args)
+            name, symbol = "paged_attention", "paged_attention_kernel"
+        else:
+            args = (q, kp, vp, tables,
+                    torch.tensor(row_start, dtype=torch.int32, device=dev),
+                    torch.tensor(lens, dtype=torch.int32, device=dev))
+            kern = lambda: paged_attention_varlen_cuda(*args)
+            plain = lambda: ref.ref_paged_attention_varlen(*args)
+            name = "paged_attention_varlen"
+            symbol = "paged_attention_varlen_kernel"
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tag = f"{name}/{geom}/{case}/{dname}"
+        check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+        check(err <= TOL[dname], f"{tag}: max_abs_err {err} > {TOL[dname]}")
+        g4 = got[:, None] if decode else got
+        for b, (_, n) in enumerate(rows):
+            check(bool((g4[b, n:] == 0).all()),
+                  f"{tag}: padding rows of slot {b} not zero")
+        # SDPA over K/V gathered to dense and GQA-expanded (timed only).
+        keys, vals = (ref._gather_pages(x, tables).repeat_interleave(
+            hh // kk, 0).transpose(0, 1) for x in (kp, vp))
+        qs = q[:, None] if decode else q
+        qpos = torch.tensor([[a + i for i in range(qs.shape[1])]
+                             for a, _ in rows], device=dev)
+        mask = (torch.arange(M * BS, device=dev)[None, None, :]
+                <= qpos[:, :, None])
+        qh = qs.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(
+            qh, keys, vals, attn_mask=mask[:, None])
+        b_ms, b_by = _attention_bound(q, rows, ctx, None, 1 if decode else 2,
+                                      esize, dname, hh, kk, d)
+        out[name] = dict(
+            phase="kernel", kernel=name, case=f"{geom}/{case}", dtype=dname,
+            H=hh, KV=kk, D=d, max_abs_err=err, tol=TOL[dname],
+            kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            kernel_device_ms=device_ms(kern, symbol),
+            plain_device_ms=device_ms(plain),
+            library_device_ms=device_ms(lib))
+        emit(**out[name])
+
+    # A decode step's K/V rows into a 4-layer pool at layer 3.
+    layers, layer = 4, 3
+    pk, pv = (torch.randn(layers, kk, NB, BS, d, generator=gen).to(dtype)
+              .to(dev) for _ in range(2))
+    kr, vr = (torch.randn(B, kk, d, generator=gen).to(dtype).to(dev)
+              for _ in range(2))
+    dest = torch.randperm(NB * BS, generator=gen)[:B]
+    page = (dest // BS).to(torch.int32).to(dev)
+    off = (dest % BS).to(torch.int32).to(dev)
+    act = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    wk, wv = pk.clone(), pv.clone()
+    ref.ref_paged_kv_write(wk, wv, kr, vr, page, off, act, layer=layer)
+    ok, ov = pk.clone(), pv.clone()
+    paged_kv_write_cuda(pk, pv, kr, vr, page, off, act, layer=layer)
+    ops.paged_kv_write(ok, ov, kr, vr, page, off, act.bool(), layer=layer)
+    torch.cuda.synchronize()
+    check(torch.equal(pk, wk) and torch.equal(pv, wv)
+          and torch.equal(ok, wk) and torch.equal(ov, wv),
+          f"paged_kv_write/{geom}/{dname}: not bit-exact")
+    kern = lambda: paged_kv_write_cuda(pk, pv, kr, vr, page, off, act,
+                                       layer=layer)
+    plain = lambda: ref.ref_paged_kv_write(pk, pv, kr, vr, page, off, act,
+                                           layer=layer)
+    sel = act.bool()
+    hs = torch.arange(kk, device=dev)
+    rid = (((layer * kk + hs[None, :]) * NB + page[sel].long()[:, None])
+           * BS + off[sel].long()[:, None]).reshape(-1)
+    ksrc, vsrc = kr[sel].reshape(-1, d), vr[sel].reshape(-1, d)
+    fk, fv = pk.view(-1, d), pv.view(-1, d)
+    lib = lambda: (fk.index_copy_(0, rid, ksrc), fv.index_copy_(0, rid, vsrc))
+    n_act = int(sel.sum())
+    b_ms, b_by = bound(2 * 2 * n_act * kk * d * esize + (B + 2 * n_act) * 4,
+                       0, dname)
+    out["paged_kv_write"] = dict(
+        phase="kernel", kernel="paged_kv_write", case=f"{geom}/decode_rows",
+        dtype=dname, KV=kk, D=d, N=B, max_abs_err=0.0, tol=0.0,
+        kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
+        library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+        kernel_device_ms=device_ms(kern, "kv_write_kernel"),
+        plain_device_ms=device_ms(plain), library_device_ms=device_ms(lib))
+    emit(**out["paged_kv_write"])
+    return out
+
+
+def d128_kernel_phase(torch):
+    """Phase 36: ``flash_attention`` at head dim 128 (both dtypes)
+    against its plain version at the batched prefill's shapes of
+    qwen2.5-14b and codeqwen1.5-7b, a ragged S 37 and B 1 x S 2048 (all
+    timed), S 1 and windowed cases; the three paged kernels at both head
+    geometries.  float32 within 2e-5, bfloat16 within 2e-2."""
+    headline, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for i, case in enumerate(D128_FLASH):
+            err, rec = _flash_case(torch, dtype, *case,
+                                   timed=i < D128_TIMED, tol=TOL)
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            if case[0] == "q14b_prefill":
+                headline[("flash_attention_d128", dname)] = rec
+        for geom, hh, kk in D128_GEOMS:
+            _paged_d128(torch, dtype, geom, hh, kk)
+    for dname, err in worst.items():
+        headline[("flash_attention_d128", dname)] = dict(
+            headline[("flash_attention_d128", dname)], max_abs_err=err)
+    return headline
+
+
+def _argmax_draws(torch, eng):
+    """Greedy draws with each token's untempered log-prob: the argmax of
+    the logits (sampling at temperature 1 with zero noise), so that
+    ``log_beta`` is ``log_softmax(logits)`` at the token (at the
+    launcher's floor temperature of 1e-6 it is float32 noise)."""
+    from repro_torch.rollout.sampler import sample
+
+    eng._sample = lambda logits: sample(
+        logits, 1.0, 1.0, torch.zeros(logits.shape, device=logits.device))
+
+
+def _untempered_log_beta(torch, eng):
+    """The engine's own draws (the launcher's floor temperature 1e-6 and
+    its Gumbel noise), each drawn token's ``log_beta`` replaced by its
+    untempered ``log_softmax(logits)``: at the floor temperature the
+    sampler's own ``log_beta`` is float32 noise of logits x 1e6, so this
+    is what the first-token gate compares.  It adds one log-softmax and
+    a gather to each sampling step."""
+    draw = eng._sample
+
+    def sample(logits):
+        tok, _ = draw(logits)
+        logp = torch.log_softmax(logits.float(), -1)
+        return tok, torch.gather(logp, -1, tok[:, None].long())[:, 0]
+
+    eng._sample = sample
+
+
+def _top2_logprob_gap(torch, bundle, params, prompt, tokens):
+    """The top-2 log-prob gap of the next token after ``prompt +
+    tokens``, from a dense forward of the same weights."""
+    row = torch.tensor(list(prompt) + list(tokens), device="cuda")[None]
+    with torch.no_grad():
+        logp = torch.log_softmax(
+            bundle.forward(params, row).logits[0, -1].float(), -1)
+    top = torch.topk(logp, 2).values
+    return float(top[0] - top[1])
+
+
+def _serve_record(torch, launcher, args, engine, batch):
+    """Serve ``batch`` through ``engine`` as the launcher does (submit,
+    run between device synchronisations, report), counting launches from
+    zero.  Returns ``(trajectories by submission index, launches, stats,
+    record)``."""
+    from repro_torch import kernels
+    from repro_torch.metrics import collect_serve_stats
+
+    meta = launcher.submit_batch(args, engine, batch)
+    kernels.reset_launch_counts()
+    trajs, seconds = launcher.run(args, engine)
+    launches = kernels.launch_counts()
+    launcher.report(args, engine, trajs, seconds, meta)
+    st = collect_serve_stats(engine)
+    index = {rid: i for i, rid in enumerate(meta)}
+    rec = dict(requests=len(trajs), tokens_out=st["tokens_out"],
+               seconds=seconds, tokens_per_s=st["tokens_out"] / seconds,
+               ttft_p50_ms=st["ttft_p50_ms"], ttft_p99_ms=st["ttft_p99_ms"],
+               inter_token_p50_ms=st["inter_token_p50_ms"],
+               decode_steps=st["decode_steps"], prefills=st["prefills"],
+               prefill_dispatches=st["prefill_dispatches"],
+               prefill_tokens=st["prefill_tokens"],
+               preemptions=st["preemptions"], launches=launches)
+    return {index[t.request_id]: t for t in trajs}, launches, st, rec
+
+
+def _profiled_serve(torch, launcher, args, make_engine, batch):
+    """The idle share of the first wave of ``batch`` (``--max-batch``
+    prompts, one engine's slots): its unprofiled wall on one fresh
+    engine, then its device busy time under the profiler on another
+    (the profiler's own cost, ~10x at this launch count, stays out of
+    the wall)."""
+    wave = args.max_batch
+    args = argparse.Namespace(**dict(vars(args), requests=wave))
+    head = tuple(x[:wave] for x in batch)
+    engine = make_engine()
+    launcher.submit_batch(args, engine, head)
+    _, wall_s = launcher.run(args, engine)
+    engine = make_engine()
+    launcher.submit_batch(args, engine, head)
+    busy_ms, rows = profile_kernels(lambda: engine.run(max_steps=10_000))
+    return dict(profiled_requests=wave, profiled_wall_ms=wall_s * 1e3,
+                device_busy_ms=busy_ms,
+                idle_share=max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
+                top_kernels=rows[:8])
+
+
+def q14b_serve_phase(torch):
+    """Phase 37: full-width qwen2.5-14b (48 layers, d 5120, 40 / 8 heads
+    of 128, vocab 152064, seeded random init, float32) served with the
+    launcher's defaults (8 prompts, 4 slots, 128 blocks of 8, greedy)
+    through three continuous engines over one set of params: chunked
+    prefill, batched prefill (``--no-chunked-prefill``) and unbatched
+    (``--no-batch-prefill``); the batched engine's first wave again,
+    for the idle share.  Greedy tokens equal, but where the
+    chunked engine's top-2 log-prob gap at the step is under 1e-4; the
+    first tokens' log-probs within 1e-4; ``flash_attention`` launched 48
+    x the batched engines' prefill dispatches, and not by the chunked
+    engine."""
+    import warnings
+
+    from repro_torch.data.tokenizer import get_tokenizer
+    from repro_torch.launch import serve as launcher
+    from repro_torch.utils.tree import tree_leaves
+
+    parser = launcher.build_parser()
+    base = parser.parse_args(Q14_ARGS)
+    base.requests = base.batch
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device, bundle, params, ds, store = launcher._model(base)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = bundle.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size)
+          == (48, 5120, 40, 8, 128, 13824, 152064),
+          f"qwen2.5-14b serve is not full width: {cfg}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = ds.sample_batch(base.requests)
+    runs, outs = {}, {}
+    for label, flags in Q14_ENGINES:
+        args = parser.parse_args(Q14_ARGS + flags)
+        args.requests = args.batch
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            engine = launcher.make_engine(args, bundle, params, store, device)
+        _untempered_log_beta(torch, engine)
+        out, launches, st, rec = _serve_record(torch, launcher, args, engine,
+                                               batch)
+        check(len(out) == args.requests and not engine.has_work,
+              f"q14b/{label}: {len(out)} of {args.requests} retired")
+        check(engine.allocator.num_free == engine.allocator.num_blocks,
+              f"q14b/{label}: pages leaked")
+        for t in out.values():
+            check(t.num_tokens > 0 and 0 <= t.tokens.min()
+                  and t.tokens.max() < cfg.vocab_size
+                  and bool(((t.log_beta <= 1e-6)
+                            & (t.log_beta > -1e9)).all()),
+                  f"q14b/{label}: request {t.request_id} tokens "
+                  f"{t.tokens} log_beta {t.log_beta}")
+        # Chunked prefill runs the varlen kernel and no flash; the
+        # batched prefill flash once a layer a dispatch and no varlen.
+        flash = launches["flash_attention"]
+        varlen = launches["paged_attention_varlen"]
+        for name in ("paged_kv_write", "paged_attention"):
+            check(launches[name] > 0, f"q14b/{label}: {name} never launched")
+        if label == "chunked":
+            check(flash == 0 and varlen > 0,
+                  f"q14b/chunked: flash {flash}, varlen {varlen} launches")
+        else:
+            check(flash == cfg.n_layers * st["prefill_dispatches"] > 0
+                  and varlen == 0,
+                  f"q14b/{label}: flash launched {flash} times for "
+                  f"{st['prefill_dispatches']} prefill dispatches, varlen "
+                  f"{varlen}")
+        if label == "batched":
+            def fresh(args=args):
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", DeprecationWarning)
+                    e = launcher.make_engine(args, bundle, params, store,
+                                             device)
+                _untempered_log_beta(torch, e)
+                return e
+
+            rec.update(_profiled_serve(torch, launcher, args, fresh, batch))
+        runs[label], outs[label] = rec, out
+        del engine
+    check(runs["unbatched"]["prefill_dispatches"] == base.requests
+          and runs["batched"]["prefill_dispatches"] < base.requests,
+          f"q14b: dispatches batched {runs['batched']['prefill_dispatches']}"
+          f", unbatched {runs['unbatched']['prefill_dispatches']}")
+    # Greedy tokens against the chunked engine's; the first tokens'
+    # log-probs within FIRST_TOKEN_TOL.
+    ties, first_err = [], {}
+    for label in ("batched", "unbatched"):
+        first_err[label] = 0.0
+        for rid, want in outs["chunked"].items():
+            got = outs[label][rid]
+            a, b = got.tokens.tolist(), want.tokens.tolist()
+            n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if n is None:
+                check(a == b, f"q14b/{label}: request {rid} {a} against {b}")
+            else:
+                row = batch[0][rid]
+                prompt = row[row != get_tokenizer().pad_id]
+                gap = _top2_logprob_gap(torch, bundle, params, prompt, b[:n])
+                ties.append(dict(engine=label, request=rid, step=n,
+                                 top2_gap=gap))
+                print(f"q14b/{label}: request {rid} diverges at step {n}, "
+                      f"top-2 log-prob gap {gap}", flush=True)
+                check(gap < FIRST_TOKEN_TOL,
+                      f"q14b/{label}: request {rid} diverges at step {n} "
+                      f"away from a near tie (gap {gap})")
+            if n != 0:
+                first_err[label] = max(first_err[label], abs(
+                    float(got.log_beta[0]) - float(want.log_beta[0])))
+        check(first_err[label] <= FIRST_TOKEN_TOL,
+              f"q14b/{label}: first-token log-probs differ by "
+              f"{first_err[label]}")
+    tokens = [int(x) for t in outs["chunked"].values() for x in t.tokens]
+    emit(phase="q14b_serve", config=cfg.name, layers=cfg.n_layers,
+         params=n_params, params_gib=n_params * 4 / 2 ** 30, init_s=init_s,
+         init_peak_gib=init_peak,
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         distinct_tokens=len(set(tokens)), near_ties=ties,
+         first_token_logprob_max_abs_err=first_err,
+         first_token_tol=FIRST_TOKEN_TOL, runs=runs)
+    launches = runs["batched"]["launches"]
+    del params, bundle, store
+    return launches
+
+
+def codeqwen_serve_phase(torch):
+    """Phase 38: full-width codeqwen1.5-7b (32 layers, d 4096, 32 heads
+    of 128, vocab 92416, seeded random init, float32) through the
+    launcher's ``serve`` with ``--no-chunked-prefill``: every request
+    retires, ``flash_attention`` launched 32 x the prefill dispatches."""
+    import warnings
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+    from repro_torch.metrics import collect_serve_stats
+    from repro_torch.utils.tree import tree_leaves
+
+    args = launcher.build_parser().parse_args(CODEQWEN_ARGS)
+    args.requests = args.batch
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        engine, trajs, seconds = launcher.serve(args)
+    launches = kernels.launch_counts()
+    cfg = engine.bundle.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.vocab_size) == (32, 4096, 32, 32, 128, 92416),
+          f"codeqwen serve is not full width: {cfg}")
+    st = collect_serve_stats(engine)
+    check(len(trajs) == args.requests and not engine.has_work,
+          f"codeqwen: {len(trajs)} of {args.requests} requests retired")
+    for t in trajs:
+        check(t.num_tokens > 0 and t.tokens.max() < cfg.vocab_size
+              and bool(((t.log_beta <= 1e-6) & (t.log_beta > -1e9)).all()),
+              f"codeqwen: request {t.request_id} tokens {t.tokens}")
+    for name in ("paged_kv_write", "paged_attention"):
+        check(launches[name] > 0, f"codeqwen: {name} never launched")
+    check(launches["flash_attention"]
+          == cfg.n_layers * st["prefill_dispatches"] > 0
+          and launches["paged_attention_varlen"] == 0,
+          f"codeqwen: flash launched {launches['flash_attention']} times "
+          f"for {st['prefill_dispatches']} prefill dispatches")
+    emit(phase="codeqwen_serve", config=cfg.name, layers=cfg.n_layers,
+         params=sum(t.numel() for t in tree_leaves(engine.params)),
+         requests=len(trajs), tokens_out=st["tokens_out"], seconds=seconds,
+         tokens_per_s=st["tokens_out"] / seconds,
+         ttft_p50_ms=st["ttft_p50_ms"],
+         inter_token_p50_ms=st["inter_token_p50_ms"],
+         prefill_dispatches=st["prefill_dispatches"],
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches=launches)
+
+
+def batched_parity_phase(torch):
+    """Phase 39: 2 layers of qwen2.5-14b's widths (40 / 8 heads of 128,
+    d 5120, d_ff 13824; the math tokenizer's vocab of 53, so that the CPU
+    side stays quick), dense weights x3, on ``cpu`` (plain path, the
+    padding mask applied) and ``cuda`` (flash and paged kernels): the
+    prefill ``forward`` with a right-padding mask (logits at each
+    prompt's last row within 1e-4, K/V rows below it within 1e-5 of
+    their largest magnitude; a mask that is not a prefix raises on the
+    card), then the batched-prefill engine greedy (``batch_prefill``;
+    the argmax with untempered log-probs) and sampled on the same
+    injected noise (without it): equal tokens and prefill counts,
+    log_beta within 1e-4, pools within 1e-5 of their largest
+    magnitude."""
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokenizer import get_tokenizer
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import build
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen2.5-14b").replace(
+        n_layers=2, vocab_size=get_tokenizer().vocab_size)
+    bundle = build(cfg)
+    params = _scale_dense(bundle.init(torch.Generator().manual_seed(0)))
+    card = tf.tree_to(params, "cuda")
+    prompts = _prompts(4)
+    plens = [len(p) for p in prompts]
+    pad = -(-max(plens) // BS) * BS
+    rows = torch.zeros((4, pad), dtype=torch.int32)
+    valid = torch.zeros((4, pad), dtype=torch.bool)
+    for i, p in enumerate(prompts):
+        rows[i, :len(p)] = torch.as_tensor(p)
+        valid[i, :len(p)] = True
+    with torch.no_grad():
+        want = bundle.forward(params, rows, kv_valid=valid,
+                              return_cache=True, cache_len=pad)
+        got = bundle.forward(card, rows.cuda(), kv_valid=valid.cuda(),
+                             return_cache=True, cache_len=pad)
+    idx = torch.tensor(plens) - 1
+    g, w = got.logits.cpu()[torch.arange(4), idx], want.logits[
+        torch.arange(4), idx]
+    check(bool(torch.isfinite(g).all())
+          and torch.allclose(g, w, rtol=1e-4, atol=1e-4),
+          f"batched parity: prefill logits differ by "
+          f"{(g - w).abs().max().item()}")
+    rec = dict(phase="batched_parity", config=cfg.name, layers=cfg.n_layers,
+               heads=(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+               forward_logits_max_abs_err=(g - w).abs().max().item())
+    live = valid[None, :, :, None, None]
+    for key in ("k", "v"):
+        gk = got.cache[key].cpu().masked_fill(~live, 0)
+        wk = want.cache[key].masked_fill(~live, 0)
+        rec[f"forward_{key}_max_abs_err"] = _scaled_err(
+            gk, wk, 1e-5, f"prefill cache {key}")
+    holes = valid.clone().cuda()
+    holes[0, 1] = False
+    try:
+        with torch.no_grad():
+            bundle.forward(card, rows.cuda(), kv_valid=holes)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "batched parity: a kv_valid with a hole did not raise "
+          "on the card")
+    kw = dict(num_blocks=128, block_size=BS, max_batch=4, decode_chunk=4,
+              seed=2, chunked_prefill=False)
+    for mode, batched in (("greedy", True), ("sampled", False)):
+        out, engines = {}, {}
+        for dev in ("cpu", "cuda"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                eng = ServeEngine(bundle, params if dev == "cpu" else card,
+                                  temperature=1.0, device=dev,
+                                  batch_prefill=batched, **kw)
+            if mode == "greedy":
+                _argmax_draws(torch, eng)
+            else:
+                _injected_noise(torch, eng)
+            for i, (p, n) in enumerate(zip(prompts, (4, 8, 16, 8))):
+                eng.submit(p, n, request_id=i)
+            out[dev] = {t.request_id: t for t in eng.run(max_steps=1000)}
+            engines[dev] = eng
+        check(sorted(out["cpu"]) == sorted(out["cuda"]) == [0, 1, 2, 3],
+              f"batched parity/{mode}: not every request retired")
+        worst = 0.0
+        for rid, w in out["cpu"].items():
+            c = out["cuda"][rid]
+            check(c.tokens.tolist() == w.tokens.tolist(),
+                  f"batched parity/{mode}: request {rid} cuda {c.tokens} "
+                  f"cpu {w.tokens}")
+            worst = max(worst, float(abs(c.log_beta - w.log_beta).max()))
+        check(worst <= 1e-4, f"batched parity/{mode}: log_beta differs by "
+              f"{worst}")
+        counts = [(e.stats.prefills, e.stats.prefill_dispatches,
+                   e.stats.prefill_tokens) for e in engines.values()]
+        check(counts[0] == counts[1], f"batched parity/{mode}: prefill "
+              f"counts cpu / cuda {counts}")
+        pool_err = {k: _scaled_err(engines["cuda"].pages[k].cpu(),
+                                   engines["cpu"].pages[k], 1e-5,
+                                   f"{mode} {k}")
+                    for k in ("k_pages", "v_pages")}
+        distinct = len({int(x) for t in out["cpu"].values()
+                        for x in t.tokens})
+        if mode == "greedy":
+            check(distinct > 5, f"batched parity/greedy: only {distinct} "
+                  "distinct tokens")
+        else:
+            check(min(float(t.log_beta.min()) for t in out["cpu"].values())
+                  < -0.1, "batched parity/sampled: every draw was the "
+                  "argmax")
+        rec[mode] = dict(batch_prefill=batched, distinct_tokens=distinct,
+                         prefills_dispatches_tokens=counts[0],
+                         log_beta_max_abs_err=worst, tol=1e-4,
+                         pool_max_abs_err=pool_err)
+    emit(**rec)
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -5147,6 +5795,11 @@ KERNELS = (
     ("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
      "src/repro/kernels/wkv6_pallas.py:97"),
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention_pallas.py:109"),
+    # The same kernel's head-dim-128 instantiation: numbers at
+    # qwen2.5-14b's batched-prefill shape, launches phase 37's.
+    ("flash_attention_d128",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention_pallas.py:109"),
     ("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
      "src/repro/kernels/ssm_scan_pallas.py:73"),
@@ -5395,6 +6048,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    from repro_torch.kernels import build
+
+    # nvcc builds every kernel while the card initialises.
+    t0 = time.perf_counter()
+    building = concurrent.futures.ThreadPoolExecutor(1).submit(
+        build.build_all)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -5414,10 +6073,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          expandable_segments=expandable)
 
-    from repro_torch.kernels import build
-
-    t0 = time.perf_counter()
-    times = build.build_all()
+    times = building.result()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln]
@@ -5489,6 +6145,15 @@ def main() -> int:
                                torch)["wkv6_bwd"]
     release()
     run("35 rwkv train parity", rwkv_train_parity_phase, torch)
+    release()
+    headline.update(run("36 d128 kernels", d128_kernel_phase, torch))
+    release()
+    launches["flash_attention_d128"] = run(
+        "37 qwen2.5-14b serve", q14b_serve_phase, torch)["flash_attention"]
+    release()
+    run("38 codeqwen serve", codeqwen_serve_phase, torch)
+    release()
+    run("39 batched parity", batched_parity_phase, torch)
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": time.perf_counter() - t_start}))
 

@@ -28,7 +28,7 @@
 // Two instantiations, chosen by the launcher from dtype and head dim
 // alone: bfloat16 at D = 64 takes flash_kernel_wgmma
 // (flash_attention_wgmma.cuh: tensor cores fed by TMA); float32, and
-// bfloat16 at D 8, 16 and 32, take flash_kernel below.  A call that asks
+// bfloat16 at D 8, 16, 32 and 128, take flash_kernel below.  A call that asks
 // for the logsumexp takes flash_kernel at every dtype and head dim (the
 // wgmma kernel writes none), so the serve path's wgmma kernel is as it was.
 //
@@ -47,8 +47,11 @@
 // the 16 lanes of a half-warp by shuffles, probabilities staged through
 // shared memory for the value product, the accumulator in registers.
 // Ragged S and rows past S * G are bounds-checked; nothing is padded.
-// D is 8, 16, 32 or 64.  The windowed and global forms are separate
-// instantiations (kWindow), so a profile tells them apart.
+// D is 8, 16, 32, 64 or 128.  At D 128 a block's shared memory is
+// 116,992 B (Q, K, V and P tiles of 64 rows, padded), so one block fits
+// an SM, and the accumulator is 32 floats a thread.  The windowed and
+// global forms are separate instantiations (kWindow), so a profile tells
+// them apart.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -314,6 +317,9 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
       }
       return launch_w<T, 64>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
                              window, scale, stream);
+    case 128:
+      return launch_w<T, 128>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                              window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -322,7 +328,7 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B, S, H, D], k and v [B, S, KV, D]: contiguous, one dtype (0 =
-// float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64};
+// float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64, 128};
 // bfloat16 at D 64 without lse (flash_kernel_wgmma) also needs q, k, v
 // 16-byte aligned and H / KV <= 64.  window > 0 limits each query to the
 // keys p - window < j <= p; 0 is global causal attention.  out [B, S, H, D]

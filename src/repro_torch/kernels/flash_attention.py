@@ -17,8 +17,10 @@ head dim and whether the logsumexp is asked for (:func:`flash_impl`
 names the one a call takes): bfloat16 at D 64 without it (every model
 the port serves) takes ``wgmma``, tensor cores fed by TMA
 (``flash_kernel_wgmma``); float32 at any head dim, bfloat16 at D 8, 16
-and 32, and every forward that keeps the logsumexp for a backward take
-``fma``, float32 FMA from shared memory (``flash_kernel``).
+and 32, both dtypes at D 128, and every forward that keeps the
+logsumexp for a backward take ``fma``, float32 FMA from shared memory
+(``flash_kernel``).  The backward has no D-128 path: a gradient at head
+dim 128 raises ``ValueError`` on the card before anything launches.
 
 The backward runs its products on the tensor cores (3xTF32 for float32,
 bfloat16 ``mma`` for bfloat16) on one of two paths, picked by the
@@ -39,7 +41,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import Kernel, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32, 64)
+_HEAD_DIMS = (8, 16, 32, 64, 128)     # the forward
+_BWD_HEAD_DIMS = (8, 16, 32, 64)      # the backward: no D-128 path yet
 _WGMMA_MAX_GROUP = 64   # query heads per kv head: one 64-row wgmma tile
 
 # q, k, v, out, lse | B S H KV D window dtype | scale | stream
@@ -92,6 +95,15 @@ def flash_bwd_impl(dtype: torch.dtype, seq: int, n_heads: int, n_kv: int,
     return f"{flash_bwd_path(dtype, seq, n_heads, n_kv, head_dim)}/{mma}"
 
 
+def _check_bwd_head_dim(head_dim: int) -> None:
+    """Refuse a head dim the backward kernel has no path for (128 has a
+    forward only), before anything launches."""
+    if head_dim not in _BWD_HEAD_DIMS:
+        raise ValueError(f"{BWD_KERNEL.name}: head dim {head_dim} has no "
+                         f"backward kernel (it takes {_BWD_HEAD_DIMS}); "
+                         "the forward alone runs at head dim 128")
+
+
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int], more: Tuple[torch.Tensor, ...] = ()
            ) -> None:
@@ -129,7 +141,7 @@ def flash_attention_cuda(
     """Causal attention of every position over its prefix (and within
     ``window`` of it), ``[B, S, H, D]`` in q's dtype, from inputs of one
     dtype (float32 or bfloat16), contiguous, on one CUDA device; H a
-    multiple of KV and D in {8, 16, 32, 64}.  ``return_lse`` also
+    multiple of KV and D in {8, 16, 32, 64, 128}.  ``return_lse`` also
     returns each row's float32 logsumexp ``[B, S, H]`` (what the
     backward needs): ``(out, lse)``.  The instantiation is
     ``flash_impl(q.dtype, D, return_lse)``; ``wgmma`` also needs
@@ -168,6 +180,7 @@ def flash_attention_bwd_cuda(
     :func:`flash_bwd_path`'s; the scratch, the long path's only, is what
     :func:`flash_bwd_scratch_floats` reports."""
     name = BWD_KERNEL.name
+    _check_bwd_head_dim(q.shape[-1])
     _check(name, q, k, v, window, (out, d_out))
     b, s, h, d = q.shape
     kv = k.shape[2]
@@ -193,12 +206,15 @@ class FlashAttentionFn(torch.autograd.Function):
     """Causal (windowed) GQA attention of ``q`` [B, S, H, D] over ``k``,
     ``v`` [B, S, KV, D] with its gradient: on CUDA tensors the forward
     kernel (keeping each row's logsumexp) and the backward kernel, on
-    CPU tensors ``ref_attention_lse`` and ``ref_attention_backward``."""
+    CPU tensors ``ref_attention_lse`` and ``ref_attention_backward``.
+    On the card a head dim the backward has no path for (128) raises
+    ``ValueError`` here, before the forward launches."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):
         ctx.set_materialize_grads(False)
         if q.device.type == "cuda":
+            _check_bwd_head_dim(q.shape[-1])
             out, lse = flash_attention_cuda(q, k, v, window=window,
                                             return_lse=True)
         else:

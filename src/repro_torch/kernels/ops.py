@@ -176,23 +176,33 @@ def wkv6(r, k, v, w, u, state=None):
 
 
 def attention(q, k, v, *, window: Optional[int] = None,
-              causal: bool = True):
+              causal: bool = True, kv_valid=None):
     """Attention of every position of ``q`` [B, S, H, D] over the same
     sequence of ``k``, ``v`` [B, S, KV, D] (causal, within ``window``
+    when given, over the keys the ``kv_valid`` [B, S] bool mask keeps
     when given): ``[B, S, H, D]`` in q's dtype, at any S.  On the CPU,
     causal attention above ``ref.CHUNKED_ATTN_THRESHOLD`` rows is the
     q-chunked ``ref.ref_attention_chunked`` (JAX's ``_sdpa_chunked``),
     else the einsum.  On the card the kernel streams keys, so it takes
-    any S; it is causal only (``causal=False`` raises: no path of the
-    port asks for it); every input is made contiguous, and inputs that
-    need a gradient go through ``FlashAttentionFn`` (the forward keeps
-    each row's logsumexp, the backward is ``flash_attention_bwd``)."""
+    any S; it is causal only and masks no keys (``causal=False`` or a
+    ``kv_valid`` raise: ``transformer.forward`` checks that a padding
+    mask is a prefix of each row and passes none, since causal rows
+    below the prefix's end see no key past it); every input is made
+    contiguous, and inputs that need a gradient go through
+    ``FlashAttentionFn`` (the forward keeps each row's logsumexp, the
+    backward is ``flash_attention_bwd``)."""
     if _route(q) == "cpu":
         if causal and q.shape[1] > ref.CHUNKED_ATTN_THRESHOLD:
-            return ref.ref_attention_chunked(q, k, v, window=window)
-        return ref.ref_attention(q, k, v, causal=causal, window=window)
+            return ref.ref_attention_chunked(q, k, v, window=window,
+                                             kv_valid=kv_valid)
+        return ref.ref_attention(q, k, v, causal=causal, window=window,
+                                 kv_valid=kv_valid)
     if not causal:
         raise ValueError("flash_attention: the kernel is causal only")
+    if kv_valid is not None:
+        raise ValueError("flash_attention: the kernel masks no keys; "
+                         "pass a right-padding mask through "
+                         "transformer.forward")
     q, k, v = (t.contiguous() for t in (q, k, v))
     if _needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, window)

@@ -699,11 +699,13 @@ def ref_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,  # None = global
+    kv_valid: Optional[torch.Tensor] = None,   # [B, S] bool key mask
 ) -> torch.Tensor:
     """Attention of every position over the same sequence
     (``repro.kernels.ref.ref_attention``): ``masked_attention`` inside
-    the causal band and the window.  Returns ``[B, S, H, D]`` in q's
-    dtype."""
+    the causal band and the window, and over the keys ``kv_valid``
+    keeps when given (``repro.models.attention.make_attention_mask``'s
+    padding mask).  Returns ``[B, S, H, D]`` in q's dtype."""
     s = q.shape[1]
     qi = torch.arange(s, device=q.device)[:, None]
     ki = torch.arange(s, device=q.device)[None, :]
@@ -711,7 +713,16 @@ def ref_attention(
                                               device=q.device)
     if window is not None:
         mask = mask & ((qi - ki) < window)
-    return masked_attention(q, k, v, mask[None, None])
+    return masked_attention(q, k, v, _key_mask(mask, kv_valid))
+
+
+def _key_mask(mask: torch.Tensor, kv_valid: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """``mask`` [Sq, Sk] as ``[1 or B, 1, Sq, Sk]``, and-ed with the key
+    mask ``kv_valid`` [B, Sk] when given."""
+    if kv_valid is None:
+        return mask[None, None]
+    return mask[None, None] & kv_valid.to(torch.bool)[:, None, None, :]
 
 
 def _band(s: int, window: Optional[int], device) -> torch.Tensor:
@@ -797,6 +808,7 @@ def ref_attention_chunked(
     v: torch.Tensor,   # [B, S, KV, D]
     *,
     window: Optional[int] = None,
+    kv_valid: Optional[torch.Tensor] = None,   # [B, S] bool key mask
     chunk: int = CHUNK_Q,
 ) -> torch.Tensor:
     """:func:`ref_attention` a chunk of ``chunk`` query rows at a time
@@ -814,7 +826,7 @@ def ref_attention_chunked(
         mask = qi >= pos[None, :]
         if window is not None:
             mask = mask & ((qi - pos[None, :]) < window)
-        return masked_attention(q_i, k_all, v_all, mask[None, None])
+        return masked_attention(q_i, k_all, v_all, _key_mask(mask, kv_valid))
 
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))

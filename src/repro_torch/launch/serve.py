@@ -9,6 +9,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
       --requests 12 --mixed-lengths 4,8,16,32 [--full-width] [--device cpu]
 
+  # the deprecated batched prefill (one dispatch per padded length)
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
+      --no-chunked-prefill [--no-batch-prefill] [--full-width] [--device cpu]
+
   # speculative decode from the store's lagged version, prefix cache
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
       --runtime versioned --speculate 4 --draft version:-1 \\
@@ -18,7 +22,9 @@ Same flags and printout as ``repro.launch.serve`` for the parts ported:
 the ``static`` engine (``rollout.sampler.generate`` over the decode
 cache: one untimed warm call, then one call timed between device
 synchronisations) for every arch the port has, and the ``continuous``
-engine with chunked prefill, multi-step decode, speculative decode
+engine with chunked prefill (or the deprecated batched prefill,
+``--no-chunked-prefill``, ``--no-batch-prefill``), multi-step decode,
+speculative decode
 (``--speculate k``, ``--draft version:-n|model:<arch>|self``,
 ``--speculate-adaptive``) and the prefix cache (``--prefix-cache``),
 which refuses attention-free and hybrid archs as the reference's engine
@@ -29,8 +35,11 @@ continuous engine polls it every ``--swap-interval`` steps.
 through a lag controller's admission hook and prints its verdicts
 (shadow scoring: nothing is dropped).
 ``--full-width`` serves ``get_config(--arch)`` (qwen2.5-0.5b: 24 layers,
-vocab 151936; rwkv6-1.6b: 24 layers, d 2048, vocab 65536; hymba-1.5b:
-32 layers, d 1600, vocab 32001) instead of ``reduced_config``; the math
+vocab 151936; qwen2.5-14b: 48 layers, d 5120, 40 / 8 heads of 128,
+vocab 152064, 14.77 B params, 59.1 GB in float32; codeqwen1.5-7b: 32
+layers, d 4096, 32 / 32 heads of 128, vocab 92416, 8.19 B params, 32.8
+GB; rwkv6-1.6b: 24 layers, d 2048, vocab 65536; hymba-1.5b: 32 layers,
+d 1600, vocab 32001) instead of ``reduced_config``; the math
 tokenizer's ids fit in every vocab.
 Weights are a random init from ``--seed``, or the checkpoint
 ``--checkpoint`` names (``repro_torch.checkpoint``, the format
@@ -38,8 +47,7 @@ Weights are a random init from ``--seed``, or the checkpoint
 saved), loaded into that init's structure.  SIGINT/SIGTERM flush the
 trace and metrics before exiting.
 
-Not ported yet (each exits with a message): ``--mesh`` and
-``--no-chunked-prefill``.
+Not ported yet (exits with a message): ``--mesh``.
 """
 from __future__ import annotations
 
@@ -54,7 +62,6 @@ import torch
 
 _NOT_PORTED = (
     ("--mesh", lambda a: a.mesh),
-    ("--no-chunked-prefill", lambda a: a.no_chunked_prefill),
 )
 
 
@@ -114,7 +121,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="continuous: submit each prompt N times (the "
                          "access pattern --prefix-cache collapses to ~1x "
                          "prefill)")
-    ap.add_argument("--no-chunked-prefill", action="store_true")
+    ap.add_argument("--no-batch-prefill", action="store_true",
+                    help="continuous: prefill admissions one dispatch "
+                         "per request (default stacks same-padded-"
+                         "length admissions)")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="continuous: disable chunked ragged prefill "
+                         "and fall back to the DEPRECATED batched "
+                         "prefill path (one blocking dispatch per "
+                         "padded-length group)")
     ap.add_argument("--prefill-chunk", type=int, default=16,
                     help="continuous: rows per prefill tile in the "
                          "unified varlen dispatch (chunked prefill)")
@@ -304,22 +319,16 @@ def serve_static(args: argparse.Namespace) -> Tuple[StaticServe, Any, float]:
     return static, res, dt
 
 
-def prepare(args: argparse.Namespace, tracer: Any = None
-            ) -> Tuple[Any, Dict[int, Tuple[str, str]]]:
-    """Build the model and continuous engine from ``args`` and submit the
-    math prompts; returns ``(engine, {request_id: (prompt, answer)})``."""
-    from repro_torch.data.tokenizer import get_tokenizer
+def make_engine(args: argparse.Namespace, bundle: Any, params: Any,
+                store: Any, device: torch.device, tracer: Any = None):
+    """The continuous engine ``args`` describe over one model (what
+    :func:`_model` built): several engines can serve the same params."""
     from repro_torch.serve import ServeEngine
 
-    tok = get_tokenizer()
-    device, bundle, params, ds, store = _model(args, tracer)
-
-    lengths = [int(x) for x in args.mixed_lengths.split(",")] \
-        if args.mixed_lengths else [args.max_new_tokens]
     draft = None
     if args.speculate:
         draft = _parse_draft(args.draft, args, params, device)
-    engine = ServeEngine(
+    return ServeEngine(
         bundle, params if store is None else None, store=store,
         num_blocks=args.num_blocks,
         block_size=args.block_size, max_batch=args.max_batch,
@@ -327,12 +336,28 @@ def prepare(args: argparse.Namespace, tracer: Any = None
         swap_interval=args.swap_interval,
         temperature=args.temperature, top_p=args.top_p, seed=args.seed + 2,
         speculate_k=args.speculate, draft=draft,
+        batch_prefill=not args.no_batch_prefill,
+        chunked_prefill=not args.no_chunked_prefill,
         prefill_chunk=args.prefill_chunk,
         dispatch_budget=args.dispatch_budget,
         speculate_adaptive=args.speculate_adaptive,
         prefix_cache=args.prefix_cache, tracer=tracer,
         annotate=args.profiler_annotations, device=device)
-    toks_np, prompts, answers = ds.sample_batch(args.requests)
+
+
+def submit_batch(args: argparse.Namespace, engine: Any,
+                 batch: Tuple[Any, List[str], List[str]]
+                 ) -> Dict[int, Tuple[str, str]]:
+    """Submit ``batch`` (``MathTaskDataset.sample_batch(args.requests)``)
+    as ragged prompts, each ``--best-of`` times, with the
+    ``--mixed-lengths`` budgets; returns ``{request_id: (prompt,
+    answer)}``."""
+    from repro_torch.data.tokenizer import get_tokenizer
+
+    tok = get_tokenizer()
+    lengths = [int(x) for x in args.mixed_lengths.split(",")] \
+        if args.mixed_lengths else [args.max_new_tokens]
+    toks_np, prompts, answers = batch
     meta = {}
     for i in range(args.requests):
         row = toks_np[i]
@@ -340,7 +365,16 @@ def prepare(args: argparse.Namespace, tracer: Any = None
         for _ in range(max(args.best_of, 1)):
             req = engine.submit(row, lengths[i % len(lengths)])
             meta[req.request_id] = (prompts[i], answers[i])
-    return engine, meta
+    return meta
+
+
+def prepare(args: argparse.Namespace, tracer: Any = None
+            ) -> Tuple[Any, Dict[int, Tuple[str, str]]]:
+    """Build the model and continuous engine from ``args`` and submit the
+    math prompts; returns ``(engine, {request_id: (prompt, answer)})``."""
+    device, bundle, params, ds, store = _model(args, tracer)
+    engine = make_engine(args, bundle, params, store, device, tracer)
+    return engine, submit_batch(args, engine, ds.sample_batch(args.requests))
 
 
 def run(args: argparse.Namespace, engine: Any) -> Tuple[List[Any], float]:

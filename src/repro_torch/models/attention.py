@@ -76,18 +76,21 @@ def attn_forward(
     n_kv_heads: int,
     rope_theta: float,
     window: Optional[int],
+    kv_valid: Optional[torch.Tensor] = None,   # [B, S] bool key mask
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention (train / prefill) over the
-    positions ``0 .. S-1`` that ``positions`` holds in every row.
-    Returns ``(out [B, S, D], (k, v) [B, S, KV, Dh])``, k after RoPE.
-    The attention is ``kops.attention`` (the kernel pair on the card,
-    the plain attention on the CPU)."""
+    positions ``0 .. S-1`` that ``positions`` holds in every row, and
+    over the keys ``kv_valid`` keeps when given (the CPU only: see
+    ``kops.attention``).  Returns ``(out [B, S, D], (k, v) [B, S, KV,
+    Dh])``, k after RoPE.  The attention is ``kops.attention`` (the
+    kernel pair on the card, the plain attention on the CPU)."""
     q = _split_heads(dense_apply(p["wq"], x), n_heads)
     k = _split_heads(dense_apply(p["wk"], x), n_kv_heads)
     v = _split_heads(dense_apply(p["wv"], x), n_kv_heads)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    out = kops.attention(q, k, v, window=window).flatten(2)
+    out = kops.attention(q, k, v, window=window,
+                         kv_valid=kv_valid).flatten(2)
     return dense_apply(p["wo"], out), (k, v)
 
 

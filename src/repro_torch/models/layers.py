@@ -27,7 +27,9 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, bias: bool = False, scale: float = 1.0,
                lead: Sequence[int] = ()) -> Dict:
     std = scale / (d_in ** 0.5)
-    p = {"w": (std * _trunc_normal(gen, (*lead, d_in, d_out))).to(dtype)}
+    # Scaled in place: no second copy of the leaf (13.6 GB for
+    # qwen2.5-14b's stacked MLP weights), the same numbers.
+    p = {"w": _trunc_normal(gen, (*lead, d_in, d_out)).mul_(std).to(dtype)}
     if bias:
         p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=gen.device)
     return p
@@ -44,7 +46,7 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32) -> Dict:
     emb = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
                       device=gen.device)
-    return {"table": (emb * (d ** -0.5)).to(dtype)}
+    return {"table": emb.mul_(d ** -0.5).to(dtype)}
 
 
 def embedding_apply(p: Dict, ids: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,11 @@ the serve engine dispatches — ``decode_step_paged`` (one token per slot, throu
 decode kernel), ``decode_step_paged_varlen`` (ragged rows per slot,
 through the varlen kernel) and ``decode_step_paged_multi`` (the
 fixed-``T`` speculative verify shape, a thin wrapper over the varlen
-step) — and ``copy_page_rows``, the prefix cache's copy-on-write.  The
-batched-prefill writers are not ported (the engine prefills in varlen
-tiles).  The layer loop is a Python loop (JAX scans over the stacked
-layers).
+step) — ``copy_page_rows``, the prefix cache's copy-on-write, and the
+batched prefill's writers ``write_prefill_to_pages`` /
+``write_prefill_batch_to_pages`` (a dense prefill cache into the pool,
+single device).  The layer loop is a Python loop (JAX scans over the
+stacked layers).
 
 Parameters keep the JAX layout and names: nested dicts, layer leaves
 stacked ``[L, ...]``, dense weights ``[d_in, d_out]``, an ``lm_head``
@@ -334,6 +335,53 @@ def copy_page_rows(pages: Dict, src: Sequence[int], dst: Sequence[int],
     return pages
 
 
+@torch.no_grad()
+def write_prefill_to_pages(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           pages: Dict, blocks: Any, prompt_len: int
+                           ) -> Dict:
+    """Scatter one request's prefill K/V rows ``cache_k`` / ``cache_v``
+    ``[L, 1, P, KV, Dh]`` into its pages ``blocks`` ``[M]`` (a host
+    sequence or a tensor of page ids), in place (port of
+    ``repro.models.transformer.write_prefill_to_pages``, single device,
+    for ``prompt_len <= P``).  Row ``r`` lands at page ``blocks[r //
+    BS]``, offset ``r % BS``, for ``r < prompt_len``; rows at or past it
+    are dropped, and so are the pad slots of ``blocks``, which no row
+    below ``prompt_len`` reaches.  Plain tensor indexing, as in the
+    reference (its writes are ``dynamic_update_slice``s outside any
+    Pallas kernel)."""
+    k_pages, v_pages = pages["k_pages"], pages["v_pages"]
+    block_size = k_pages.shape[3]
+    n = max(0, min(int(prompt_len), cache_k.shape[2]))
+    if n == 0:
+        return pages
+    rows = torch.arange(n, device=k_pages.device)
+    table = torch.as_tensor(blocks, device=k_pages.device).long()
+    page, offset = table[rows // block_size], rows % block_size
+    for pool, cache in ((k_pages, cache_k), (v_pages, cache_v)):
+        pool[:, :, page, offset] = cache[:, 0, :n].to(pool.dtype).transpose(
+            1, 2)
+    return pages
+
+
+def write_prefill_batch_to_pages(cache_k: torch.Tensor,
+                                 cache_v: torch.Tensor, pages: Dict,
+                                 blocks: Any, prompt_lens: Any, *,
+                                 mesh: Any = None) -> Dict:
+    """Scatter a group of prefilled requests, ``cache_k`` / ``cache_v``
+    ``[L, N, P, KV, Dh]``, into their pages ``blocks`` ``[N, M]``: ``N``
+    calls of :func:`write_prefill_to_pages` in order, ``prompt_lens[i]``
+    rows each, in place (port of ``repro.models.transformer.
+    write_prefill_batch_to_pages``, single device: a ``mesh`` raises, as
+    the serve engine does)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "write_prefill_batch_to_pages: a mesh is not ported yet")
+    for i in range(cache_k.shape[1]):
+        write_prefill_to_pages(cache_k[:, i:i + 1], cache_v[:, i:i + 1],
+                               pages, blocks[i], int(prompt_lens[i]))
+    return pages
+
+
 # ---------------------------------------------------------------------------
 # Forward (train / prefill) and dense-cache decode
 # ---------------------------------------------------------------------------
@@ -403,6 +451,7 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,                      # [B, S]
     *,
+    kv_valid: Optional[torch.Tensor] = None,   # [B, S] bool padding mask
     return_cache: bool = False,
     cache_len: Optional[int] = None,           # cache capacity for prefill
 ) -> ModelOutput:
@@ -412,8 +461,26 @@ def forward(
     configs: and each layer's final SSM state and conv window), or for
     attention-free configs each layer's final WKV state and shifts.
     Hybrid layers add the mean of the attention and SSM heads, both fed
-    the same normed input."""
+    the same normed input.
+
+    ``kv_valid`` masks padding keys out of every attention, as in the
+    reference (attention-free configs ignore it there too).  On the CPU
+    the plain attention applies it exactly.  The card's flash kernel
+    masks no keys, so there it must be a prefix of each row (the serve
+    engine's right-padded prompts: ``rows[i, :plen] = ids``), checked
+    once here, else ``ValueError``; under causal attention a row below
+    its prefix's end sees no key past it, with or without the mask, so
+    the logits and K/V rows of those positions are the same on both
+    devices.  Rows at or past the prefix's end differ (on the card they
+    attend over the padding): callers read only the rows below it."""
     _check_arch(cfg)
+    if kv_valid is not None and tokens.device.type == "cuda":
+        valid = kv_valid.to(torch.bool)
+        if bool((valid[:, 1:] & ~valid[:, :-1]).any()):
+            raise ValueError(
+                "forward: on the card kv_valid must be a prefix of each "
+                "row (right padding); the flash kernel masks no keys")
+        kv_valid = None
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
     if cfg.attn_free:
@@ -439,7 +506,7 @@ def forward(
         attn_out, (k, v) = attn.attn_forward(
             lp["attn"], h, positions, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
-            window=cfg.window_for_layer(layer))
+            window=cfg.window_for_layer(layer), kv_valid=kv_valid)
         if cfg.hybrid_attn_ssm:
             ssm_out, (ssm_state, conv_state) = ssm_mod.ssm_forward(
                 lp["ssm"], h, cfg.ssm)

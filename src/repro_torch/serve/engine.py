@@ -69,13 +69,26 @@ match that ends mid-page is copied into the request's own page
 pending request whose shared pages another request is still computing
 waits for them.  A swap invalidates entries through the salt alone.
 
-Not ported, and refused with ``NotImplementedError``: ``mesh`` and
-``chunked_prefill=False``.
+**Batched prefill** (``chunked_prefill=False``, deprecated as in the
+reference, which warns).  Each round's admissions are prefilled before
+its decode chunk, by the dense ``forward`` (the flash kernel on the
+card) over right-padded rows, whose K/V rows ``write_prefill_batch_to_
+pages`` scatters into the pool; the first token is sampled from each
+prompt's last row.  Dispatches are keyed by (padded length, group
+size): with ``batch_prefill`` (the default) admissions of one padded
+length share a dispatch, without it each takes its own.  Prefix-cache
+hits prefill only their unmatched suffix through
+``decode_step_paged_multi``, after the copy-on-write of a mid-page
+match; best-of-N siblings (the same source pages) share one suffix
+dispatch.  A model draft's pool gets the same rows.
+
+Not ported, and refused with ``NotImplementedError``: ``mesh``.
 """
 from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -87,7 +100,8 @@ from repro_torch.metrics.runtime_metrics import (LagHistogram,
                                                  collect_serve_stats)
 from repro_torch.models.registry import ModelBundle
 from repro_torch.models.transformer import (copy_page_rows,
-                                            paged_arch_unsupported, tree_to)
+                                            paged_arch_unsupported, tree_to,
+                                            write_prefill_batch_to_pages)
 from repro_torch.obs.perfetto import trace_annotation
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
@@ -130,7 +144,8 @@ class ServeStats:
     steps: int = 0               # scheduling rounds
     decode_steps: int = 0        # decode iterations
     prefills: int = 0            # requests prefilled
-    prefill_dispatches: int = 0  # varlen rounds that carried prefill tiles
+    prefill_dispatches: int = 0  # varlen rounds that carried prefill
+    #                              tiles; batched: prefill dispatches
     finished: int = 0
     tokens_out: int = 0
     preemptions: int = 0
@@ -225,6 +240,7 @@ class ServeEngine:
         seed: int = 0,
         speculate_k: int = 0,
         draft: Any = None,
+        batch_prefill: bool = True,
         chunked_prefill: bool = True,
         prefill_chunk: int = 16,
         dispatch_budget: int = 32,
@@ -249,11 +265,8 @@ class ServeEngine:
         ``fn(request, k)``, or None (``("version", -1)`` over a store,
         else the verifier's own params).  ``annotate=True`` wraps each
         dispatch in ``torch.profiler.record_function``."""
-        for flag, on in (("mesh", mesh is not None),
-                         ("chunked_prefill=False", not chunked_prefill)):
-            if on:
-                raise NotImplementedError(
-                    f"ServeEngine: {flag} is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("ServeEngine: mesh is not ported yet")
         reason = paged_arch_unsupported(bundle.cfg)
         if bundle.decode_step_paged is None or reason is not None:
             raise ValueError(f"{bundle.cfg.name}: {reason}")
@@ -320,6 +333,16 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.decode_chunk = max(int(decode_chunk), 1)
+        # Batched prefill stacks same-padded-length admissions into one
+        # dispatch (keyed by padded length and group size).
+        self.batch_prefill = bool(batch_prefill)
+        self.chunked_prefill = bool(chunked_prefill)
+        if not self.chunked_prefill:
+            warnings.warn(
+                "chunked_prefill=False: the batched-prefill serve path "
+                "is deprecated and kept only for comparison; chunked "
+                "ragged prefill is the default",
+                DeprecationWarning, stacklevel=2)
         self.prefill_chunk = max(int(prefill_chunk), 1)
         self.dispatch_budget = max(int(dispatch_budget), 1)
 
@@ -658,9 +681,7 @@ class ServeEngine:
         logits = torch.gather(
             out.logits, 1,
             last[:, None, None].expand(-1, 1, out.logits.shape[-1]))[:, 0]
-        tok, lp = self._sample(logits)
-        both = torch.stack([tok.double(), lp.double()]).cpu().numpy()
-        return both[0].astype(np.int32), both[1].astype(np.float32)
+        return self._host_sample(logits)
 
     def _draft_varlen(self, tokens: np.ndarray, row_start: np.ndarray,
                       row_len: np.ndarray, cap: np.ndarray) -> None:
@@ -788,6 +809,194 @@ class ServeEngine:
                          finished)
         return True
 
+    # -- batched prefill (chunked_prefill=False) ------------------------------
+
+    def _prefill_admitted(self, admitted: List[Request],
+                          finished: List[ServedTrajectory]) -> None:
+        """(Re)compute the KV rows of every admitted request; admissions
+        of one padded length share a dispatch with ``batch_prefill``.
+        Prefix-cache hits take the suffix path (their matched rows are
+        resident in shared pages).  Dense prefills go first, suffix
+        prefills follow in admission order: an admission can match only
+        pages of earlier admissions, so every page a suffix dispatch
+        reads was written by an earlier dispatch."""
+        if not admitted:
+            return
+        dense: List = []
+        shared: List = []
+        for req in admitted:
+            ids = self._committed_ids(req)
+            item = (req, ids, int(ids.shape[0]))
+            (shared if req.num_matched > 0 else dense).append(item)
+        groups: Dict[int, List] = {}
+        for item in dense:
+            padded = -(-item[2] // self.block_size) * self.block_size
+            groups.setdefault(padded, []).append(item)
+        for padded in sorted(groups):
+            items = groups[padded]
+            size = len(items) if self.batch_prefill else 1
+            for lo in range(0, len(items), size):
+                self._prefill_group(padded, items[lo:lo + size], finished)
+        # Only runs of requests sharing exactly the same source pages
+        # (best-of-N siblings) batch into one suffix dispatch: they
+        # cannot depend on each other's writes.
+        i = 0
+        while i < len(shared):
+            j = i + 1
+            if self.batch_prefill:
+                while j < len(shared) and self._suffix_compatible(
+                        shared[i], shared[j]):
+                    j += 1
+            self._suffix_group(shared[i:j], finished)
+            i = j
+
+    @staticmethod
+    def _suffix_compatible(a, b) -> bool:
+        ra, _, pa = a
+        rb, _, pb = b
+        nsf = ra.num_shared_full
+        return (pa == pb and ra.num_matched == rb.num_matched
+                and ra.shard == rb.shard and nsf == rb.num_shared_full
+                and ra.blocks[:nsf] == rb.blocks[:nsf]
+                and ra.cow_src == rb.cow_src)
+
+    def _land_prefill(self, items: List, tables: np.ndarray,
+                      toks: np.ndarray, lps: np.ndarray,
+                      finished: List[ServedTrajectory]) -> None:
+        """Slot state after a prefill dispatch; each request's sampled
+        token is its first emission, unless it resumes after preemption
+        (its pending token was recorded before)."""
+        for i, (req, _, plen) in enumerate(items):
+            slot = req.slot
+            self._tables[slot] = tables[i]
+            self._pos[slot] = plen
+            req.num_prefilled = plen
+            if req.tokens:
+                self._last_tok[slot] = req.tokens[-1]
+            else:
+                self._record(req, int(toks[i]), float(lps[i]), finished)
+
+    def _host_sample(self, logits: torch.Tensor
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """One draw from ``logits`` [N, V]; host (tokens, log_beta) after
+        one device-to-host copy."""
+        tok, lp = self._sample(logits)
+        both = torch.stack([tok.double(), lp.double()]).cpu().numpy()
+        return both[0].astype(np.int32), both[1].astype(np.float32)
+
+    def _suffix_group(self, items: List,
+                      finished: List[ServedTrajectory]) -> None:
+        """Copy-on-write, then a suffix-only prefill for one compatible
+        group: the ``t`` unmatched tokens through the multi-token paged
+        step (writing their rows, attending over the shared prefix),
+        sampling from the last one."""
+        n = len(items)
+        req0, _, plen0 = items[0]
+        m = req0.num_matched
+        t = plen0 - m
+        t_pad = -(-t // 4) * 4             # the JAX engine's padding
+        width = self._tables.shape[1]
+        toks = np.full((n, t_pad), PAD, np.int32)
+        tables = np.zeros((n, width), np.int32)
+        cap = np.zeros((n,), np.int32)
+        for i, (req, ids, plen) in enumerate(items):
+            toks[i, :t] = ids[m:]
+            tables[i] = self.allocator.padded_table(req.blocks, width)
+            cap[i] = plen
+        if req0.cow_src is not None:
+            # The match ends mid-page: its rows go into each request's
+            # own page (the table already points there) in both pools.
+            self._copy_on_write([req for req, _, _ in items])
+        pos = np.full((n,), m, np.int32)
+        with self.tracer.span("suffix_prefill", tid="engine", n=n,
+                              suffix=t), \
+                self._ann("serve.suffix_prefill"):
+            tok_np, lp_np = self._suffix(toks, tables, pos, cap, t - 1)
+        self.stats.prefills += n
+        self.stats.prefill_dispatches += 1
+        self.stats.prefill_tokens += n * t
+        if isinstance(self.draft, ModelDraft):
+            self._suffix_pool(self.draft.bundle, self.draft.params,
+                              self.draft.pages, toks, tables, pos, cap)
+        self._land_prefill(items, tables, tok_np, lp_np, finished)
+
+    @torch.no_grad()
+    def _suffix_pool(self, bundle: ModelBundle, params: Any, pages: Dict,
+                     toks: np.ndarray, tables: np.ndarray, pos: np.ndarray,
+                     cap: np.ndarray) -> torch.Tensor:
+        """The suffix rows ``toks`` [N, T] from ``pos`` through the
+        multi-token paged step into ``pages`` (rows below ``cap``);
+        returns the logits [N, T, V]."""
+        ones = torch.ones((toks.shape[0],), dtype=torch.bool,
+                          device=self.device)
+        out, _ = bundle.decode_step_paged_multi(
+            params, self._to_dev(toks), pages, self._to_dev(tables),
+            self._to_dev(pos), ones, self._to_dev(cap))
+        return out.logits
+
+    def _suffix(self, toks: np.ndarray, tables: np.ndarray, pos: np.ndarray,
+                cap: np.ndarray, tlast: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """One suffix prefill dispatch under the served params; host
+        (tokens, log_beta) sampled from row ``tlast``."""
+        logits = self._suffix_pool(self.bundle, self.params, self.pages,
+                                   toks, tables, pos, cap)
+        return self._host_sample(logits[:, tlast])
+
+    def _prefill_group(self, padded: int, items: List,
+                       finished: List[ServedTrajectory]) -> None:
+        """One batched prefill dispatch over ``items``' right-padded
+        prompts (``padded`` rows each)."""
+        n = len(items)
+        width = self._tables.shape[1]
+        rows = np.zeros((n, padded), np.int32)
+        kv_valid = np.zeros((n, padded), bool)
+        plens = np.zeros((n,), np.int32)
+        tables = np.zeros((n, width), np.int32)
+        for i, (req, ids, plen) in enumerate(items):
+            rows[i, :plen] = ids
+            kv_valid[i, :plen] = True
+            plens[i] = plen
+            tables[i] = self.allocator.padded_table(req.blocks, width)
+        with self.tracer.span("prefill", tid="engine", n=n,
+                              padded=padded), \
+                self._ann("serve.prefill"):
+            toks_np, lps_np = self._prefill(rows, kv_valid, tables, plens)
+        self.stats.prefills += n
+        self.stats.prefill_dispatches += 1
+        self.stats.prefill_tokens += int(plens.sum())
+        if isinstance(self.draft, ModelDraft):
+            self._prefill_pool(self.draft.bundle, self.draft.params,
+                               self.draft.pages, rows, kv_valid, tables,
+                               plens)
+        self._land_prefill(items, tables, toks_np, lps_np, finished)
+
+    @torch.no_grad()
+    def _prefill_pool(self, bundle: ModelBundle, params: Any, pages: Dict,
+                      rows: np.ndarray, kv_valid: np.ndarray,
+                      tables: np.ndarray, plens: np.ndarray) -> torch.Tensor:
+        """The dense forward over ``rows`` [N, P] with their padding mask,
+        its K/V rows written into ``pages`` (rows below each prompt's
+        length); returns each prompt's last-row logits [N, V]."""
+        out = bundle.forward(params, self._to_dev(rows), return_cache=True,
+                             cache_len=rows.shape[1],
+                             kv_valid=self._to_dev(kv_valid))
+        write_prefill_batch_to_pages(out.cache["k"], out.cache["v"], pages,
+                                     tables, plens)
+        last = torch.as_tensor(plens.astype(np.int64) - 1,
+                               device=self.device)
+        return out.logits[torch.arange(rows.shape[0], device=self.device),
+                          last]
+
+    def _prefill(self, rows: np.ndarray, kv_valid: np.ndarray,
+                 tables: np.ndarray, plens: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """One batched prefill dispatch under the served params; host
+        (tokens, log_beta) of each prompt's first emission."""
+        logits = self._prefill_pool(self.bundle, self.params, self.pages,
+                                    rows, kv_valid, tables, plens)
+        return self._host_sample(logits)
+
     # -- the decode chunk ----------------------------------------------------
 
     def _decode(self, remaining: np.ndarray
@@ -826,7 +1035,8 @@ class ServeEngine:
                 host[:, 2] > 0)
 
     def step(self) -> List[ServedTrajectory]:
-        """One scheduling round + decode chunk (or varlen round);
+        """One scheduling round + decode chunk (or varlen round; without
+        chunked prefill, the admissions' prefill dispatches first);
         returns newly finished trajectories."""
         finished: List[ServedTrajectory] = []
         tr = self.tracer
@@ -857,11 +1067,14 @@ class ServeEngine:
             # A fresh occupant: the previous one's acceptance EMA says
             # nothing about it.
             self._accept_ema[req.slot] = 1.0
-        # Admissions stream in as ragged tiles over the next rounds: mark
-        # them pending and park the write cursor at the first row.
-        for req in admitted:
-            req.prefill_done = False
-            self._pos[req.slot] = req.num_prefilled
+        if self.chunked_prefill:
+            # Admissions stream in as ragged tiles over the next rounds:
+            # mark them pending and park the write cursor at the first row.
+            for req in admitted:
+                req.prefill_done = False
+                self._pos[req.slot] = req.num_prefilled
+        else:
+            self._prefill_admitted(admitted, finished)
         # Rebuild slot state from the scheduler: preempted/retired slots
         # go quiet, running rows pick up pages the extension just granted.
         by_slot = {r.slot: r for r in self.scheduler.running}
@@ -885,7 +1098,7 @@ class ServeEngine:
             if self.store is not None:
                 tr.counter("policy_lag",
                            lag=float(self.store.version - self.version))
-        if self._chunked_round(finished):
+        if self.chunked_prefill and self._chunked_round(finished):
             return finished
         if not self._active.any():
             return finished

@@ -50,6 +50,7 @@ from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
                                     tree_map)
 
 from test_torch_serve import _ReplayJaxNoise
+from test_torch_serve_producer import _share_jax_rollouts
 from test_torch_train import _ReplayKeyChain
 
 torch.set_num_threads(1)
@@ -312,13 +313,22 @@ def _seeded_rewards(trainer, is_jax):
     trainer.regime._produce_minibatch = produce_seeded
 
 
+@pytest.fixture(scope="module")
+def jax_rollouts():
+    """The JAX serve producer's minibatches, shared by the serve-producer
+    cases' JAX trainers (``test_torch_serve_producer.
+    _share_jax_rollouts``)."""
+    return {}
+
+
 def _close(a, b, tol=1e-5):
     return abs(a - b) <= tol * max(1.0, abs(b))
 
 
 @pytest.mark.parametrize("producer", ["legacy", "serve"])
 @pytest.mark.parametrize("controller", LEARNER)
-def test_rlvr_trainer_under_controller_matches_jax(controller, producer):
+def test_rlvr_trainer_under_controller_matches_jax(controller, producer,
+                                                  jax_rollouts):
     """2 warmup steps, then one VACO phase of 2 minibatches: legacy
     producer (forward lag 0 and 1), or the serve engine under forced lag
     2 with seeded rewards.  Phase logs, what the controller wrote into
@@ -328,7 +338,10 @@ def test_rlvr_trainer_under_controller_matches_jax(controller, producer):
     Both RL phases start from the JAX warm start: the port's warmup is
     held to JAX's (1e-4, ``test_torch_train.py``), but AdamW turns float
     noise in a near-zero warmup gradient entry into an eps-bounded
-    difference, which would hide what the two learner steps do."""
+    difference, which would hide what the two learner steps do.  The
+    serve cases' JAX trainers share the JAX engine's rollouts, which
+    under forced lag 2 do not depend on the controller
+    (``_share_jax_rollouts``)."""
     kw = dict(algorithm="grpo_vaco", n_minibatches=2, warmup_steps=2,
               controller=controller)
     if producer == "serve":
@@ -342,6 +355,7 @@ def test_rlvr_trainer_under_controller_matches_jax(controller, producer):
                          jax.tree.map(np.asarray, jtr.state.params)))
     if producer == "serve":
         _ReplayJaxNoise(tr.engine, 2, tr.hp.temperature, 1.0)
+        _share_jax_rollouts(jtr, jax_rollouts)
         _seeded_rewards(jtr, True)
         _seeded_rewards(tr, False)
     else:

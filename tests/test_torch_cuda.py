@@ -629,6 +629,141 @@ def test_flash_attention_dispatch_and_refusals(dev):
     assert kernels.launch_counts()["flash_attention"] == 2
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,window", [
+    (8, 32, 40, 8, None), (8, 32, 32, 32, None), (8, 37, 40, 8, None),
+    (2, 1, 40, 8, None), (2, 300, 40, 8, 64), (2, 65, 32, 32, 16),
+    (1, 2048, 40, 8, None)])
+def test_flash_attention_kernel_at_head_dim_128_matches_plain(dev, dtype, tol,
+                                                              b, s, h, kv,
+                                                              window):
+    """qwen2.5-14b's (40 / 8) and codeqwen1.5-7b's (32 / 32) heads of 128:
+    the FMA instantiation in both dtypes."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_impl)
+
+    q, k, v = _flash_case(dev, dtype, b, s, h, kv, 128, seed=s + h)
+    kernels.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert flash_impl(dtype, 128) == "fma"
+    want = ref.ref_attention(q, k, v, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_flash_attention_refuses_a_gradient_at_head_dim_128(dev):
+    """The backward has no D-128 path: a gradient raises before anything
+    launches, through ``ops.attention`` and the backward's wrapper; the
+    forward alone runs."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    q, k, v = _flash_case(dev, torch.float32, 2, 40, 10, 2, 128)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim 128"):
+        ops.attention(q.clone().requires_grad_(True), k, v)
+    assert kernels.launch_counts()["flash_attention"] == 0
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="head dim 128"):
+        flash_attention_bwd_cuda(q, k, v, out, lse, torch.ones_like(out))
+    with torch.no_grad():
+        ops.attention(q.clone().requires_grad_(True), k, v)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2
+    assert counts["flash_attention_bwd"] == 0
+
+
+def _config_d128(vocab=64):
+    return reduced_config("qwen2.5-14b", vocab=vocab).replace(d_head=128)
+
+
+def test_forward_with_padding_mask_on_card_matches_cpu(dev):
+    """``forward(kv_valid=)`` on the card (a prefix mask: the kernel
+    masks no keys) against the CPU's masked plain attention: logits at
+    each prompt's last row and the cache rows below it; a mask with a
+    hole raises before any launch, and ``ops.attention`` refuses a key
+    mask on the card."""
+    from repro_torch.models import transformer as tf
+
+    cfg = _config_d128()
+    params = build(cfg).init(torch.Generator().manual_seed(0))
+    plens = [12, 5, 9, 1]
+    g = torch.Generator().manual_seed(1)
+    rows = torch.zeros((4, 16), dtype=torch.int32)
+    valid = torch.zeros((4, 16), dtype=torch.bool)
+    for i, n in enumerate(plens):
+        rows[i, :n] = torch.randint(1, cfg.vocab_size, (n,), generator=g)
+        valid[i, :n] = True
+    with torch.no_grad():
+        want = tf.forward(params, cfg, rows, kv_valid=valid,
+                          return_cache=True, cache_len=16)
+        kernels.reset_launch_counts()
+        got = tf.forward(tf.tree_to(params, dev), cfg, rows.to(dev),
+                         kv_valid=valid.to(dev), return_cache=True,
+                         cache_len=16)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+        for i, n in enumerate(plens):
+            assert torch.allclose(got.logits[i, n - 1].cpu(),
+                                  want.logits[i, n - 1], rtol=1e-4,
+                                  atol=1e-4)
+            for key in ("k", "v"):
+                assert torch.allclose(got.cache[key][:, i, :n].cpu(),
+                                      want.cache[key][:, i, :n], atol=1e-5)
+        holes = valid.clone()
+        holes[0, 3] = False
+        with pytest.raises(ValueError, match="prefix"):
+            tf.forward(tf.tree_to(params, dev), cfg, rows.to(dev),
+                       kv_valid=holes.to(dev))
+        assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+        q = torch.randn(1, 4, 5, 128, device=dev)
+        kv = torch.randn(1, 4, 1, 128, device=dev)
+        with pytest.raises(ValueError, match="masks no keys"):
+            ops.attention(q, kv, kv, kv_valid=valid[:1, :4].to(dev))
+
+
+@pytest.mark.parametrize("batch_prefill", [True, False])
+def test_batched_prefill_engine_on_card_matches_cpu(dev, batch_prefill):
+    """The deprecated batched prefill at head dim 128 (5 query heads a kv
+    head), greedy, card against CPU: equal tokens and prefill counts;
+    ``flash_attention`` launched once a layer a prefill dispatch."""
+    import warnings
+
+    from repro_torch.serve import ServeEngine
+
+    cfg = _config_d128()
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).numpy()
+               for n in (5, 7, 12, 3, 9)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = ServeEngine(bundle, params, num_blocks=32, block_size=4,
+                              max_batch=3, decode_chunk=2, temperature=0.0,
+                              chunked_prefill=False,
+                              batch_prefill=batch_prefill, device=where)
+        for i, p in enumerate(prompts):
+            eng.submit(p, 6, request_id=i)
+        kernels.reset_launch_counts()
+        out[where] = ({t.request_id: t.tokens.tolist()
+                       for t in eng.run(max_steps=200)},
+                      (eng.stats.prefills, eng.stats.prefill_dispatches,
+                       eng.stats.prefill_tokens))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["flash_attention"] == \
+                cfg.n_layers * eng.stats.prefill_dispatches
+    assert out["cuda"] == out["cpu"]
+    assert sorted(out["cpu"][0]) == list(range(len(prompts)))
+
+
 def _ssm_case(dev, dtype, b, s, i, n, state=True, seed=0):
     g = torch.Generator().manual_seed(seed)
     r = lambda *shape: torch.randn(*shape, generator=g)

@@ -46,6 +46,8 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.kernels.ssm_scan" in mods
     assert "repro_torch.metrics.aggregate" in mods
     assert "repro_torch.configs.hparams" in mods
+    assert "repro_torch.configs.qwen2_5_14b" in mods
+    assert "repro_torch.configs.codeqwen1_5_7b" in mods
     for name in ("resilience.faults", "resilience.supervision",
                  "resilience.signals", "checkpoint.checkpoint",
                  "checkpoint.codec", "runtime.controllers"):
@@ -97,6 +99,8 @@ def test_engine_without_cpu_raises_when_cuda_is_absent(monkeypatch):
     params = bundle.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServeEngine(bundle, params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(bundle, params, chunked_prefill=False)
     ServeEngine(bundle, params, device="cpu")            # asked for: fine
 
 
@@ -110,6 +114,10 @@ def test_launcher_without_cpu_raises_when_cuda_is_absent(monkeypatch):
         serve.main(["--engine", "static", "--arch", "rwkv6-1.6b"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--engine", "static", "--arch", "hymba-1.5b"])
+    for arch in ("qwen2.5-14b", "codeqwen1.5-7b"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--engine", "continuous", "--arch", arch,
+                        "--no-chunked-prefill", "--no-batch-prefill"])
     with pytest.raises(SystemExit, match="not ported"):
         serve.main(["--engine", "continuous", "--mesh", "data=2"])
 

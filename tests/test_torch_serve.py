@@ -65,7 +65,8 @@ def _serve(eng):
 class _ReplayJaxNoise:
     """Feeds the port's sampler the Gumbel noise the JAX engine draws:
     one key per dispatch off the engine's PRNG chain; a decode chunk
-    splits its key per step, a varlen round uses it whole.  A
+    splits its key per step, a varlen round and a batched prefill or
+    suffix prefill dispatch use it whole.  A
     speculative round takes two keys: the model draft's, split per
     draft step, then the verify pass's, split into the accept rule's
     uniforms and its correction's Gumbel noise."""
@@ -75,6 +76,7 @@ class _ReplayJaxNoise:
         self.keys = []
         varlen, decode = eng._varlen, eng._decode
         draft, verify = eng._draft, eng._verify
+        prefill, suffix = eng._prefill, eng._suffix
 
         def _dispatch(n):
             self.key, k = jax.random.split(self.key)
@@ -96,6 +98,14 @@ class _ReplayJaxNoise:
             _dispatch(None)
             return verify(*a)
 
+        def _prefill(*a):
+            _dispatch(None)
+            return prefill(*a)
+
+        def _suffix(*a):
+            _dispatch(None)
+            return suffix(*a)
+
         def _sample(logits):
             g = jax.random.gumbel(self.keys.pop(0), tuple(logits.shape))
             return sample(logits, temperature, top_p,
@@ -110,6 +120,7 @@ class _ReplayJaxNoise:
 
         eng._varlen, eng._decode, eng._sample = _varlen, _decode, _sample
         eng._draft, eng._verify = _draft, _verify
+        eng._prefill, eng._suffix = _prefill, _suffix
         eng._accept_noise = _accept_noise
 
 
@@ -213,8 +224,7 @@ def test_scheduler_copy_makes_reference_decisions():
     assert not any(r for _, _, r, _, _ in want[-1:])   # and drains
 
 
-@pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(chunked_prefill=False)])
+@pytest.mark.parametrize("option", [dict(mesh=object())])
 def test_unported_options_raise(weights, option):
     with pytest.raises(NotImplementedError):
         ServeEngine(build(CFG), weights[1], device="cpu", **option)

@@ -141,16 +141,59 @@ def _close_trees(got, want, tol):
         assert np.abs(g - w).max() <= tol
 
 
+@pytest.fixture(scope="module")
+def jax_rollouts():
+    """The JAX serve producer's minibatches, shared by the cases' JAX
+    trainers (see :func:`_share_jax_rollouts`)."""
+    return {}
+
+
+def _share_jax_rollouts(trainer, cache):
+    """Under forced lag 2 both minibatches of the phase are generated
+    from v0, the init every case starts from (``resolve_lagged(-2)`` at
+    versions 1 and 2), by an engine in the same state, so the JAX
+    engine's rollouts do not depend on the controller.  The first case
+    runs the JAX engine and keeps its minibatches; each later case
+    checks that its v0 is that case's and that its producer would serve
+    the same version, then takes them instead of running (and compiling)
+    the JAX engine again.  The port's engine runs in every case."""
+    regime = trainer.regime
+    v0 = [np.asarray(x) for x in jax.tree.leaves(trainer.store.get(0))]
+    if "v0" not in cache:
+        cache.update(v0=v0, minibatches=[], versions=[])
+    for a, b in zip(v0, cache["v0"], strict=True):
+        np.testing.assert_array_equal(a, b)
+    produce = regime._produce_minibatch
+    calls = []
+
+    def shared():
+        i = len(calls)
+        calls.append(i)
+        if i < len(cache["minibatches"]):
+            regime._apply_forced_lag()
+            assert int(regime.engine.version) == cache["versions"][i] == 0
+            regime._last_timeouts = 0
+            return cache["minibatches"][i]
+        mb = produce()
+        cache["minibatches"].append(mb)
+        cache["versions"].append(int(regime.engine.version))
+        return mb
+
+    regime._produce_minibatch = shared
+
+
 @pytest.mark.parametrize("controller", [
     None, "tv_gate:delta=0.05,mode=downweight"])
-def test_serve_rlvr_trainer_matches_jax(controller):
+def test_serve_rlvr_trainer_matches_jax(controller, jax_rollouts):
     """2 warmup steps, then one VACO phase of 2 minibatches produced by
     the serve engine under forced lag 2: phase logs, params, queue stats
     and store versions against the JAX trainer.  Both items come from the
     random init (v0), which earns no reward at this size, so the
     update's gradient path is held by ``test_torch_train.py``; here the
     engine's provenance, the lag, VACO's filter and the TV gate's
-    scoring are."""
+    scoring are.  The two cases' JAX trainers share the JAX engine's
+    rollouts, which under forced lag 2 do not depend on the controller
+    (``_share_jax_rollouts``)."""
     kw = dict(algorithm="grpo_vaco", n_minibatches=2, warmup_steps=2,
               controller=controller, producer="serve", forced_lag=2)
     jtr = JaxRLVRTrainer(jax_build(JCFG),
@@ -161,6 +204,7 @@ def test_serve_rlvr_trainer_matches_jax(controller):
                      params=from_jax_params(
                          jax.tree.map(np.asarray, jtr.state.params)))
     _ReplayJaxNoise(tr.engine, 2, tr.hp.temperature, 1.0)   # seed + 2
+    _share_jax_rollouts(jtr, jax_rollouts)
     assert abs(tr.warmup() - jtr.warmup()) <= 1e-4
     want, got = jtr.train_phase(), tr.train_phase()
     assert len(got) == len(want) == 2
