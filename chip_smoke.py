@@ -125,7 +125,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     windowed ragged S 300), at S 1, 63 and 65, and on the JAX sweep's
     shapes (D 8 to 64, ragged S); float32 within 2e-5 and bfloat16
     within 3e-2.  Each timed record names the instantiation that ran
-    (``impl``: ``wgmma`` for bfloat16 at D 64, ``fma`` otherwise) and
+    (``impl``: ``tf32`` for float32 and ``wgmma`` for bfloat16 at D 64
+    and 128, ``fma`` at D 8, 16 and 32) and
     takes its device time from that kernel's profiled name.  ``ssm_scan`` against
     ``ref_ssm_scan`` at hymba's prefill (B 8, S 32, I 3200, N 16, zero
     state), one decode step (S 1, carried state), B 8 x S 512 and the
@@ -364,7 +365,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
     qwen2.5-14b's batched-prefill shape (B 8 x S 32, 40 / 8 heads),
     codeqwen1.5-7b's (32 / 32), a ragged S 37 and B 1 x S 2048 global
     (operations-bound), each timed beside the plain version, SDPA (timed
-    only) and the bound, plus S 1 and windowed cases; then
+    only) and the bound, plus S 1 and windowed cases, and with the
+    logsumexp at four of them (the logsumexp within 1e-5 of
+    ``ref_attention_lse``, a bfloat16 output there within 2e-2 of max(1,
+    |plain|)); then
     ``paged_attention`` (decode), ``paged_attention_varlen`` (T 16) and
     ``paged_kv_write`` (bit-exact, directly and through
     ``ops.paged_kv_write``) at both head geometries, timed the same way;
@@ -383,7 +387,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
     never there, the chunked engine the reverse; tokens/s, TTFT, the
     batched engine's idle share over its first wave of 4 prompts (a
     profiled repeat's kernel time over an unprofiled one's wall), peak
-    memory, the parameter count.
+    memory, the parameter count.  Then one 2,048-token prompt through a
+    batched engine on the same weights (4 new tokens): ``flash_attention``
+    exactly 48 launches, the first token's untempered log-prob within
+    1e-4 of the same forward with the plain attention on the card,
+    flash's device share of that forward and the peak memory.
 38. codeqwen1.5-7b serve: full width (32 layers, d 4096, 32 / 32 heads
     of 128, vocab 92416) through the launcher's ``serve
     --no-chunked-prefill``: every request retires, ``flash_attention``
@@ -422,7 +430,10 @@ ROOT = Path(__file__).resolve().parent
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, published
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# Operations a second: float32 on the FMA pipes, bf16 tensor cores, and
+# float32 as 3xTF32 on the tensor cores (495 TFLOP/s of TF32, three
+# products each: the rate of a ``tf32`` flash row's bound).
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 H, KV, DH, BS, NB, M, B, L = 14, 2, 64, 8, 128, 32, 4, 24
 # The learner's log-prob shape: 16 prompts x 4 completions x 8 tokens
@@ -573,6 +584,8 @@ def profile_kernels(fn, complete=None, attempts: int = 6):
 
 
 def bound(nbytes: float, flops: float, dtype: str):
+    """Least ms for ``nbytes`` moved and ``flops`` done at ``dtype``'s
+    peak (a ``PEAK_FLOPS`` key), and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2100,16 +2113,39 @@ def flash_kernel_phase(torch):
     return headline
 
 
+def _sdpa_fwd(torch, q, k, v, window):
+    """The library yardstick of the flash forward, timed only: SDPA on
+    [B, H, S, D] with the kv heads repeated (not timed), causal, or with
+    the band mask when a window is given."""
+    import torch.nn.functional as F
+
+    s, hh, kk = q.shape[1], q.shape[2], k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+    i = torch.arange(s, device="cuda")
+    band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+
+
+def _flash_rate(impl: str, dname: str) -> str:
+    """The ``PEAK_FLOPS`` key of a flash instantiation's bound: 3xTF32 on
+    the tensor cores for ``tf32``, else the dtype's."""
+    return "tf32x3" if impl == "tf32" else dname
+
+
 def _flash_case(torch, dtype, case, b, s, hh, kk, d, window, timed,
                 tol=FLASH_TOL):
     """``flash_attention_cuda`` against ``ref_attention`` on one case,
     within ``tol``; a timed case also beside the plain version,
     SDPA (timed only) and its bound, emitted.  Returns ``(max_abs_err,
     record or None)``."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (FLASH_SYMBOLS,
+                                                     flash_attention_cuda,
                                                      flash_impl)
 
     dname = str(dtype).split(".")[-1]
@@ -2129,27 +2165,15 @@ def _flash_case(torch, dtype, case, b, s, hh, kk, d, window, timed,
         return err, None
     kern = lambda: flash_attention_cuda(q, k, v, window=window)
     plain = lambda: ref.ref_attention(q, k, v, window=window)
-    # Library yardstick, timed only: SDPA on [B, H, S, D] with the kv
-    # heads repeated (not timed), causal or with the band mask.
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = (x.repeat_interleave(hh // kk, dim=2).transpose(1, 2)
-              .contiguous() for x in (k, v))
-    if window is None:
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=True)
-    else:
-        i = torch.arange(s, device="cuda")
-        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                     attn_mask=band)
+    lib = _sdpa_fwd(torch, q, k, v, window)
     # q, k, v read once and out written once; 4 D operations (the two
     # products) per attended (query, key) pair and head.
     nbytes = (2 * b * s * hh * d + 2 * b * s * kk * d) * esize
     flops = 4 * d * hh * b * _attended_pairs(s, window)
-    b_ms, b_by = bound(nbytes, flops, dname)
     # The instantiation that ran, by its profiled name.
     impl = flash_impl(dtype, d)
-    symbol = "flash_kernel_wgmma" if impl == "wgmma" else "flash_kernel<"
+    symbol = FLASH_SYMBOLS[impl]
+    b_ms, b_by = bound(nbytes, flops, _flash_rate(impl, dname))
     rec = dict(phase="kernel", kernel="flash_attention", case=case,
                dtype=dname, impl=impl, B=b, S=s, H=hh, KV=kk, D=d,
                window=window, max_abs_err=err, tol=tol[dname],
@@ -4233,7 +4257,8 @@ def _flash_fwd_learner(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (FLASH_SYMBOLS,
+                                                     flash_attention_cuda,
                                                      flash_impl)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -4266,9 +4291,9 @@ def _flash_fwd_learner(torch):
             # per attended pair and head.
             nbytes = ((2 * b * s * hh * d + 2 * b * s * kk * d) * esize
                       + b * s * hh * 4)
-            b_ms, b_by = bound(nbytes, 4 * d * hh * b * _attended_pairs(
-                s, window), dname)
             impl = flash_impl(dtype, d, lse=True)
+            b_ms, b_by = bound(nbytes, 4 * d * hh * b * _attended_pairs(
+                s, window), _flash_rate(impl, dname))
             rec = dict(phase="kernel", kernel="flash_attention", case=case,
                        dtype=dname, impl=impl, B=b, S=s, H=hh, KV=kk, D=d,
                        window=window, max_abs_err=err, lse_err=lse_err,
@@ -4276,10 +4301,13 @@ def _flash_fwd_learner(torch):
                        plain_ms=time_ms(plain, iters=5, warmup=1),
                        library_ms=time_ms(lib, iters=50),
                        bound_ms=b_ms, bound_by=b_by,
-                       kernel_device_ms=device_ms(kern, "flash_kernel"),
+                       kernel_device_ms=device_ms(kern, FLASH_SYMBOLS[impl]),
                        plain_device_ms=device_ms(plain, iters=3),
                        library_device_ms=device_ms(lib, iters=5))
             emit(**rec)
+            check(rec["kernel_device_ms"] is not None,
+                  f"flash/{case}/{dname}: no {FLASH_SYMBOLS[impl]} in the "
+                  "profile")
             del qt, kt, vt
 
 
@@ -5230,6 +5258,12 @@ D128_FLASH = (  # (case, B, S, H, KV, D, window); the first four timed
     ("q14b_window", 2, 300, 40, 8, 128, 64),
     ("codeqwen_s65w", 2, 65, 32, 32, 128, 16))
 D128_TIMED = 4
+# Phase 36's logsumexp checks (case, B, S, H, KV, D, window), both dtypes.
+D128_LSE = (D128_FLASH[0], D128_FLASH[1], D128_FLASH[3], D128_FLASH[5])
+# The logsumexp's absolute tolerance in both dtypes: float32 sums of exact
+# (bfloat16) or float32-accurate (3xTF32) products against the plain
+# float32 logsumexp.
+FLASH_LSE_TOL = 1e-5
 Q14_ARGS = ["--engine", "continuous", "--arch", "qwen2.5-14b",
             "--full-width", "--device", "cuda", "--temperature", "0"]
 Q14_ENGINES = (("chunked", []), ("batched", ["--no-chunked-prefill"]),
@@ -5241,6 +5275,8 @@ CODEQWEN_ARGS = ["--engine", "continuous", "--arch", "codeqwen1.5-7b",
 # layers; a divergence of greedy tokens must sit at a top-2 log-prob gap
 # under it.
 FIRST_TOKEN_TOL = 1e-4
+# Phase 37's long prefill: one prompt of this many tokens, then a few.
+Q14_LONG, Q14_LONG_NEW = 2048, 4
 
 
 def _paged_d128(torch, dtype, geom, hh, kk):
@@ -5366,12 +5402,51 @@ def _paged_d128(torch, dtype, geom, hh, kk):
     return out
 
 
+def _flash_lse_case(torch, dtype, case, b, s, hh, kk, d, window,
+                    tol=TOL):
+    """``flash_attention_cuda(return_lse=True)`` against
+    ``ref_attention_lse`` on one case: the output within ``tol`` (in
+    bfloat16 of max(1, |plain|): each version rounds its output to
+    bfloat16 once, and one unit in the last place is 0.03125 at |out| in
+    [4, 8)), each row's logsumexp within ``FLASH_LSE_TOL``; emitted.
+    Returns the output's max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_impl)
+
+    dname = str(dtype).split(".")[-1]
+    gen = torch.Generator(device="cuda").manual_seed(s + hh + d + 1)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen,
+                           device="cuda").to(dtype)
+               for n in (hh, kk, kk))
+    out, lse = flash_attention_cuda(q, k, v, window=window, return_lse=True)
+    want, want_lse = ref.ref_attention_lse(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tag = f"flash/{case}_lse/{dname}"
+    check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+          and out.shape == want.shape and lse.shape == want_lse.shape
+          and lse.dtype == torch.float32, f"{tag}: bad output")
+    diff = (out.float() - want.float()).abs()
+    err = diff.max().item()
+    scaled = (err if dtype == torch.float32 else
+              (diff / want.float().abs().clamp(min=1.0)).max().item())
+    lse_err = (lse - want_lse).abs().max().item()
+    emit(phase="kernel", kernel="flash_attention", case=f"{case}_lse",
+         dtype=dname, impl=flash_impl(dtype, d, lse=True), B=b, S=s, H=hh,
+         KV=kk, D=d, window=window, max_abs_err=err, scaled_err=scaled,
+         tol=tol[dname], lse_err=lse_err, lse_tol=FLASH_LSE_TOL)
+    check(scaled <= tol[dname] and lse_err <= FLASH_LSE_TOL,
+          f"{tag}: out {err} (of max(1, |plain|): {scaled}), lse {lse_err}")
+    return err
+
+
 def d128_kernel_phase(torch):
     """Phase 36: ``flash_attention`` at head dim 128 (both dtypes)
     against its plain version at the batched prefill's shapes of
     qwen2.5-14b and codeqwen1.5-7b, a ragged S 37 and B 1 x S 2048 (all
-    timed), S 1 and windowed cases; the three paged kernels at both head
-    geometries.  float32 within 2e-5, bfloat16 within 2e-2."""
+    timed), S 1 and windowed cases, and with the logsumexp at four of
+    them; the three paged kernels at both head geometries.  float32
+    within 2e-5, bfloat16 within 2e-2, the logsumexp within 1e-5."""
     headline, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -5381,6 +5456,9 @@ def d128_kernel_phase(torch):
             worst[dname] = max(worst.get(dname, 0.0), err)
             if case[0] == "q14b_prefill":
                 headline[("flash_attention_d128", dname)] = rec
+        for case in D128_LSE:
+            worst[dname] = max(worst[dname],
+                               _flash_lse_case(torch, dtype, *case))
         for geom, hh, kk in D128_GEOMS:
             _paged_d128(torch, dtype, geom, hh, kk)
     for dname, err in worst.items():
@@ -5486,7 +5564,8 @@ def q14b_serve_phase(torch):
     chunked engine's top-2 log-prob gap at the step is under 1e-4; the
     first tokens' log-probs within 1e-4; ``flash_attention`` launched 48
     x the batched engines' prefill dispatches, and not by the chunked
-    engine."""
+    engine; then one 2,048-token prefill on the same weights
+    (:func:`_q14b_long_prefill`)."""
     import warnings
 
     from repro_torch.data.tokenizer import get_tokenizer
@@ -5599,9 +5678,83 @@ def q14b_serve_phase(torch):
          distinct_tokens=len(set(tokens)), near_ties=ties,
          first_token_logprob_max_abs_err=first_err,
          first_token_tol=FIRST_TOKEN_TOL, runs=runs)
+    _q14b_long_prefill(torch, launcher, parser, bundle, params, store,
+                       device)
     launches = runs["batched"]["launches"]
     del params, bundle, store
     return launches
+
+
+def _q14b_long_prefill(torch, launcher, parser, bundle, params, store,
+                       device):
+    """Phase 37's long prefill: one Q14_LONG-token prompt (ids from the
+    seed) through a batched engine over the phase's weights, Q14_LONG_NEW
+    new tokens, the launcher's greedy draws.  ``flash_attention`` launched
+    exactly once a layer (the prefill is its only caller); the first
+    token's untempered log-prob within FIRST_TOKEN_TOL of the same forward
+    with the attention replaced, here only, by ``ref.ref_attention`` on
+    the card; flash's device share of that forward and the run's peak
+    memory recorded."""
+    import warnings
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+
+    cfg = bundle.cfg
+    n_tok = Q14_LONG + Q14_LONG_NEW
+    args = parser.parse_args(Q14_ARGS + [
+        "--no-chunked-prefill", "--max-batch", "1",
+        "--num-blocks", str(-(-n_tok // 8) + 1), "--max-seq-len", str(n_tok)])
+    gen = torch.Generator().manual_seed(args.seed + 37)
+    prompt = torch.randint(3, cfg.vocab_size, (Q14_LONG,), generator=gen)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        engine = launcher.make_engine(args, bundle, params, store, device)
+    _untempered_log_beta(torch, engine)
+    engine.submit(prompt.numpy(), Q14_LONG_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    trajs, seconds = launcher.run(args, engine)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(trajs) == 1 and not engine.has_work
+          and trajs[0].num_tokens > 0,
+          f"q14b/long: {len(trajs)} requests retired")
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["paged_attention_varlen"] == 0,
+          f"q14b/long: flash launched {launches['flash_attention']} times "
+          f"for one {Q14_LONG}-token prefill of {cfg.n_layers} layers")
+    first = trajs[0]
+    row = prompt.to(device)[None]
+    saved = ops.attention
+    ops.attention = (lambda q, k, v, *, window=None, causal=True,
+                     kv_valid=None: ref.ref_attention(
+                         q, k, v, causal=causal, window=window,
+                         kv_valid=kv_valid))
+    try:
+        with torch.no_grad():
+            logits = bundle.forward(params, row).logits[0, -1].float()
+    finally:
+        ops.attention = saved
+    want = torch.log_softmax(logits, -1)[int(first.tokens[0])].item()
+    err = abs(float(first.log_beta[0]) - want)
+    del logits
+    with torch.no_grad():
+        busy, rows = profile_kernels(lambda: bundle.forward(params, row))
+    flash_ms = sum(ms for name, ms, _ in rows if "flash_kernel" in name)
+    emit(phase="q14b_long_prefill", prompt_tokens=Q14_LONG,
+         new_tokens=first.num_tokens, seconds=seconds, launches=launches,
+         first_token=int(first.tokens[0]),
+         first_token_logprob=float(first.log_beta[0]),
+         plain_attention_logprob=want, first_token_logprob_abs_err=err,
+         first_token_tol=FIRST_TOKEN_TOL, forward_device_ms=busy,
+         flash_device_ms=flash_ms, flash_share=flash_ms / busy,
+         peak_gib=peak, top_kernels=rows[:6])
+    check(err <= FIRST_TOKEN_TOL,
+          f"q14b/long: first-token log-prob {first.log_beta[0]} against "
+          f"{want} with the plain attention (|diff| {err})")
+    del engine
 
 
 def codeqwen_serve_phase(torch):
@@ -5819,7 +5972,10 @@ KERNELS = (
 
 # ---------------------------------------------------------------------------
 # Comparison mode: ``chip_smoke.py --ab SRC`` measures ``paged_kv_write``,
-# ``ssm_scan``, ``wkv6`` and ``vtrace`` as the model calls them,
+# ``ssm_scan``, ``wkv6`` and ``vtrace`` as the model calls them, the
+# ``flash_attention`` forward at the head-dim-128 serve prefills and B 1 x
+# S 2048, at hymba's learner shape with the logsumexp and at its B 1 x
+# S 2048 forward (``ab_flash_fwd``),
 # ``flash_attention_bwd``, ``ssm_scan_bwd`` and ``wkv6_bwd`` at the
 # learner shapes (``wkv6_bwd`` also at B 1 x S 2048), and the qwen,
 # hymba and rwkv6 serve paths, with the port found under SRC
@@ -5889,11 +6045,47 @@ def ab_main(src: str) -> int:
             emit(phase="ab_ssm_scan", case=case, dtype=dname, B=bb, S=s,
                  ms=time_ms(kern, iters=50),
                  device_ms=device_ms(kern, "ssm_scan_"))
+    # The flash forward at the head-dim-128 serve prefills and B 1 x
+    # S 2048, at hymba's learner shape with the logsumexp and at its B 1 x
+    # S 2048 forward (windowed and global layers), each beside SDPA's.
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, flash_impl)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for case, bb, s, hh, kk, d, window, lse in (
+                ("q14b_prefill", 8, 32, 40, 8, 128, None, False),
+                ("q14b_long", 1, 2048, 40, 8, 128, None, False),
+                ("codeqwen_prefill", 8, 32, 32, 32, 128, None, False),
+                ("hymba_learner_lse", LEARN_B, LEARN_S, HYMBA_H, HYMBA_KV,
+                 64, HYMBA_WINDOW, True),
+                ("hymba_long_local", 1, HYMBA_LONG, HYMBA_H, HYMBA_KV, 64,
+                 HYMBA_WINDOW, False),
+                ("hymba_long_global", 1, HYMBA_LONG, HYMBA_H, HYMBA_KV, 64,
+                 None, False)):
+            gen = torch.Generator(device="cuda").manual_seed(s + hh + d)
+            q, k, v = (torch.randn(bb, s, n, d, generator=gen,
+                                   device="cuda").to(dtype)
+                       for n in (hh, kk, kk))
+            kern = lambda: flash_attention_cuda(q, k, v, window=window,
+                                                return_lse=lse)
+            lib = _sdpa_fwd(torch, q, k, v, window)
+            impl = flash_impl(dtype, d, lse)
+            nbytes = ((2 * bb * s * hh * d + 2 * bb * s * kk * d) * esize
+                      + (bb * s * hh * 4 if lse else 0))
+            b_ms, b_by = bound(nbytes, 4 * d * hh * bb * _attended_pairs(
+                s, window), _flash_rate(impl, dname))
+            emit(phase="ab_flash_fwd", case=case, dtype=dname, impl=impl,
+                 B=bb, S=s, H=hh, KV=kk, D=d, window=window, lse=lse,
+                 bound_ms=b_ms, bound_by=b_by, ms=time_ms(kern, iters=50),
+                 device_ms=device_ms(kern, "flash_kernel"),
+                 library_ms=time_ms(lib, iters=50),
+                 library_device_ms=device_ms(lib, iters=5))
+            del lib
     # The two backward kernels at the learner's B 64 x S 40, and flash's
     # at hymba's B 1 x S 2048, each beside SDPA's backward (its time and
     # the kernels it runs, by device time).
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -6166,6 +6358,8 @@ def main() -> int:
             ms=h["kernel_ms"], plain_ms=h["plain_ms"],
             bound_ms=h["bound_ms"], bound_by=h["bound_by"],
             library_ms=h["library_ms"]))
+        if name.startswith("flash_attention") and "impl" in h:
+            rows[-1]["impl"] = h["impl"]   # the instantiation timed
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

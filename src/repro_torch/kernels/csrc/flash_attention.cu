@@ -1,5 +1,6 @@
 // Causal (optionally sliding-window) GQA attention over one sequence, with
-// an online softmax: the prefill attention of every layer.
+// an online softmax: the prefill attention of every layer, and the
+// forward of every learner step (with the logsumexp).
 //
 // Replaces: src/repro/kernels/flash_attention_pallas.py, flash_attention
 // (_flash_kernel), the Pallas TPU kernel whose grid is (batch, q head,
@@ -11,47 +12,80 @@
 //   s_j = (q[b,p,h] * D^-0.5) . k[b,j,g]  for keys j <= p, p - j < window
 //   out[b,p,h] = sum_j softmax(s)_j v[b,j,g]
 // q [B,S,H,D], k and v [B,S,KV,D], float32 or bfloat16; scores, softmax
-// and accumulation float32 (no TF32); out in the inputs' dtype.  The
-// running max starts at -1e30 and the denominator is clamped at 1e-30,
-// as in the Pallas kernel; masked keys contribute exactly 0.  Optionally
-// (lse != null, the forward of a step that will be differentiated) each
-// row's float32 logsumexp of its scaled scores, lse[b, p, h] = m + log l,
-// which the backward (flash_attention_bwd.cu) recomputes P from.
+// and accumulation float32 (float32 inputs to float32 accuracy); out in the
+// inputs' dtype.  The running max starts at -1e30 and the denominator is
+// clamped at 1e-30, as in the Pallas kernel; masked keys contribute
+// exactly 0.  Optionally (lse != null, the forward of a step that will be
+// differentiated) each row's float32 logsumexp of its scaled scores,
+// lse[b, p, h] = m + log l, which the backward (flash_attention_bwd.cu)
+// recomputes P from.
 //
-// What bounds it on an H100: operations at long S (4 D flops per
-// attended (query, key) pair; 13.4 GFLOP for one hymba layer at S 2048,
-// 0.20 ms at the float32 peak of 67 TFLOP/s), bytes at the serve prefill
-// (B 8, S 32: 3.9 MB, 1.2 us at 3.35 TB/s).  This design runs the
-// products on the FMA pipes from shared memory (one shared load per two
-// FMAs), so at best about half the float32 peak.
+// What bounds it on an H100: operations at long S (4 D flops per attended
+// (query, key) pair; 13.4 GFLOP for one hymba layer at S 2048, 42.9 GFLOP
+// for one qwen2.5-14b layer at D 128), bytes at the serve prefill (B 8,
+// S 32: 3.9 MB, 1.2 us at 3.35 TB/s).  Both products run on the tensor
+// cores at D 64 and 128.
 //
-// Two instantiations, chosen by the launcher from dtype and head dim
-// alone: bfloat16 at D = 64 takes flash_kernel_wgmma
-// (flash_attention_wgmma.cuh: tensor cores fed by TMA); float32, and
-// bfloat16 at D 8, 16, 32 and 128, take flash_kernel below.  A call that asks
-// for the logsumexp takes flash_kernel at every dtype and head dim (the
-// wgmma kernel writes none), so the serve path's wgmma kernel is as it was.
+// Three instantiations, chosen by the launcher from dtype and head dim
+// alone (with or without the logsumexp):
+//   float32 at D 64 and 128  -> flash_kernel_tf32 below: 3xTF32 mma.sync
+//                               (mma_tf32.cuh), 495 / 3 TFLOP/s at best;
+//   bfloat16 at D 64 and 128 -> flash_kernel_wgmma
+//                               (flash_attention_wgmma.cuh: wgmma + TMA);
+//   D 8, 16 and 32           -> flash_kernel below: float32 FMA from
+//                               shared memory (the JAX sweep's head dims;
+//                               no model the port runs uses them).
+// A call routes by these alone: nothing falls back to another
+// instantiation when one fails to build or launch.
 //
-// Design: GQA packing.  The G = H / KV query heads of a kv head are
-// adjacent in memory at each position, so the rows (position, head) of
-// one kv head form an S*G x D matrix with row r at position r / G.  One
-// block of 256 threads takes 64 such rows of one (b, kv head): its Q tile
-// (scaled, float32) is loaded once, then K/V tiles of 64 keys are staged
-// in shared memory once and used by every query head of the tile (each
-// thread's loads of a tile unrolled and 4 elements wide, so they are in
-// flight together).  The key tiles run from the first key any row of the
-// tile can reach (the window's start) to the last (the causal edge);
-// tiles wholly outside are never loaded.  Thread (ty, tx) of a 16 x 16 grid owns rows
-// 4 ty .. 4 ty + 3, keys tx + 16 c of the score tile, and dims tx + 16 c
-// of the output rows: scores in registers, row max and sum reduced over
-// the 16 lanes of a half-warp by shuffles, probabilities staged through
-// shared memory for the value product, the accumulator in registers.
-// Ragged S and rows past S * G are bounds-checked; nothing is padded.
-// D is 8, 16, 32, 64 or 128.  At D 128 a block's shared memory is
-// 116,992 B (Q, K, V and P tiles of 64 rows, padded), so one block fits
-// an SM, and the accumulator is 32 floats a thread.  The windowed and
-// global forms are separate instantiations (kWindow), so a profile tells
-// them apart.
+// Design, tf32: GQA packing.  The G = H / KV query heads of a kv head are
+// adjacent in memory at each position, so the rows (position, head) of one
+// kv head form an S*G x D matrix with row r at position r / G.  One block
+// of 4 warps takes 64 such rows of one (b, kv head), 16 a warp (one mma
+// row tile); row tiles are issued last first, so the heaviest causal
+// blocks start first.  Its Q tile is loaded once, scaled by D^-0.5 in
+// float32 as the plain version scales it, into shared memory (split into
+// tf32 hi / lo at each fragment read: hi / lo kept in shared memory would
+// take another block's worth of it, kept in registers 128 a thread at
+// D 128).  K/V tiles of 32 keys arrive by cp.async in a 2-stage ring, the
+// next in flight while this one is used, and serve every query head of
+// the tile; tiles wholly outside the causal band or the window are never
+// loaded, and a warp skips the tiles none of its rows sees.  Per tile and
+// warp:
+//   S = Q K^T: 3xTF32 mma.m16n8k8 over D, in 64-dim chunks each summed from
+//     zero and added with a rounded float32 add (the tensor cores' own
+//     accumulation, chained over many products, drifts past float32
+//     rounding).  Within an 8-dim k-step, fragment slot t4 takes dim 2 t4
+//     and slot t4 + 4 dim 2 t4 + 1 (any order of the summed index is the
+//     same product), so each Q and K fragment is one float2 read;
+//   the online softmax on the accumulator fragment (a row spans a quad,
+//     two shuffles; ex2 on the SFU), masks only on tiles that cross the
+//     causal edge or the window's start;
+//   O += P V: the score accumulator is P's A fragment as it stands, no
+//     re-layout through shared memory: with the 8 keys of a k-step ordered
+//     so that slot t4 is key 2 t4 and slot t4 + 4 key 2 t4 + 1, the four
+//     values a lane holds (rows g8, g8 + 8; keys 2 t4, 2 t4 + 1) are exactly
+//     its A fragment, and the V fragment is read in the same key order.
+//     Each 8-dim output tile's product over the tile's keys starts from
+//     zero and is added into O with o = o * alpha + part (one rounded FMA).
+// Row pitches of D + 8 (Q, K) and D + 4 (V) floats put a half-warp's
+// float2 reads and a warp's V reads on 32 distinct banks.  A block takes
+// 54,272 B of shared memory at D 64 (127 registers: four blocks an SM) and
+// 103,424 B at D 128 (252 registers: two).  32-key tiles rather than 64
+// keep four blocks on an SM at D 64 (the learner's and the serve
+// prefill's short rows gain most); capping D 128 at 168 registers for a
+// third block spills and runs slower.  Rows past S * G and keys past S
+// are masked; nothing is padded in memory.
+//
+// Design, fma (D 8, 16, 32): the same packing, one block of 256 threads a
+// 64-row tile; K/V tiles of 64 keys staged in shared memory; thread
+// (ty, tx) of a 16 x 16 grid owns rows 4 ty .. 4 ty + 3, keys tx + 16 c of
+// the score tile, and dims tx + 16 c of the output rows: scores in
+// registers, row max and sum reduced over the 16 lanes of a half-warp,
+// probabilities staged through shared memory for the value product.
+//
+// The windowed and global forms are separate instantiations (kWindow), so
+// a profile tells them apart.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,6 +93,7 @@
 #include <type_traits>
 
 #include "flash_attention_wgmma.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -90,6 +125,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 template <int D>
 struct Layout {
+  static_assert(D <= 32, "D 64 and 128 take the tensor-core kernels");
   static constexpr int kQ = D + 4;       // row strides in floats, padded
   static constexpr int kK = D + 1;       // against bank conflicts
   static constexpr int kP = kKeys + 4;
@@ -295,10 +331,317 @@ cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
                              scale, stream);
 }
 
+// ---------------------------------------------------------------------------
+// float32 at D 64 and 128: 3xTF32 tensor-core products.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using tf32::cp_async16;
+using tf32::cp_async_commit;
+using tf32::cp_async_wait;
+using tf32::split;
+using wg::ex2;   // 2^x on the SFU
+
+constexpr int kThreads = 128;   // 4 warps of 16 rows
+constexpr int kRows = 64;       // (position, head) rows per block
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Layout {
+  static_assert(D == 64 || D == 128, "the tf32 kernel takes D 64 or 128");
+  static constexpr int kKeys = 32;   // keys a K/V tile
+  static constexpr int kQK = D + 8;   // Q and K row pitch (floats)
+  static constexpr int kV = D + 4;    // V row pitch
+  static constexpr int kKT = kKeys / 8;   // 8-key steps (score n-tiles)
+  static constexpr int kNT = D / 8;       // 8-dim output tiles
+  static constexpr int kQFloats = kRows * kQK;
+  static constexpr int kKFloats = kKeys * kQK;   // one stage
+  static constexpr int kVFloats = kKeys * kV;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kQFloats + 2 * (kKFloats + kVFloats));
+};
+
+// Fragment layout of mma.m16n8k8 (lane: g8 = lane / 4, t4 = lane % 4): the
+// accumulator d[0], d[1] at row g8, columns 2 t4, 2 t4 + 1; d[2], d[3] at
+// row g8 + 8.  Warp w holds the block's rows 16 w .. 16 w + 15.
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(kThreads)
+flash_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ lse, int seq, int n_heads, int n_kv,
+                  int window, float scale) {
+  using L = Layout<D>;
+  constexpr int kKeys = L::kKeys;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                        // [kRows][kQK]
+  float* s_k = s_q + L::kQFloats;           // [2][kKeys][kQK]
+  float* s_v = s_k + 2 * L::kKFloats;       // [2][kKeys][kV]
+
+  const int group = n_heads / n_kv;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int n_rows = seq * group;           // rows of this (b, kv head)
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // heaviest first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const size_t kv_row = (size_t)n_kv * D;   // one position of k, v
+  const size_t kv_base = (size_t)b * seq * kv_row + (size_t)kvh * D;
+
+  // Keys any row of this block can reach: [first, last].
+  const int last = (min(r0 + kRows, n_rows) - 1) / group;
+  const int first = kWindow ? max(0, r0 / group - window + 1) : 0;
+  const int t0 = first / kKeys, n_tiles = last / kKeys - t0 + 1;
+
+  // Tile it of the walk into ring stage it % 2; keys past S zero-filled.
+  auto stage = [&](int it) {
+    const int k0 = (t0 + it) * kKeys;
+    float* sk = s_k + (it & 1) * L::kKFloats;
+    float* sv = s_v + (it & 1) * L::kVFloats;
+#pragma unroll
+    for (int i = 0; i < kKeys * D / 4 / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int j = e / (D / 4), c = (e % (D / 4)) * 4;
+      const bool ok = k0 + j < seq;
+      const size_t at = kv_base + (size_t)(ok ? k0 + j : 0) * kv_row + c;
+      cp_async16(sk + j * L::kQK + c, k + at, ok ? 16 : 0);
+      cp_async16(sv + j * L::kV + c, v + at, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  stage(0);
+
+  // Q, scaled in float32 (as the plain version scales it); rows past
+  // S * G zero.  Row r sits at position r / group, query head
+  // kvh * group + r % group.
+  {
+    constexpr int kLoads = kRows * D / 4 / kThreads;
+    float4 x[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = r0 + e / (D / 4), c = (e % (D / 4)) * 4;
+      x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n_rows)
+        x[i] = *reinterpret_cast<const float4*>(
+            q + (((size_t)b * seq + r / group) * n_heads + kvh * group +
+                 r % group) * D + c);
+    }
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = tid + i * kThreads;
+      *reinterpret_cast<float4*>(s_q + (e / (D / 4)) * L::kQK +
+                                 (e % (D / 4)) * 4) =
+          make_float4(x[i].x * scale, x[i].y * scale, x[i].z * scale,
+                      x[i].w * scale);
+    }
+  }
+
+  // This warp's rows: positions [w_lo, w_hi]; a row past S * G has
+  // position -1 and attends nothing.
+  const int wr0 = r0 + 16 * warp;
+  const bool warp_live = wr0 < n_rows;
+  const int w_lo = wr0 / group;
+  const int w_hi = (min(wr0 + 16, n_rows) - 1) / group;
+  int pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g8 + 8 * h;
+    pos[h] = r < n_rows ? r / group : -1;
+  }
+  float o[L::kNT][4], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < L::kNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  const float* wq = s_q + 16 * warp * L::kQK;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile it (and, the first time, Q) is in
+    const int k0 = (t0 + it) * kKeys;
+    // Does any row of the warp see a key of the tile?
+    if (warp_live && k0 <= w_hi &&
+        (!kWindow || k0 + kKeys - 1 > w_lo - window)) {
+      const float* sk = s_k + (it & 1) * L::kKFloats;
+      const float* sv = s_v + (it & 1) * L::kVFloats;
+
+      // S = Q K^T in 64-dim chunks, each from zero.
+      float s[L::kKT][4];
+#pragma unroll
+      for (int j = 0; j < L::kKT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int c0 = 0; c0 < D; c0 += 64) {
+        float part[L::kKT][4];
+#pragma unroll
+        for (int j = 0; j < L::kKT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+        for (int d0 = c0; d0 < c0 + 64; d0 += 8) {
+          // Slot t4 is dim d0 + 2 t4, slot t4 + 4 dim d0 + 2 t4 + 1.
+          const float2 x0 = *reinterpret_cast<const float2*>(
+              wq + g8 * L::kQK + d0 + 2 * t4);
+          const float2 x1 = *reinterpret_cast<const float2*>(
+              wq + (g8 + 8) * L::kQK + d0 + 2 * t4);
+          tf32::Frag a;
+          split(x0.x, a.hi[0], a.lo[0]);
+          split(x1.x, a.hi[1], a.lo[1]);
+          split(x0.y, a.hi[2], a.lo[2]);
+          split(x1.y, a.hi[3], a.lo[3]);
+#pragma unroll
+          for (int j = 0; j < L::kKT; ++j) {
+            const float2 y = *reinterpret_cast<const float2*>(
+                sk + (8 * j + g8) * L::kQK + d0 + 2 * t4);
+            tf32::FragB bf;
+            split(y.x, bf.hi[0], bf.lo[0]);
+            split(y.y, bf.hi[1], bf.lo[1]);
+            tf32::mma3(part[j], a, bf);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < L::kKT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
+      }
+
+      // Online softmax.  Masks only where the tile crosses the causal edge
+      // (a key past the warp's first position) or the window's start (a
+      // key too old for its newest).
+      const bool edge =
+          k0 + kKeys - 1 > w_lo || (kWindow && k0 <= w_hi - window);
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -1e30f;
+#pragma unroll
+        for (int j = 0; j < L::kKT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = s[j][2 * h + c];
+            if (edge) {
+              const int key = k0 + 8 * j + 2 * t4 + c;
+              const bool ok =
+                  key <= pos[h] && (!kWindow || pos[h] - key < window);
+              x = ok ? x : -INFINITY;
+            }
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        alpha[h] = ex2((m[h] - m_new) * kLog2e);
+        const float ml = m_new * kLog2e;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < L::kKT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = s[j][2 * h + c];
+            x = ex2(fmaf(x, kLog2e, -ml));   // masked: ex2(-inf) = 0
+            sum += x;
+          }
+        l[h] = l[h] * alpha[h] + sum;   // this lane's share; summed at the end
+        m[h] = m_new;
+      }
+
+      // O = O alpha + P V.  Key step j (keys k0 + 8 j ..): slot t4 is key
+      // 8 j + 2 t4, slot t4 + 4 key 8 j + 2 t4 + 1, so P's A fragment is the
+      // lane's own accumulator values.
+      tf32::Frag pa[L::kKT];
+#pragma unroll
+      for (int j = 0; j < L::kKT; ++j) {
+        split(s[j][0], pa[j].hi[0], pa[j].lo[0]);
+        split(s[j][2], pa[j].hi[1], pa[j].lo[1]);
+        split(s[j][1], pa[j].hi[2], pa[j].lo[2]);
+        split(s[j][3], pa[j].hi[3], pa[j].lo[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < L::kNT; ++nt) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < L::kKT; ++j) {
+          const float* vp = sv + (8 * j + 2 * t4) * L::kV + 8 * nt + g8;
+          tf32::FragB bf;
+          split(vp[0], bf.hi[0], bf.lo[0]);
+          split(vp[L::kV], bf.hi[1], bf.lo[1]);
+          tf32::mma3(part, pa[j], bf);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[nt][e] = fmaf(o[nt][e], alpha[e / 2], part[e]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (pos[h] < 0) continue;
+    const int r = wr0 + g8 + 8 * h;
+    const float l_safe = fmaxf(sum, 1e-30f);
+    const float inv = 1.f / l_safe;
+    const size_t head_row =
+        ((size_t)b * seq + pos[h]) * n_heads + kvh * group + r % group;
+    float* row = out + head_row * D;
+#pragma unroll
+    for (int nt = 0; nt < L::kNT; ++nt)
+      *reinterpret_cast<float2*>(row + 8 * nt + 2 * t4) =
+          make_float2(o[nt][2 * h] * inv, o[nt][2 * h + 1] * inv);
+    if (lse != nullptr && t4 == 0) lse[head_row] = m[h] + logf(l_safe);
+  }
+}
+
+template <int D, bool kWindow>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int batch, int seq, int n_heads, int n_kv,
+                   int window, float scale, cudaStream_t stream) {
+  auto kernel = flash_kernel_tf32<D, kWindow>;
+  constexpr size_t bytes = Layout<D>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(   // once
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  const long long rows = (long long)seq * (n_heads / n_kv);
+  const long long tiles = (rows + kRows - 1) / kRows;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, n_kv, batch);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, seq,
+      n_heads, n_kv, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int batch, int seq, int n_heads, int n_kv,
+                     int window, float scale, cudaStream_t stream) {
+  if (window > 0)
+    return launch<D, true>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                           window, scale, stream);
+  return launch<D, false>(q, k, v, out, lse, batch, seq, n_heads, n_kv, 0,
+                          scale, stream);
+}
+
+}  // namespace tc
+
+// The instantiation by dtype and head dim alone: fma at D 8, 16 and 32;
+// tf32 (float32) or wgmma (bfloat16) at D 64 and 128.
 template <typename T>
 cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
                      void* out, float* lse, int batch, int seq, int n_heads,
                      int n_kv, int window, float scale, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   switch (dim) {
     case 8:
       return launch_w<T, 8>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
@@ -310,16 +653,19 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
       return launch_w<T, 32>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
                              window, scale, stream);
     case 64:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        if (lse == nullptr)
-          return wg::launch_w(q, k, v, out, batch, seq, n_heads, n_kv, window,
-                              scale, stream);
-      }
-      return launch_w<T, 64>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
-                             window, scale, stream);
+      if constexpr (kBf16)
+        return wg::launch_w<64>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                                window, scale, stream);
+      else
+        return tc::launch_w<64>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                                window, scale, stream);
     case 128:
-      return launch_w<T, 128>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
-                              window, scale, stream);
+      if constexpr (kBf16)
+        return wg::launch_w<128>(q, k, v, out, lse, batch, seq, n_heads,
+                                 n_kv, window, scale, stream);
+      else
+        return tc::launch_w<128>(q, k, v, out, lse, batch, seq, n_heads,
+                                 n_kv, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -329,8 +675,8 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
 
 // q [B, S, H, D], k and v [B, S, KV, D]: contiguous, one dtype (0 =
 // float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64, 128};
-// bfloat16 at D 64 without lse (flash_kernel_wgmma) also needs q, k, v
-// 16-byte aligned and H / KV <= 64.  window > 0 limits each query to the
+// at D 64 and 128 q, k, v 16-byte aligned, and bfloat16 there
+// (flash_kernel_wgmma) H / KV <= 64.  window > 0 limits each query to the
 // keys p - window < j <= p; 0 is global causal attention.  out [B, S, H, D]
 // in the inputs' dtype is written, and lse [B, S, H] float32 unless it is
 // null.  Returns the cudaError_t of the launch.

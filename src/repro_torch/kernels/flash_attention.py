@@ -12,15 +12,18 @@ forward-only).  The plain versions are ``kernels.ref.ref_attention``,
 backward kernel on CUDA tensors, and the plain versions on CPU tensors,
 so the CPU tests drive the same forward/backward wiring the card runs.
 
-Two instantiations of the forward, chosen by the C launcher from dtype,
-head dim and whether the logsumexp is asked for (:func:`flash_impl`
-names the one a call takes): bfloat16 at D 64 without it (every model
-the port serves) takes ``wgmma``, tensor cores fed by TMA
-(``flash_kernel_wgmma``); float32 at any head dim, bfloat16 at D 8, 16
-and 32, both dtypes at D 128, and every forward that keeps the
-logsumexp for a backward take ``fma``, float32 FMA from shared memory
-(``flash_kernel``).  The backward has no D-128 path: a gradient at head
-dim 128 raises ``ValueError`` on the card before anything launches.
+Three instantiations of the forward, chosen by the C launcher from
+dtype and head dim alone, with or without the logsumexp
+(:func:`flash_impl` names the one a call takes; :data:`FLASH_SYMBOLS`
+the kernel each shows in a profile): float32 at D 64 and 128 takes
+``tf32``, both products on the tensor cores in 3xTF32 (float32 accuracy;
+``flash_kernel_tf32``); bfloat16 at D 64 and 128 takes ``wgmma``, tensor
+cores fed by TMA (``flash_kernel_wgmma``); D 8, 16 and 32 take ``fma``,
+float32 FMA from shared memory (``flash_kernel``).  Every one writes the
+logsumexp when asked.  A failure to build or launch raises: nothing
+routes a CUDA tensor to another instantiation or to the plain version.
+The backward has no D-128 path: a gradient at head dim 128 raises
+``ValueError`` on the card before anything launches.
 
 The backward runs its products on the tensor cores (3xTF32 for float32,
 bfloat16 ``mma`` for bfloat16) on one of two paths, picked by the
@@ -43,7 +46,12 @@ from repro_torch.kernels.build import Kernel, load
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)     # the forward
 _BWD_HEAD_DIMS = (8, 16, 32, 64)      # the backward: no D-128 path yet
+_TC_HEAD_DIMS = (64, 128)             # the tensor-core instantiations
 _WGMMA_MAX_GROUP = 64   # query heads per kv head: one 64-row wgmma tile
+# The kernel each instantiation shows in a profile (a substring of its
+# demangled name).
+FLASH_SYMBOLS = {"tf32": "flash_kernel_tf32<", "wgmma": "flash_kernel_wgmma<",
+                 "fma": "flash_kernel<"}
 
 # q, k, v, out, lse | B S H KV D window dtype | scale | stream
 KERNEL = Kernel("flash_attention",
@@ -55,11 +63,13 @@ BWD_KERNEL = Kernel("flash_attention_bwd",
 
 
 def flash_impl(dtype: torch.dtype, head_dim: int, lse: bool = False) -> str:
-    """The instantiation the launcher takes for these inputs:
-    ``"wgmma"`` for bfloat16 at head dim 64 without the logsumexp,
-    ``"fma"`` otherwise."""
-    return ("wgmma" if dtype == torch.bfloat16 and head_dim == 64
-            and not lse else "fma")
+    """The instantiation the launcher takes for these inputs, by dtype
+    and head dim alone (``lse``, whether the logsumexp is asked for, does
+    not change it): ``"tf32"`` for float32 at head dim 64 or 128,
+    ``"wgmma"`` for bfloat16 there, ``"fma"`` at 8, 16 and 32."""
+    if head_dim in _TC_HEAD_DIMS:
+        return "tf32" if dtype == torch.float32 else "wgmma"
+    return "fma"
 
 
 def flash_bwd_scratch_floats(dtype: torch.dtype, batch: int, seq: int,
@@ -144,20 +154,20 @@ def flash_attention_cuda(
     multiple of KV and D in {8, 16, 32, 64, 128}.  ``return_lse`` also
     returns each row's float32 logsumexp ``[B, S, H]`` (what the
     backward needs): ``(out, lse)``.  The instantiation is
-    ``flash_impl(q.dtype, D, return_lse)``; ``wgmma`` also needs
-    H / KV <= 64 and 16-byte aligned inputs."""
+    ``flash_impl(q.dtype, D)``; at D 64 and 128 q, k, v must be 16-byte
+    aligned (``cp.async`` / TMA), and ``wgmma`` takes H / KV <= 64."""
     name = KERNEL.name
     _check(name, q, k, v, window)
     b, s, h, d = q.shape
     kv = k.shape[2]
-    if flash_impl(q.dtype, d, return_lse) == "wgmma":
-        if h // kv > _WGMMA_MAX_GROUP:
-            raise ValueError(f"{name}: bfloat16 at D 64 takes at most "
-                             f"{_WGMMA_MAX_GROUP} query heads per kv head, "
-                             f"got {h // kv}")
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError(f"{name}: the wgmma path's TMA needs q, k, v "
-                             "16-byte aligned")
+    impl = flash_impl(q.dtype, d)
+    if impl == "wgmma" and h // kv > _WGMMA_MAX_GROUP:
+        raise ValueError(f"{name}: bfloat16 at D {d} takes at most "
+                         f"{_WGMMA_MAX_GROUP} query heads per kv head, "
+                         f"got {h // kv}")
+    if impl != "fma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the {impl} path's copies need q, k, v "
+                         "16-byte aligned")
     out = torch.empty_like(q)
     lse = (torch.empty((b, s, h), dtype=torch.float32, device=q.device)
            if return_lse else None)

@@ -571,14 +571,20 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, tol, b, s, h, kv,
 
 
 @pytest.mark.parametrize("dtype,d,symbol", [
-    (torch.bfloat16, 64, "flash_kernel_wgmma<"),
-    (torch.float32, 64, "flash_kernel<float, 64"),
-    (torch.bfloat16, 32, "flash_kernel<__nv_bfloat16, 32")])
+    (torch.bfloat16, 64, "flash_kernel_wgmma<64"),
+    (torch.float32, 64, "flash_kernel_tf32<64"),
+    (torch.bfloat16, 32, "flash_kernel<__nv_bfloat16, 32"),
+    (torch.bfloat16, 128, "flash_kernel_wgmma<128"),
+    (torch.float32, 128, "flash_kernel_tf32<128")])
 def test_flash_attention_instantiation_follows_dtype_and_head_dim(dev, dtype,
                                                                  d, symbol):
+    """The kernel a forward runs, with and without the logsumexp, is the
+    one ``flash_impl`` names (``FLASH_SYMBOLS``), by dtype and head dim
+    alone."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (FLASH_SYMBOLS,
+                                                     flash_attention_cuda,
                                                      flash_impl)
 
     q, k, v = _flash_case(dev, dtype, 2, 40, 14, 2, d)
@@ -586,10 +592,12 @@ def test_flash_attention_instantiation_follows_dtype_and_head_dim(dev, dtype,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         flash_attention_cuda(q, k, v, window=9)
+        flash_attention_cuda(q, k, v, window=9, return_lse=True)
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if "flash_kernel" in e.key]
     assert len(names) == 1 and symbol in names[0], names
-    assert flash_impl(dtype, d) == ("wgmma" if "wgmma" in symbol else "fma")
+    assert symbol.startswith(FLASH_SYMBOLS[flash_impl(dtype, d)])
+    assert flash_impl(dtype, d, lse=True) == flash_impl(dtype, d)
 
 
 def test_flash_attention_dispatch_and_refusals(dev):
@@ -639,7 +647,8 @@ def test_flash_attention_kernel_at_head_dim_128_matches_plain(dev, dtype, tol,
                                                               b, s, h, kv,
                                                               window):
     """qwen2.5-14b's (40 / 8) and codeqwen1.5-7b's (32 / 32) heads of 128:
-    the FMA instantiation in both dtypes."""
+    the tensor-core instantiations, ``tf32`` in float32 and ``wgmma`` in
+    bfloat16."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_impl)
 
@@ -648,10 +657,42 @@ def test_flash_attention_kernel_at_head_dim_128_matches_plain(dev, dtype, tol,
     got = flash_attention_cuda(q, k, v, window=window)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention"] == 1
-    assert flash_impl(dtype, 128) == "fma"
+    assert flash_impl(dtype, 128) == ("tf32" if dtype == torch.float32
+                                      else "wgmma")
     want = ref.ref_attention(q, k, v, window=window)
     assert got.dtype == dtype and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,d,window", [
+    (8, 32, 40, 8, 128, None), (2, 300, 40, 8, 128, 64),
+    (2, 65, 32, 32, 128, 16), (1, 2048, 40, 8, 128, None),
+    (64, 40, 25, 5, 64, 1024), (64, 40, 14, 2, 64, None),
+    (1, 1100, 25, 5, 64, 1024), (2, 1, 14, 2, 64, None)])
+def test_flash_attention_lse_matches_plain(dev, dtype, tol, b, s, h, kv, d,
+                                           window):
+    """``return_lse=True`` from the tensor-core instantiations (D 64 and
+    128, both dtypes) against ``ref_attention_lse``: the output within
+    ``tol`` (in bfloat16 of max(1, |plain|): each version rounds its
+    output to bfloat16 once, one unit in the last place at |out| in
+    [4, 8) being 0.03125), each row's float32 logsumexp within 1e-5."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _flash_case(dev, dtype, b, s, h, kv, d, seed=s + h + 1)
+    kernels.reset_launch_counts()
+    out, lse = flash_attention_cuda(q, k, v, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    want, want_lse = ref.ref_attention_lse(q, k, v, window=window)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert lse.shape == (b, s, h) and want_lse.shape == lse.shape
+    diff = (out.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        diff = diff / want.float().abs().clamp(min=1.0)
+    assert diff.max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-5
 
 
 def test_flash_attention_refuses_a_gradient_at_head_dim_128(dev):

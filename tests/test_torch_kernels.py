@@ -223,17 +223,21 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                             layer=0)
 
 
+@pytest.mark.parametrize("lse", [False, True])
 @pytest.mark.parametrize("dtype,d,impl", [
-    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "fma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "tf32"),
     (torch.bfloat16, 32, "fma"), (torch.bfloat16, 8, "fma"),
-    (torch.float32, 16, "fma")])
+    (torch.float32, 16, "fma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 128, "tf32"), (torch.float32, 32, "fma")])
 def test_flash_instantiation_depends_on_dtype_and_head_dim_alone(dtype, d,
-                                                                 impl):
-    """bfloat16 at D 64 takes the tensor-core path, everything else the
-    FMA kernel, whatever the other shapes."""
-    from repro_torch.kernels.flash_attention import flash_impl
+                                                                 impl, lse):
+    """Both dtypes at D 64 and 128 take a tensor-core path (float32
+    ``tf32``, bfloat16 ``wgmma``), D 8, 16 and 32 the FMA kernel, with
+    or without the logsumexp, whatever the other shapes."""
+    from repro_torch.kernels.flash_attention import FLASH_SYMBOLS, flash_impl
 
-    assert flash_impl(dtype, d) == impl
+    assert flash_impl(dtype, d, lse) == impl
+    assert impl in FLASH_SYMBOLS
 
 
 @pytest.mark.parametrize("mask_dtype", ["bool", "int32"])
