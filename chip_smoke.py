@@ -404,18 +404,47 @@ Phases, each printing one JSON line (any failure exits non-zero):
     the same noise: equal tokens and prefill counts, log_beta within
     1e-4, pools within 1e-5 of their largest magnitude.
 
+40. head dim 256: ``flash_attention`` (``flash_kernel_d256``) against
+    ``ref_attention`` at gemma3-12b's batched-prefill shape (B 8 x S
+    32, 16 / 8 heads) and B 1 x S 2048 global and with a window of 1024
+    (timed beside the plain version, SDPA and the bound), S 1, ragged
+    and windowed cases, the logsumexp at three of them; then
+    ``paged_attention`` at contexts 45/17/64/33 and past a window of
+    1024, ``paged_attention_varlen`` at T 16 near and past it, and
+    ``paged_kv_write`` (4 rows, KV 8, bit-exact); float32 within 2e-5,
+    bfloat16 within 2e-2 (the paged kernels' of max(1, |plain|)).
+41. gemma3-12b serve: full width (48 layers, d 3840, 16 / 8 heads of
+    256, d_ff 15360, vocab 262144, softcap 30, window 1024 on five
+    layers of six, 11.77 B params, seeded random init, float32) with
+    the launcher's defaults through the chunked, batched and unbatched
+    continuous engines and the static engine, then one 2,048-token
+    prompt through the chunked and batched engines (16 new tokens past
+    position 1,024).  Each run against the same run with the plain
+    attention on the card: equal greedy tokens but at a top-2 log-prob
+    gap under 1e-4, first-token log-probs within 1e-4; launches (flash
+    48 a batched prefill dispatch), peak memory, the batched engine's
+    idle share, flash's share of the long prefill.
+42. gemma3 parity: the reduced gemma3-12b at head dim 256, dense
+    weights x3, ``cpu`` against ``cuda``: 32-token prompts, 16 new
+    tokens (past the window of 16) through the chunked and batched
+    engines and the static ``generate``: equal greedy tokens, log_beta
+    within 1e-4.
+
 Then one JSON line of every phase's wall seconds and the total, one of
 every kernel's numbers (``paged_attention_multi``'s launches are phase
 27's first run's; the hymba backward kernels' phase 31's, ``wkv6_bwd``'s
 phase 34's; ``flash_attention_d128`` is ``flash_attention`` at head dim
 128, its numbers phase 36's at qwen2.5-14b's prefill shape, its
-launches phase 37's batched engine's), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.
+launches phase 37's batched engine's; the ``_d256`` rows are the three
+attention kernels at head dim 256, their numbers phase 40's, their
+launches phase 41's runs with the kernels together), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import gc
 import json
 import math
@@ -596,10 +625,10 @@ def bound(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 
 
-def _tables(gen, lens, torch):
-    """Distinct pages per slot drawn from 1..NB-1; pads are page 0."""
-    perm = torch.randperm(NB - 1, generator=gen)[: B * M] + 1
-    tables = torch.zeros(B, M, dtype=torch.int32)
+def _tables(gen, lens, torch, nb=NB, m=M):
+    """Distinct pages per slot drawn from 1..nb-1; pads are page 0."""
+    perm = torch.randperm(nb - 1, generator=gen)[: B * m] + 1
+    tables = torch.zeros(B, m, dtype=torch.int32)
     nxt = 0
     for b, ctx in enumerate(lens):
         n = -(-int(ctx) // BS)
@@ -2133,8 +2162,10 @@ def _sdpa_fwd(torch, q, k, v, window):
 
 def _flash_rate(impl: str, dname: str) -> str:
     """The ``PEAK_FLOPS`` key of a flash instantiation's bound: 3xTF32 on
-    the tensor cores for ``tf32``, else the dtype's."""
-    return "tf32x3" if impl == "tf32" else dname
+    the tensor cores for ``tf32`` and float32 ``d256``, else the
+    dtype's."""
+    return "tf32x3" if impl == "tf32" or (impl == "d256"
+                                          and dname == "float32") else dname
 
 
 def _flash_case(torch, dtype, case, b, s, hh, kk, d, window, timed,
@@ -5279,12 +5310,23 @@ FIRST_TOKEN_TOL = 1e-4
 Q14_LONG, Q14_LONG_NEW = 2048, 4
 
 
-def _paged_d128(torch, dtype, geom, hh, kk):
-    """The three paged kernels at head dim 128 and ``hh`` / ``kk`` heads
-    against their plain versions (decode at contexts 45/17/64/33, a
-    varlen round of T 16, a decode step's K/V rows, bit-exact also
-    through ``ops.paged_kv_write``), each timed beside its plain version,
-    a library call and its bound; returns the records by kernel."""
+# Phase 36's paged cases: (case, row_start (None: decode), lengths,
+# window, timed).
+D128_PAGED = (("decode", None, [45, 17, 64, 33], None, True),
+              ("varlen_t16", [40, 16, 0, 9], [1, 16, 7, 0], None, True))
+
+
+def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
+                nb=NB, m=M, relative=False):
+    """The three paged kernels at head dim ``d`` and ``hh`` / ``kk``
+    heads against their plain versions (phase 36 at head dim 128: decode
+    at contexts 45/17/64/33, a varlen round of T 16; phase 40 adds
+    contexts past a window of 1024 over pools of ``nb`` pages and tables
+    of ``m``), then a decode step's K/V rows, bit-exact also through
+    ``ops.paged_kv_write``; a timed case and the write beside the plain
+    version, a library call and the bound.  float32 within 2e-5,
+    bfloat16 within 2e-2 (``relative``: of max(1, |plain|), as phase 40
+    holds head dim 256).  Returns the records by ``(kernel, case)``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -5293,78 +5335,90 @@ def _paged_d128(torch, dtype, geom, hh, kk):
         paged_attention_varlen_cuda
     from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
 
-    dev, d = torch.device("cuda"), 128
+    dev = torch.device("cuda")
     dname = str(dtype).split(".")[-1]
     esize = torch.empty((), dtype=dtype).element_size()
     gen = torch.Generator().manual_seed(hh * 100 + kk)
-    kp, vp = (torch.randn(kk, NB, BS, d, generator=gen) for _ in range(2))
+    kp, vp = (torch.randn(kk, nb, BS, d, generator=gen) for _ in range(2))
     kp[:, 0] = vp[:, 0] = 1e4         # the pad page: poison, as phase 3
     kp, vp = (x.to(dtype).to(dev) for x in (kp, vp))
     out = {}
-    for case, row_start, lens in (("decode", None, [45, 17, 64, 33]),
-                                  ("varlen_t16", [40, 16, 0, 9],
-                                   [1, 16, 7, 0])):
+    for case, row_start, lens, window, timed in cases:
         decode = row_start is None
         rows = ([(c - 1, 1) for c in lens] if decode
                 else list(zip(row_start, lens)))
         ctx = lens if decode else [a + n for a, n in rows]
-        tables = _tables(gen, [max(c, 1) for c in ctx], torch).to(dev)
+        tables = _tables(gen, [max(c, 1) for c in ctx], torch, nb,
+                         m).to(dev)
         shape = (B, hh, d) if decode else (B, 16, hh, d)
         q = torch.randn(shape, generator=gen).to(dtype).to(dev)
         if decode:
             args = (q, kp, vp, tables,
                     torch.tensor(ctx, dtype=torch.int32, device=dev))
-            kern = lambda: paged_attention_cuda(*args)
-            plain = lambda: ref.ref_paged_attention(*args)
+            kern = lambda: paged_attention_cuda(*args, window=window)
+            plain = lambda: ref.ref_paged_attention(*args, window=window)
             name, symbol = "paged_attention", "paged_attention_kernel"
         else:
             args = (q, kp, vp, tables,
                     torch.tensor(row_start, dtype=torch.int32, device=dev),
                     torch.tensor(lens, dtype=torch.int32, device=dev))
-            kern = lambda: paged_attention_varlen_cuda(*args)
-            plain = lambda: ref.ref_paged_attention_varlen(*args)
+            kern = lambda: paged_attention_varlen_cuda(*args, window=window)
+            plain = lambda: ref.ref_paged_attention_varlen(*args,
+                                                           window=window)
             name = "paged_attention_varlen"
             symbol = "paged_attention_varlen_kernel"
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        # bfloat16 of max(1, |plain|): each version rounds its output once.
+        scaled = (err if dtype == torch.float32 or not relative else
+                  (diff / want.float().abs().clamp(min=1.0)).max().item())
         tag = f"{name}/{geom}/{case}/{dname}"
         check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
-        check(err <= TOL[dname], f"{tag}: max_abs_err {err} > {TOL[dname]}")
+        check(scaled <= TOL[dname],
+              f"{tag}: max_abs_err {err} (scaled {scaled}) > {TOL[dname]}")
         g4 = got[:, None] if decode else got
         for b, (_, n) in enumerate(rows):
             check(bool((g4[b, n:] == 0).all()),
                   f"{tag}: padding rows of slot {b} not zero")
-        # SDPA over K/V gathered to dense and GQA-expanded (timed only).
-        keys, vals = (ref._gather_pages(x, tables).repeat_interleave(
-            hh // kk, 0).transpose(0, 1) for x in (kp, vp))
-        qs = q[:, None] if decode else q
-        qpos = torch.tensor([[a + i for i in range(qs.shape[1])]
-                             for a, _ in rows], device=dev)
-        mask = (torch.arange(M * BS, device=dev)[None, None, :]
-                <= qpos[:, :, None])
-        qh = qs.transpose(1, 2)
-        lib = lambda: F.scaled_dot_product_attention(
-            qh, keys, vals, attn_mask=mask[:, None])
-        b_ms, b_by = _attention_bound(q, rows, ctx, None, 1 if decode else 2,
-                                      esize, dname, hh, kk, d)
-        out[name] = dict(
-            phase="kernel", kernel=name, case=f"{geom}/{case}", dtype=dname,
-            H=hh, KV=kk, D=d, max_abs_err=err, tol=TOL[dname],
-            kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
-            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
-            kernel_device_ms=device_ms(kern, symbol),
-            plain_device_ms=device_ms(plain),
-            library_device_ms=device_ms(lib))
-        emit(**out[name])
+        rec = dict(phase="kernel", kernel=name, case=f"{geom}/{case}",
+                   dtype=dname, H=hh, KV=kk, D=d, window=window,
+                   max_abs_err=err, scaled_err=scaled, tol=TOL[dname])
+        if timed:
+            # SDPA over K/V gathered to dense and GQA-expanded (timed
+            # only).
+            keys, vals = (ref._gather_pages(x, tables).repeat_interleave(
+                hh // kk, 0).transpose(0, 1) for x in (kp, vp))
+            qs = q[:, None] if decode else q
+            qpos = torch.tensor([[a + i for i in range(qs.shape[1])]
+                                 for a, _ in rows], device=dev)
+            kpos = torch.arange(m * BS, device=dev)[None, None, :]
+            mask = kpos <= qpos[:, :, None]
+            if window is not None:
+                mask &= qpos[:, :, None] - kpos < window
+            qh = qs.transpose(1, 2)
+            lib = lambda: F.scaled_dot_product_attention(
+                qh, keys, vals, attn_mask=mask[:, None])
+            b_ms, b_by = _attention_bound(q, rows, ctx, window,
+                                          1 if decode else 2, esize, dname,
+                                          hh, kk, d)
+            rec.update(
+                kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
+                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                kernel_device_ms=device_ms(kern, symbol),
+                plain_device_ms=device_ms(plain),
+                library_device_ms=device_ms(lib))
+        out[(name, case)] = rec
+        emit(**rec)
 
     # A decode step's K/V rows into a 4-layer pool at layer 3.
     layers, layer = 4, 3
-    pk, pv = (torch.randn(layers, kk, NB, BS, d, generator=gen).to(dtype)
+    pk, pv = (torch.randn(layers, kk, nb, BS, d, generator=gen).to(dtype)
               .to(dev) for _ in range(2))
     kr, vr = (torch.randn(B, kk, d, generator=gen).to(dtype).to(dev)
               for _ in range(2))
-    dest = torch.randperm(NB * BS, generator=gen)[:B]
+    dest = torch.randperm(nb * BS, generator=gen)[:B]
     page = (dest // BS).to(torch.int32).to(dev)
     off = (dest % BS).to(torch.int32).to(dev)
     act = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
@@ -5383,7 +5437,7 @@ def _paged_d128(torch, dtype, geom, hh, kk):
                                            layer=layer)
     sel = act.bool()
     hs = torch.arange(kk, device=dev)
-    rid = (((layer * kk + hs[None, :]) * NB + page[sel].long()[:, None])
+    rid = (((layer * kk + hs[None, :]) * nb + page[sel].long()[:, None])
            * BS + off[sel].long()[:, None]).reshape(-1)
     ksrc, vsrc = kr[sel].reshape(-1, d), vr[sel].reshape(-1, d)
     fk, fv = pk.view(-1, d), pv.view(-1, d)
@@ -5391,14 +5445,14 @@ def _paged_d128(torch, dtype, geom, hh, kk):
     n_act = int(sel.sum())
     b_ms, b_by = bound(2 * 2 * n_act * kk * d * esize + (B + 2 * n_act) * 4,
                        0, dname)
-    out["paged_kv_write"] = dict(
+    out[("paged_kv_write", "decode_rows")] = dict(
         phase="kernel", kernel="paged_kv_write", case=f"{geom}/decode_rows",
         dtype=dname, KV=kk, D=d, N=B, max_abs_err=0.0, tol=0.0,
         kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
         library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
         kernel_device_ms=device_ms(kern, "kv_write_kernel"),
         plain_device_ms=device_ms(plain), library_device_ms=device_ms(lib))
-    emit(**out["paged_kv_write"])
+    emit(**out[("paged_kv_write", "decode_rows")])
     return out
 
 
@@ -5460,7 +5514,7 @@ def d128_kernel_phase(torch):
             worst[dname] = max(worst[dname],
                                _flash_lse_case(torch, dtype, *case))
         for geom, hh, kk in D128_GEOMS:
-            _paged_d128(torch, dtype, geom, hh, kk)
+            _paged_heads(torch, dtype, geom, hh, kk)
     for dname, err in worst.items():
         headline[("flash_attention_d128", dname)] = dict(
             headline[("flash_attention_d128", dname)], max_abs_err=err)
@@ -5553,6 +5607,35 @@ def _profiled_serve(torch, launcher, args, make_engine, batch):
                 top_kernels=rows[:8])
 
 
+def _same_greedy_tokens(torch, tag, got, want, prompts, gap):
+    """Greedy tokens of each request of ``got`` equal to ``want``'s (``{rid:
+    (tokens, first token's log-prob)}``; phase 37: another engine's,
+    phase 41: the same run with the plain attention), but at a step where
+    the top-2 log-prob gap after ``prompts[rid]`` and the tokens so far
+    (``gap``) is under FIRST_TOKEN_TOL; the first tokens' log-probs within
+    it.  Returns ``(near ties, first-token max abs error)``."""
+    ties, first_err = [], 0.0
+    check(sorted(got) == sorted(want), f"{tag}: requests differ")
+    for rid, w in want.items():
+        a, b = [int(x) for x in got[rid][0]], [int(x) for x in w[0]]
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if n is None:
+            check(a == b, f"{tag}: request {rid} {a} against {b}")
+        else:
+            g = gap(prompts[rid], b[:n])
+            ties.append(dict(request=rid, step=n, top2_gap=g))
+            print(f"{tag}: request {rid} diverges at step {n}, top-2 "
+                  f"log-prob gap {g}", flush=True)
+            check(g < FIRST_TOKEN_TOL, f"{tag}: request {rid} diverges at "
+                  f"step {n} away from a near tie (gap {g})")
+        if n != 0:
+            first_err = max(first_err, abs(float(got[rid][1])
+                                           - float(w[1])))
+    check(first_err <= FIRST_TOKEN_TOL,
+          f"{tag}: first-token log-probs differ by {first_err}")
+    return ties, first_err
+
+
 def q14b_serve_phase(torch):
     """Phase 37: full-width qwen2.5-14b (48 layers, d 5120, 40 / 8 heads
     of 128, vocab 152064, seeded random init, float32) served with the
@@ -5643,33 +5726,18 @@ def q14b_serve_phase(torch):
           f", unbatched {runs['unbatched']['prefill_dispatches']}")
     # Greedy tokens against the chunked engine's; the first tokens'
     # log-probs within FIRST_TOKEN_TOL.
+    pad = get_tokenizer().pad_id
+    prompts = {rid: row[row != pad] for rid, row in enumerate(batch[0])}
+    gap = lambda prompt, tokens: _top2_logprob_gap(torch, bundle, params,
+                                                   prompt, tokens)
+    firsts = lambda out: {rid: (t.tokens, t.log_beta[0])
+                          for rid, t in out.items()}
     ties, first_err = [], {}
     for label in ("batched", "unbatched"):
-        first_err[label] = 0.0
-        for rid, want in outs["chunked"].items():
-            got = outs[label][rid]
-            a, b = got.tokens.tolist(), want.tokens.tolist()
-            n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                     None)
-            if n is None:
-                check(a == b, f"q14b/{label}: request {rid} {a} against {b}")
-            else:
-                row = batch[0][rid]
-                prompt = row[row != get_tokenizer().pad_id]
-                gap = _top2_logprob_gap(torch, bundle, params, prompt, b[:n])
-                ties.append(dict(engine=label, request=rid, step=n,
-                                 top2_gap=gap))
-                print(f"q14b/{label}: request {rid} diverges at step {n}, "
-                      f"top-2 log-prob gap {gap}", flush=True)
-                check(gap < FIRST_TOKEN_TOL,
-                      f"q14b/{label}: request {rid} diverges at step {n} "
-                      f"away from a near tie (gap {gap})")
-            if n != 0:
-                first_err[label] = max(first_err[label], abs(
-                    float(got.log_beta[0]) - float(want.log_beta[0])))
-        check(first_err[label] <= FIRST_TOKEN_TOL,
-              f"q14b/{label}: first-token log-probs differ by "
-              f"{first_err[label]}")
+        found, first_err[label] = _same_greedy_tokens(
+            torch, f"q14b/{label}", firsts(outs[label]),
+            firsts(outs["chunked"]), prompts, gap)
+        ties += [dict(tie, engine=label) for tie in found]
     tokens = [int(x) for t in outs["chunked"].values() for x in t.tokens]
     emit(phase="q14b_serve", config=cfg.name, layers=cfg.n_layers,
          params=n_params, params_gib=n_params * 4 / 2 ** 30, init_s=init_s,
@@ -5924,6 +5992,410 @@ def batched_parity_phase(torch):
     emit(**rec)
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-42: head dim 256 (gemma3-12b at full width)
+# ---------------------------------------------------------------------------
+
+D256_FLASH = (  # (case, B, S, H, KV, D, window); the first three timed
+    ("g3_prefill", 8, 32, 16, 8, 256, None),      # the batched prefill
+    ("g3_long", 1, 2048, 16, 8, 256, None),       # a global layer
+    ("g3_long_window", 1, 2048, 16, 8, 256, 1024),   # a local layer
+    ("edge_s1", 2, 1, 16, 8, 256, None),
+    ("g3_ragged", 2, 37, 16, 8, 256, None),
+    ("g3_window", 2, 300, 16, 8, 256, 64),
+    ("group4_s65w", 2, 65, 4, 1, 256, 16))
+D256_TIMED = 3
+D256_LSE = (D256_FLASH[0], D256_FLASH[2], D256_FLASH[4])
+# Phase 40's paged cases (as D128_PAGED): the decode contexts, decode
+# and a varlen round past gemma3's window of 1024, a varlen round of T 16;
+# tables of 260 pages of 8 rows (contexts up to 2,080).
+D256_PAGED = (
+    ("decode", None, [45, 17, 64, 33], None, True),
+    ("decode_long_window", None, [1100, 1500, 2050, 1025], 1024, True),
+    ("varlen_t16", [40, 16, 0, 9], [1, 16, 7, 0], None, True),
+    ("varlen_long_window", [1030, 1084, 0, 1020], [16, 16, 7, 10], 1024,
+     False))
+D256_M = 260
+D256_NB = B * D256_M + 1
+G3_ARGS = ["--engine", "continuous", "--arch", "gemma3-12b", "--full-width",
+           "--device", "cuda", "--temperature", "0"]
+# Phase 41's long prompt: decode past position 1,024 (every local layer's
+# window then masks keys).
+G3_LONG, G3_LONG_NEW = 2048, 16
+G3_LONG_ENGINES = Q14_ENGINES[:2]           # chunked and batched
+
+
+def d256_kernel_phase(torch):
+    """Phase 40: ``flash_attention`` at head dim 256 (``flash_kernel_d256``,
+    both dtypes) against its plain version at gemma3-12b's batched
+    prefill (B 8 x S 32, 16 / 8 heads) and at B 1 x S 2048 global and
+    windowed (all timed), S 1, ragged and windowed cases, and with the
+    logsumexp at three of them; the three paged kernels at 16 / 8 heads
+    of 256 (decode at contexts 45/17/64/33 and past a window of 1024,
+    varlen T 16 near and past it, the K/V row write).  float32 within
+    2e-5, bfloat16 within 2e-2 (paged: of max(1, |plain|)), the
+    logsumexp within 1e-5."""
+    headline, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for i, case in enumerate(D256_FLASH):
+            err, rec = _flash_case(torch, dtype, *case,
+                                   timed=i < D256_TIMED, tol=TOL)
+            worst[("flash_attention_d256", dname)] = max(
+                worst.get(("flash_attention_d256", dname), 0.0), err)
+            if case[0] == "g3_prefill":
+                headline[("flash_attention_d256", dname)] = rec
+        for case in D256_LSE:
+            key = ("flash_attention_d256", dname)
+            worst[key] = max(worst[key], _flash_lse_case(torch, dtype, *case))
+        recs = _paged_heads(torch, dtype, "gemma3-12b", 16, 8, d=256,
+                           cases=D256_PAGED, nb=D256_NB, m=D256_M,
+                           relative=True)
+        for name, case in (("paged_attention", "decode"),
+                           ("paged_attention_varlen", "varlen_t16")):
+            key = (f"{name}_d256", dname)
+            headline[key] = recs[(name, case)]
+            worst[key] = max(r["max_abs_err"] for (n, _), r in recs.items()
+                             if n == name)
+    for key, err in worst.items():
+        headline[key] = dict(headline[key], max_abs_err=err)
+    return headline
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """Within the block every attention and K/V row write of the model
+    runs its plain version (``kernels.ref``) on whatever device the
+    tensors are on: ``ops``' names are rebound, so an engine run can be
+    held to the same run without the kernels."""
+    from repro_torch.kernels import ops, ref
+
+    names = ("attention", "paged_attention", "paged_attention_varlen",
+             "paged_kv_write")
+    saved = {n: getattr(ops, n) for n in names}
+    ops.attention = (lambda q, k, v, *, window=None, causal=True,
+                     kv_valid=None: ref.ref_attention(
+                         q, k, v, causal=causal, window=window,
+                         kv_valid=kv_valid))
+    ops.paged_attention = (lambda q, kp, vp, tables, lens, *, window=None:
+                           ref.ref_paged_attention(q, kp, vp, tables, lens,
+                                                   window=window))
+    ops.paged_attention_varlen = (
+        lambda q, kp, vp, tables, start, n, *, window=None, count=None:
+        ref.ref_paged_attention_varlen(q, kp, vp, tables, start, n,
+                                       window=window))
+    ops.paged_kv_write = (
+        lambda kp, vp, kr, vr, page, off, active, *, layer:
+        ref.ref_paged_kv_write(kp, vp, kr, vr, page, off, active,
+                               layer=layer))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def _argmax_sampler(torch):
+    """The static engine's draws as :func:`_argmax_draws` makes the
+    continuous engine's: ``sampler.sample`` at temperature 1 with zero
+    noise inside the block (the argmax, with untempered log-probs)."""
+    from repro_torch.rollout import sampler
+
+    draw = sampler.sample
+    sampler.sample = lambda logits, temperature, top_p, noise: draw(
+        logits, 1.0, 1.0, torch.zeros_like(noise))
+    return lambda: setattr(sampler, "sample", draw)
+
+
+def gemma3_serve_phase(torch):
+    """Phase 41: full-width gemma3-12b (48 layers, d 3840, 16 / 8 heads
+    of 256, d_ff 15360, vocab 262144, tied, softcap 30, window 1024 on
+    five layers of six, seeded random init, float32) with the launcher's
+    defaults (8 prompts, 4 slots, 128 blocks of 8, 16 tokens, greedy)
+    through the chunked, batched and unbatched continuous engines and
+    the static engine over one set of params; then one 2,048-token
+    prompt through the chunked and the batched engines (16 new tokens,
+    every one past position 1,024).  Each run is held to the same run
+    with the plain attention on the card (:func:`_same_greedy_tokens`);
+    ``flash_attention`` 48 x each batched prefill dispatch (48 a static
+    ``generate``), the varlen kernel only in chunked runs, decode and
+    the K/V write in every continuous run; tokens/s, peak memory, the
+    batched engine's idle share.  Returns the kernels' launches summed
+    over the runs with the kernels."""
+    import warnings
+    from collections import Counter
+
+    from repro_torch import kernels
+    from repro_torch.data.tokenizer import get_tokenizer
+    from repro_torch.launch import serve as launcher
+    from repro_torch.rollout.sampler import generate
+    from repro_torch.utils.tree import tree_leaves
+
+    parser = launcher.build_parser()
+    base = parser.parse_args(G3_ARGS)
+    base.requests = base.batch
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device, bundle, params, ds, store = launcher._model(base)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = bundle.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.logit_softcap,
+           cfg.sliding_window, cfg.global_every)
+          == (48, 3840, 16, 8, 256, 15360, 262144, 30.0, 1024, 6),
+          f"gemma3-12b serve is not full width: {cfg}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    pad = get_tokenizer().pad_id
+    batch = ds.sample_batch(base.requests)
+    prompts = [row[row != pad] for row in batch[0]]
+    total = Counter()
+
+    def engine_of(args):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = launcher.make_engine(args, bundle, params, store, device)
+        _untempered_log_beta(torch, eng)
+        return eng
+
+    def gap(prompt, tokens):
+        return _top2_logprob_gap(torch, bundle, params, prompt, tokens)
+
+    runs = {}
+    for label, flags in Q14_ENGINES:
+        args = parser.parse_args(G3_ARGS + flags)
+        args.requests = args.batch
+        out, launches, st, rec = _serve_record(torch, launcher, args,
+                                               engine_of(args), batch)
+        total.update(launches)
+        with _plain_attention():
+            want, _, _, _ = _serve_record(torch, launcher, args,
+                                          engine_of(args), batch)
+        check(len(out) == args.requests,
+              f"gemma3/{label}: {len(out)} of {args.requests} retired")
+        flash = launches["flash_attention"]
+        varlen = launches["paged_attention_varlen"]
+        for name in ("paged_kv_write", "paged_attention"):
+            check(launches[name] > 0, f"gemma3/{label}: {name} never "
+                  "launched")
+        if label == "chunked":
+            check(flash == 0 and varlen > 0,
+                  f"gemma3/chunked: flash {flash}, varlen {varlen} launches")
+        else:
+            check(flash == cfg.n_layers * st["prefill_dispatches"] > 0
+                  and varlen == 0,
+                  f"gemma3/{label}: flash launched {flash} times for "
+                  f"{st['prefill_dispatches']} prefill dispatches, varlen "
+                  f"{varlen}")
+        rec["near_ties"], rec["first_token_logprob_max_abs_err"] = \
+            _same_greedy_tokens(torch, f"gemma3/{label}",
+                           {i: (t.tokens, t.log_beta[0])
+                            for i, t in out.items()},
+                           {i: (t.tokens, t.log_beta[0])
+                            for i, t in want.items()}, prompts, gap)
+        if label == "batched":
+            rec.update(_profiled_serve(torch, launcher, args,
+                                       lambda a=args: engine_of(a), batch))
+        runs[label] = rec
+
+    # The static engine: one generate over the same prompts, left-padded.
+    args = parser.parse_args(G3_ARGS + ["--engine", "static"])
+    rows = torch.from_numpy(batch[0]).to(device)
+
+    def static_run():
+        static = launcher.StaticServe(
+            device, bundle, params, rows, batch[2],
+            lambda: generate(
+                bundle, params, rows,
+                torch.Generator(device=device).manual_seed(args.seed + 2),
+                max_new_tokens=args.max_new_tokens,
+                temperature=args.temperature, top_p=args.top_p))
+        restore = _argmax_sampler(torch)
+        try:
+            kernels.reset_launch_counts()
+            res, dt = launcher.run_static(static)
+            launches = kernels.launch_counts()
+        finally:
+            restore()
+        return static, res, dt, launches
+
+    static, res, dt, launches = static_run()
+    launcher.report_static(static, res, dt)
+    total.update(launches)
+    with _plain_attention():
+        _, plain_res, _, _ = static_run()
+    check(launches["flash_attention"] == cfg.n_layers
+          and sum(launches.values()) == cfg.n_layers,
+          f"gemma3/static: launches {launches}")
+    # The static engine reads the left-padded rows, pads included.
+    n = len(prompts)
+    ties, first = _same_greedy_tokens(
+        torch, "gemma3/static",
+        {i: (res.completion[i], res.log_beta[i, 0]) for i in range(n)},
+        {i: (plain_res.completion[i], plain_res.log_beta[i, 0])
+         for i in range(n)}, dict(enumerate(batch[0])), gap)
+    runs["static"] = dict(tokens_out=res.completion.numel(), seconds=dt,
+                          tokens_per_s=res.completion.numel() / dt,
+                          launches=launches, near_ties=ties,
+                          first_token_logprob_max_abs_err=first)
+    del static, res, plain_res
+    emit(phase="gemma3_serve", config=cfg.name, layers=cfg.n_layers,
+         params=n_params, params_gib=n_params * 4 / 2 ** 30, init_s=init_s,
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         first_token_tol=FIRST_TOKEN_TOL, runs=runs)
+    total.update(_gemma3_long_prompt(torch, launcher, parser, bundle, params,
+                                     store, device, gap))
+    del params, bundle, store
+    return dict(total)
+
+
+def _gemma3_long_prompt(torch, launcher, parser, bundle, params, store,
+                        device, gap):
+    """Phase 41's long prompt: G3_LONG ids from the seed through a chunked
+    and a batched engine (one slot, a pool for the whole sequence),
+    G3_LONG_NEW new tokens, each run held to the same run with the plain
+    attention on the card.  The chunked run launches the varlen kernel
+    and no flash, the batched run flash exactly once a layer and no
+    varlen, both the decode kernel and the K/V write; the batched
+    prefill's forward profiled (flash's device share).  Returns the
+    launches of the runs with the kernels."""
+    import warnings
+    from collections import Counter
+
+    from repro_torch import kernels
+
+    cfg = bundle.cfg
+    n_tok = G3_LONG + G3_LONG_NEW
+    gen = torch.Generator().manual_seed(41)
+    prompt = torch.randint(3, cfg.vocab_size, (G3_LONG,), generator=gen)
+    total, rec = Counter(), dict(phase="gemma3_long_prompt",
+                                 prompt_tokens=G3_LONG,
+                                 new_tokens=G3_LONG_NEW)
+    for label, flags in G3_LONG_ENGINES:
+        args = parser.parse_args(G3_ARGS + flags + [
+            "--max-batch", "1", "--num-blocks", str(-(-n_tok // 8) + 1),
+            "--max-seq-len", str(n_tok)])
+        outs = []
+        for plain in (False, True):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                engine = launcher.make_engine(args, bundle, params, store,
+                                              device)
+            _untempered_log_beta(torch, engine)
+            engine.submit(prompt.numpy(), G3_LONG_NEW)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            if plain:
+                with _plain_attention():
+                    trajs, seconds = launcher.run(args, engine)
+            else:
+                trajs, seconds = launcher.run(args, engine)
+                launches = kernels.launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(len(trajs) == 1 and trajs[0].num_tokens == G3_LONG_NEW,
+                  f"gemma3/long/{label}: {[t.num_tokens for t in trajs]}")
+            outs.append(trajs[0])
+            del engine
+        total.update(launches)
+        flash = launches["flash_attention"]
+        varlen = launches["paged_attention_varlen"]
+        check(launches["paged_attention"] > 0
+              and launches["paged_kv_write"] > 0
+              and (flash == 0 and varlen > 0 if label == "chunked"
+                   else flash == cfg.n_layers and varlen == 0),
+              f"gemma3/long/{label}: launches {launches}")
+        ties, first = _same_greedy_tokens(
+            torch, f"gemma3/long/{label}",
+            {0: (outs[0].tokens, outs[0].log_beta[0])},
+            {0: (outs[1].tokens, outs[1].log_beta[0])},
+            {0: prompt.tolist()}, gap)
+        rec[label] = dict(seconds=seconds, launches=launches, peak_gib=peak,
+                          first_token=int(outs[0].tokens[0]),
+                          first_token_logprob=float(outs[0].log_beta[0]),
+                          plain_attention_logprob=float(outs[1].log_beta[0]),
+                          first_token_logprob_abs_err=first, near_ties=ties)
+    row = prompt.to(device)[None]
+    with torch.no_grad():
+        busy, rows = profile_kernels(lambda: bundle.forward(params, row))
+    flash_ms = sum(ms for name, ms, _ in rows if "flash_kernel" in name)
+    rec.update(forward_device_ms=busy, flash_device_ms=flash_ms,
+               flash_share=flash_ms / busy, top_kernels=rows[:6])
+    emit(**rec)
+    return total
+
+
+def gemma3_parity_phase(torch):
+    """Phase 42: the reduced gemma3-12b (2 layers, d 256, 2 / 1 heads,
+    window 16 with every second layer global, softcap 30; the math
+    tokenizer's vocab) at head dim 256, dense weights x3, on ``cpu``
+    (plain versions) and ``cuda`` (the kernels): four 32-token prompts
+    and 16 new tokens (past the window) through the chunked and the
+    batched engines (the argmax, with untempered log-probs) and the
+    static ``generate`` (greedy, no noise): equal tokens, log_beta
+    within 1e-4."""
+    import warnings
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.tokenizer import get_tokenizer
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import build
+    from repro_torch.rollout.sampler import generate
+    from repro_torch.serve import ServeEngine
+
+    vocab = get_tokenizer().vocab_size
+    cfg = reduced_config("gemma3-12b", vocab=vocab).replace(d_head=256)
+    bundle = build(cfg)
+    params = _scale_dense(bundle.init(torch.Generator().manual_seed(0)))
+    card = tf.tree_to(params, "cuda")
+    prompts = torch.randint(3, vocab, (4, 32),
+                            generator=torch.Generator().manual_seed(42))
+    rec = dict(phase="gemma3_parity", config=cfg.name, layers=cfg.n_layers,
+               heads=(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+               window=cfg.sliding_window)
+    for mode in ("chunked", "batched"):
+        out = {}
+        for dev, p in (("cpu", params), ("cuda", card)):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                eng = ServeEngine(bundle, p, temperature=1.0, device=dev,
+                                  num_blocks=48, block_size=8, max_batch=4,
+                                  decode_chunk=4, seed=2,
+                                  chunked_prefill=mode == "chunked")
+            _argmax_draws(torch, eng)
+            for i in range(4):
+                eng.submit(prompts[i].numpy(), 16, request_id=i)
+            out[dev] = {t.request_id: t for t in eng.run(max_steps=1000)}
+        check(sorted(out["cpu"]) == sorted(out["cuda"]) == [0, 1, 2, 3],
+              f"gemma3 parity/{mode}: not every request retired")
+        worst = 0.0
+        for rid, w in out["cpu"].items():
+            c = out["cuda"][rid]
+            check(c.tokens.tolist() == w.tokens.tolist(),
+                  f"gemma3 parity/{mode}: request {rid} cuda {c.tokens} "
+                  f"cpu {w.tokens}")
+            worst = max(worst, float(abs(c.log_beta - w.log_beta).max()))
+        check(worst <= 1e-4, f"gemma3 parity/{mode}: log_beta differs by "
+              f"{worst}")
+        rec[mode] = dict(log_beta_max_abs_err=worst, distinct_tokens=len(
+            {int(x) for t in out["cpu"].values() for x in t.tokens}))
+    res = {}
+    for dev, p in (("cpu", params), ("cuda", card)):
+        res[dev] = generate(bundle, p, prompts.to(dev), max_new_tokens=16,
+                            temperature=0.0,
+                            noise=lambda t, shape: torch.zeros(shape))
+    check(torch.equal(res["cpu"].completion, res["cuda"].completion.cpu()),
+          f"gemma3 parity/static: cuda {res['cuda'].completion} cpu "
+          f"{res['cpu'].completion}")
+    rec["static"] = dict(distinct_tokens=len(set(
+        res["cpu"].completion.flatten().tolist())))
+    check(min(r["distinct_tokens"] for r in (rec["chunked"], rec["batched"],
+                                             rec["static"])) > 5,
+          f"gemma3 parity: too few distinct tokens {rec}")
+    emit(**rec)
+
+
 KERNELS = (
     ("paged_kv_write", "src/repro_torch/kernels/csrc/paged_kv_write.cu",
      "src/repro/kernels/paged_kv_write_pallas.py:83"),
@@ -5952,6 +6424,17 @@ KERNELS = (
     # The same kernel's head-dim-128 instantiation: numbers at
     # qwen2.5-14b's batched-prefill shape, launches phase 37's.
     ("flash_attention_d128",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention_pallas.py:109"),
+    # The head-dim-256 instantiations (gemma3-12b): numbers phase 40's at
+    # its batched-prefill shape and decode / varlen T 16 contexts,
+    # launches phase 41's runs with the kernels together.
+    ("paged_attention_d256", "src/repro_torch/kernels/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention_pallas.py:128"),
+    ("paged_attention_varlen_d256",
+     "src/repro_torch/kernels/csrc/paged_attention_varlen.cu",
+     "src/repro/kernels/paged_attention_pallas.py:262"),
+    ("flash_attention_d256",
      "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention_pallas.py:109"),
     ("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -6346,6 +6829,14 @@ def main() -> int:
     run("38 codeqwen serve", codeqwen_serve_phase, torch)
     release()
     run("39 batched parity", batched_parity_phase, torch)
+    release()
+    headline.update(run("40 d256 kernels", d256_kernel_phase, torch))
+    release()
+    gemma3 = run("41 gemma3-12b serve", gemma3_serve_phase, torch)
+    launches.update({f"{k}_d256": gemma3[k] for k in (
+        "paged_attention", "paged_attention_varlen", "flash_attention")})
+    release()
+    run("42 gemma3 parity", gemma3_parity_phase, torch)
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": time.perf_counter() - t_start}))
 

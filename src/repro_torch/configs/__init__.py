@@ -1,7 +1,8 @@
 """Architecture configs of the port: qwen2.5-0.5b, the paper's RLVR model,
 qwen2.5-14b and codeqwen1.5-7b, dense decoders of the same family at
-head dim 128, rwkv6-1.6b, the attention-free arch, and hymba-1.5b, the
-hybrid attention + SSM arch.
+head dim 128, gemma3-12b, a dense decoder at head dim 256 with sliding
+windows on five layers of six and a logit softcap, rwkv6-1.6b, the
+attention-free arch, and hymba-1.5b, the hybrid attention + SSM arch.
 
 ``get_config(name)`` returns the full config; ``reduced_config(name)``
 the CPU-smoke variant of the same family.  Both follow
@@ -13,13 +14,15 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as _codeqwen
+from repro_torch.configs.gemma3_12b import CONFIG as _gemma3
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
 from repro_torch.configs.qwen2_5_0_5b import CONFIG as _qwen05b
 from repro_torch.configs.qwen2_5_14b import CONFIG as _qwen14b
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (_qwen05b, _qwen14b, _codeqwen, _rwkv6, _hymba)}
+    c.name: c for c in (_qwen05b, _qwen14b, _codeqwen, _gemma3, _rwkv6,
+                        _hymba)}
 
 
 def get_config(name: str) -> ModelConfig:

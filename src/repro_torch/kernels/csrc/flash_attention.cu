@@ -24,14 +24,17 @@
 // (query, key) pair; 13.4 GFLOP for one hymba layer at S 2048, 42.9 GFLOP
 // for one qwen2.5-14b layer at D 128), bytes at the serve prefill (B 8,
 // S 32: 3.9 MB, 1.2 us at 3.35 TB/s).  Both products run on the tensor
-// cores at D 64 and 128.
+// cores at D 64, 128 and 256.
 //
-// Three instantiations, chosen by the launcher from dtype and head dim
+// Four instantiations, chosen by the launcher from dtype and head dim
 // alone (with or without the logsumexp):
 //   float32 at D 64 and 128  -> flash_kernel_tf32 below: 3xTF32 mma.sync
 //                               (mma_tf32.cuh), 495 / 3 TFLOP/s at best;
 //   bfloat16 at D 64 and 128 -> flash_kernel_wgmma
 //                               (flash_attention_wgmma.cuh: wgmma + TMA);
+//   both dtypes at D 256     -> flash_kernel_d256 below (gemma3): the
+//                               tf32 kernel's products with each 16-row
+//                               tile split over two warps by output dims;
 //   D 8, 16 and 32           -> flash_kernel below: float32 FMA from
 //                               shared memory (the JAX sweep's head dims;
 //                               no model the port runs uses them).
@@ -635,8 +638,377 @@ cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// D 256, float32 and bfloat16: two warps a 16-row tile, one a dims half.
+// ---------------------------------------------------------------------------
+
+namespace sp {
+
+using tf32::cp_async16;
+using tf32::cp_async_commit;
+using tf32::cp_async_wait;
+using tf32::split;
+using wg::ex2;   // 2^x on the SFU
+
+constexpr int D = 256;
+constexpr int kHalf = D / 2;     // the output dims a warp owns
+constexpr int kThreads = 256;    // 8 warps: 4 row tiles x 2 dims halves
+constexpr int kRows = 64;        // (position, head) rows per block
+constexpr int kKeys = 32;        // keys a K/V tile
+constexpr int kKT = kKeys / 8;   // 8-key steps (score n-tiles)
+constexpr int kNT = kHalf / 8;   // 8-dim output tiles of a warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T>
+struct Layout {
+  static constexpr int kQ = D + 8;    // Q row pitch (float32)
+  static constexpr int kK = D + 8;    // K row pitch (elements of T)
+  // V row pitch: 260 floats or 264 bfloat16 put a warp's V reads on 32
+  // distinct banks (two bfloat16 lanes share a word).
+  static constexpr int kV = sizeof(T) == 4 ? D + 4 : D + 8;
+  static constexpr int kQFloats = kRows * kQ;
+  static constexpr int kKElems = kKeys * kK;   // one stage
+  static constexpr int kVElems = kKeys * kV;
+  static constexpr int kExFloats = 8 * kKT * 32 * 4;   // a warp's scores
+  static constexpr size_t kBytes =
+      sizeof(float) * (kQFloats + kExFloats) +
+      sizeof(T) * 2 * (kKElems + kVElems);
+};
+
+// Two consecutive elements as float32.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// The B operand of one product: a float32 value splits into tf32 hi and
+// lo; a bfloat16 value is a tf32 value as it stands (lo would be 0).
+template <typename T>
+__device__ __forceinline__ void split_b(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (std::is_same<T, float>::value) {
+    split(x, hi, lo);
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+// d += a b in float32 accuracy: 3xTF32 for a float32 b, and for a
+// bfloat16 b (exact in tf32) the two products that are not zero.
+template <typename T>
+__device__ __forceinline__ void mma(float (&d)[4], const tf32::Frag& a,
+                                    const tf32::FragB& b) {
+  if constexpr (std::is_same<T, float>::value) {
+    tf32::mma3(d, a, b);
+  } else {
+    tf32::mma_tf32(d, a.lo, b.hi);
+    tf32::mma_tf32(d, a.hi, b.hi);
+  }
+}
+
+// The two warps of one row tile (ids 1-4; 0 is __syncthreads').
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// The tf32 kernel's design with the work of each 16-row tile split over
+// two warps (the output accumulator of one warp holding all 256 dims
+// would take 128 registers a lane): warp w takes rows 16 (w / 2) ..
+// 16 (w / 2) + 15 and dims half = w % 2, 128 half .. 128 half + 127.
+// Per K/V tile each warp sums its half of the score product, in two
+// 64-dim chunks each from zero; the pair swaps the 16 x 32 partial
+// scores through shared memory and each adds the other's to its own
+// (float addition commutes), so both hold the same scores, the same
+// running max and sum and the same P.  Each then multiplies P by its own 128
+// columns of V.  Everything else (GQA packing, 32-key tiles by cp.async
+// in a ring of two, masks only on edge tiles, P's A fragment straight
+// from the score accumulator, each tile's P V from zero) is the tf32
+// kernel's.  bfloat16 inputs are staged as they are and widened at the
+// fragment reads; they are exact in tf32, so their lo products vanish.
+template <typename T, bool kWindow>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel_d256(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ out,
+                  float* __restrict__ lse, int seq, int n_heads, int n_kv,
+                  int window, float scale) {
+  using L = Layout<T>;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                                      // [kRows][kQ]
+  float* s_ex = s_q + L::kQFloats;                        // [8][kKT][32][4]
+  T* s_k = reinterpret_cast<T*>(s_ex + L::kExFloats);     // [2][kKeys][kK]
+  T* s_v = s_k + 2 * L::kKElems;                          // [2][kKeys][kV]
+
+  const int group = n_heads / n_kv;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int n_rows = seq * group;           // rows of this (b, kv head)
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // heaviest first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int pair = warp / 2, half = warp % 2;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const size_t kv_row = (size_t)n_kv * D;   // one position of k, v
+  const size_t kv_base = (size_t)b * seq * kv_row + (size_t)kvh * D;
+
+  // Keys any row of this block can reach: [first, last].
+  const int last = (min(r0 + kRows, n_rows) - 1) / group;
+  const int first = kWindow ? max(0, r0 / group - window + 1) : 0;
+  const int t0 = first / kKeys, n_tiles = last / kKeys - t0 + 1;
+
+  // Tile it of the walk into ring stage it % 2; keys past S zero-filled.
+  constexpr int kChunk = 16 / sizeof(T);          // elements a cp.async
+  constexpr int kRowChunks = D / kChunk;
+  auto stage = [&](int it) {
+    const int k0 = (t0 + it) * kKeys;
+    T* sk = s_k + (it & 1) * L::kKElems;
+    T* sv = s_v + (it & 1) * L::kVElems;
+#pragma unroll
+    for (int i = 0; i < kKeys * kRowChunks / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int j = e / kRowChunks, c = (e % kRowChunks) * kChunk;
+      const bool ok = k0 + j < seq;
+      const size_t at = kv_base + (size_t)(ok ? k0 + j : 0) * kv_row + c;
+      cp_async16(sk + j * L::kK + c, k + at, ok ? 16 : 0);
+      cp_async16(sv + j * L::kV + c, v + at, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  stage(0);
+
+  // Q, scaled in float32 (as the plain version scales it); rows past
+  // S * G zero.  Row r sits at position r / group, query head
+  // kvh * group + r % group.
+  for (int e = tid; e < kRows * D / 2; e += kThreads) {
+    const int rr = e / (D / 2), c = (e % (D / 2)) * 2, r = r0 + rr;
+    float2 x = make_float2(0.f, 0.f);
+    if (r < n_rows)
+      x = ld2(q + (((size_t)b * seq + r / group) * n_heads + kvh * group +
+                   r % group) * D + c);
+    *reinterpret_cast<float2*>(s_q + rr * L::kQ + c) =
+        make_float2(x.x * scale, x.y * scale);
+  }
+
+  // This pair's rows: positions [w_lo, w_hi]; a row past S * G has
+  // position -1 and attends nothing.
+  const int wr0 = r0 + 16 * pair;
+  const bool warp_live = wr0 < n_rows;
+  const int w_lo = wr0 / group;
+  const int w_hi = (min(wr0 + 16, n_rows) - 1) / group;
+  int pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g8 + 8 * h;
+    pos[h] = r < n_rows ? r / group : -1;
+  }
+  float o[kNT][4], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  const float* wq = s_q + 16 * pair * L::kQ;
+  float4* ex_mine = reinterpret_cast<float4*>(s_ex) + warp * kKT * 32;
+  const float4* ex_other =
+      reinterpret_cast<const float4*>(s_ex) + (warp ^ 1) * kKT * 32;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile it (and, the first time, Q) is in
+    const int k0 = (t0 + it) * kKeys;
+    // Does any row of the pair see a key of the tile?  (The same answer
+    // for both warps of a pair, so both reach pair_sync.)
+    if (warp_live && k0 <= w_hi &&
+        (!kWindow || k0 + kKeys - 1 > w_lo - window)) {
+      const T* sk = s_k + (it & 1) * L::kKElems;
+      const T* sv = s_v + (it & 1) * L::kVElems;
+
+      // This warp's half of S = Q K^T, in two 64-dim chunks, each from
+      // zero.
+      float s[kKT][4];
+#pragma unroll
+      for (int j = 0; j < kKT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int c0 = half * kHalf; c0 < half * kHalf + kHalf; c0 += 64) {
+        float part[kKT][4];
+#pragma unroll
+        for (int j = 0; j < kKT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+        for (int d0 = c0; d0 < c0 + 64; d0 += 8) {
+          // Slot t4 is dim d0 + 2 t4, slot t4 + 4 dim d0 + 2 t4 + 1.
+          const float2 x0 = ld2(wq + g8 * L::kQ + d0 + 2 * t4);
+          const float2 x1 = ld2(wq + (g8 + 8) * L::kQ + d0 + 2 * t4);
+          tf32::Frag a;
+          split(x0.x, a.hi[0], a.lo[0]);
+          split(x1.x, a.hi[1], a.lo[1]);
+          split(x0.y, a.hi[2], a.lo[2]);
+          split(x1.y, a.hi[3], a.lo[3]);
+#pragma unroll
+          for (int j = 0; j < kKT; ++j) {
+            const float2 y = ld2(sk + (8 * j + g8) * L::kK + d0 + 2 * t4);
+            tf32::FragB bf;
+            split_b<T>(y.x, bf.hi[0], bf.lo[0]);
+            split_b<T>(y.y, bf.hi[1], bf.lo[1]);
+            mma<T>(part[j], a, bf);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kKT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
+      }
+      // The pair's halves meet: S = half 0's + half 1's in both warps.
+#pragma unroll
+      for (int j = 0; j < kKT; ++j)
+        ex_mine[j * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2],
+                                             s[j][3]);
+      pair_sync(pair);
+#pragma unroll
+      for (int j = 0; j < kKT; ++j) {   // a + b == b + a: both agree
+        const float4 y = ex_other[j * 32 + lane];
+        s[j][0] += y.x, s[j][1] += y.y, s[j][2] += y.z, s[j][3] += y.w;
+      }
+
+      // Online softmax, as in the tf32 kernel.
+      const bool edge =
+          k0 + kKeys - 1 > w_lo || (kWindow && k0 <= w_hi - window);
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -1e30f;
+#pragma unroll
+        for (int j = 0; j < kKT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = s[j][2 * h + c];
+            if (edge) {
+              const int key = k0 + 8 * j + 2 * t4 + c;
+              const bool ok =
+                  key <= pos[h] && (!kWindow || pos[h] - key < window);
+              x = ok ? x : -INFINITY;
+            }
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        alpha[h] = ex2((m[h] - m_new) * kLog2e);
+        const float ml = m_new * kLog2e;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kKT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = s[j][2 * h + c];
+            x = ex2(fmaf(x, kLog2e, -ml));   // masked: ex2(-inf) = 0
+            sum += x;
+          }
+        l[h] = l[h] * alpha[h] + sum;   // this lane's share; summed at the end
+        m[h] = m_new;
+      }
+
+      // O = O alpha + P V over this warp's 128 dims.
+      tf32::Frag pa[kKT];
+#pragma unroll
+      for (int j = 0; j < kKT; ++j) {
+        split(s[j][0], pa[j].hi[0], pa[j].lo[0]);
+        split(s[j][2], pa[j].hi[1], pa[j].lo[1]);
+        split(s[j][1], pa[j].hi[2], pa[j].lo[2]);
+        split(s[j][3], pa[j].hi[3], pa[j].lo[3]);
+      }
+      const T* svh = sv + half * kHalf;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kKT; ++j) {
+          const T* vp = svh + (8 * j + 2 * t4) * L::kV + 8 * nt + g8;
+          tf32::FragB bf;
+          split_b<T>(ld1(vp), bf.hi[0], bf.lo[0]);
+          split_b<T>(ld1(vp + L::kV), bf.hi[1], bf.lo[1]);
+          mma<T>(part, pa[j], bf);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[nt][e] = fmaf(o[nt][e], alpha[e / 2], part[e]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage and its scores
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (pos[h] < 0) continue;
+    const int r = wr0 + g8 + 8 * h;
+    const float l_safe = fmaxf(sum, 1e-30f);
+    const float inv = 1.f / l_safe;
+    const size_t head_row =
+        ((size_t)b * seq + pos[h]) * n_heads + kvh * group + r % group;
+    T* row = out + head_row * D + half * kHalf;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+      st2(row + 8 * nt + 2 * t4, o[nt][2 * h] * inv, o[nt][2 * h + 1] * inv);
+    if (lse != nullptr && half == 0 && t4 == 0)
+      lse[head_row] = m[h] + logf(l_safe);
+  }
+}
+
+template <typename T, bool kWindow>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int batch, int seq, int n_heads, int n_kv,
+                   int window, float scale, cudaStream_t stream) {
+  auto kernel = flash_kernel_d256<T, kWindow>;
+  constexpr size_t bytes = Layout<T>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(   // once
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  const long long rows = (long long)seq * (n_heads / n_kv);
+  const long long tiles = (rows + kRows - 1) / kRows;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, n_kv, batch);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, seq, n_heads,
+      n_kv, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int batch, int seq, int n_heads, int n_kv,
+                     int window, float scale, cudaStream_t stream) {
+  if (window > 0)
+    return launch<T, true>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                           window, scale, stream);
+  return launch<T, false>(q, k, v, out, lse, batch, seq, n_heads, n_kv, 0,
+                          scale, stream);
+}
+
+}  // namespace sp
+
 // The instantiation by dtype and head dim alone: fma at D 8, 16 and 32;
-// tf32 (float32) or wgmma (bfloat16) at D 64 and 128.
+// tf32 (float32) or wgmma (bfloat16) at D 64 and 128; d256 at D 256.
 template <typename T>
 cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
                      void* out, float* lse, int batch, int seq, int n_heads,
@@ -666,6 +1038,9 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
       else
         return tc::launch_w<128>(q, k, v, out, lse, batch, seq, n_heads,
                                  n_kv, window, scale, stream);
+    case 256:
+      return sp::launch_w<T>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                             window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -674,8 +1049,8 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B, S, H, D], k and v [B, S, KV, D]: contiguous, one dtype (0 =
-// float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64, 128};
-// at D 64 and 128 q, k, v 16-byte aligned, and bfloat16 there
+// float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64, 128,
+// 256}; at D 64 and above q, k, v 16-byte aligned, and bfloat16 there
 // (flash_kernel_wgmma) H / KV <= 64.  window > 0 limits each query to the
 // keys p - window < j <= p; 0 is global causal attention.  out [B, S, H, D]
 // in the inputs' dtype is written, and lse [B, S, H] float32 unless it is

@@ -17,15 +17,16 @@
 // (row tiles, KV, B), one block per 16 of the G = H / KV group heads of a
 // (slot, kv head), so each staged key tile serves every group head (the
 // Pallas grid (B, H, M) streams every page once per query head).  Keys
-// are staged 64 at a time by cp.async, double-buffered; pages wholly left
-// of a sliding window and table entries past the context are never read.
-// ctx == 0 gives exact zeros.  Known limit: at B = 4, KV = 2 the grid has
+// are staged 64 at a time by cp.async, double-buffered (at head dims
+// above 128, gemma3's 256, float32 stages 32: paged::Wide); pages wholly
+// left of a sliding window and table entries past the context are never
+// read.  ctx == 0 gives exact zeros.  Known limit: at B = 4, KV = 2 the grid has
 // 8 blocks for 132 SMs; a context split would fill it.
 #include "paged_attention_common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, typename Cfg>
 __global__ void __launch_bounds__(paged::kThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const T* __restrict__ v_pages,
@@ -35,27 +36,40 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int ctx = context_lens[b];
   // The decode query is the newest row: position ctx - 1, one live row.
-  paged::attend_tile<T>(q, k_pages, v_pages, tables, out, b, kvh, ctx - 1,
+  paged::attend_tile<T, Cfg>(q, k_pages, v_pages, tables, out, b, kvh, ctx - 1,
                         ctx > 0 ? 1 : 0, blockIdx.x * paged::kRowTile, g);
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const int* tables, const int* context_lens, void* out,
-                   int batch, const paged::Geometry& g, cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<T>;
-  // Raised once to what the widest head dim needs (above 48 KB).
+template <typename T, typename Cfg>
+cudaError_t launch_cfg(const void* q, const void* k_pages,
+                       const void* v_pages, const int* tables,
+                       const int* context_lens, void* out, int batch,
+                       const paged::Geometry& g, cudaStream_t stream) {
+  auto kernel = paged_attention_kernel<T, Cfg>;
+  // Raised once to what the instantiation's widest head dim needs.
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)paged::smem_bytes<T>(paged::kMaxHeadDim));
+      (int)paged::smem_bytes<T, Cfg>(Cfg::kMaxDim));
   if (attr != cudaSuccess) return attr;
   const int tiles = (g.H / g.KV + paged::kRowTile - 1) / paged::kRowTile;
   kernel<<<dim3(tiles, g.KV, batch), paged::kThreads,
-           paged::smem_bytes<T>(g.D), stream>>>(
+           paged::smem_bytes<T, Cfg>(g.D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), tables, context_lens,
       static_cast<T*>(out), g);
   return cudaGetLastError();
+}
+
+// The instantiation by head dim: Narrow up to 128, Wide above.
+template <typename T>
+cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const int* tables, const int* context_lens, void* out,
+                   int batch, const paged::Geometry& g, cudaStream_t stream) {
+  if (g.D <= paged::Narrow::kMaxDim)
+    return launch_cfg<T, paged::Narrow>(q, k_pages, v_pages, tables,
+                                        context_lens, out, batch, g, stream);
+  return launch_cfg<T, paged::Wide<T>>(q, k_pages, v_pages, tables,
+                                       context_lens, out, batch, g, stream);
 }
 
 }  // namespace

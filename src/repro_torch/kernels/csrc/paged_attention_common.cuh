@@ -2,6 +2,8 @@
 // (paged_attention.cu: one query per slot; paged_attention_varlen.cu:
 // ragged rows per slot).  Both launch a grid of (row tiles, KV, B) and
 // call attend_tile; they differ only in how a slot's rows are described.
+// Two instantiations of the routine, by head dim: paged::Narrow up to 128
+// and paged::Wide up to 256 (gemma3).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,10 +21,26 @@ constexpr int kThreads = 128;                   // 4 warps per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowTile = 16;                    // query rows per block
 constexpr int kRowsPerWarp = kRowTile / kWarps; // a warp owns 4 rows
-constexpr int kKeys = 64;                       // keys staged per sync
-constexpr int kKeysPerLane = kKeys / 32;
-constexpr int kMaxHeadDim = 128;
-constexpr int kDimsPerLane = kMaxHeadDim / 32;
+constexpr int kMaxHeadDim = 256;                // the widest instantiation
+
+// The compile-time shape of one instantiation of the routine: the head
+// dims it takes (up to kMaxD, kMaxD / 32 output dims a lane) and the keys
+// it stages a sync (kKeys, kKeys / 32 scored a lane).
+template <int kMaxD, int kKeysT>
+struct Tile {
+  static constexpr int kMaxDim = kMaxD;
+  static constexpr int kDimsPerLane = kMaxD / 32;
+  static constexpr int kKeys = kKeysT;
+  static constexpr int kKeysPerLane = kKeysT / 32;
+};
+// D <= 128: 64 keys a stage.
+using Narrow = Tile<128, 64>;
+// 128 < D <= 256: 8 dims a lane.  Two stages of 64 float32 keys at D 256
+// would take 287,232 B of shared memory, over the 232,448 B a block may
+// opt into, so float32 stages 32 keys (151,808 B); bfloat16 keeps 64
+// (156,160 B).
+template <typename T>
+using Wide = Tile<256, sizeof(T) == 4 ? 32 : 64>;
 
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
 
@@ -80,11 +98,11 @@ __host__ __device__ constexpr int row_bytes(int d) {
 // Dynamic shared memory of one block, in bytes:
 // q[kRowTile][D] f32 | k, v[2 stages][kKeys][row] T | p[kRowTile][kKeys]
 // f32 | ok[2 stages][kKeys] int.
-template <typename T>
+template <typename T, typename Cfg>
 inline size_t smem_bytes(int head_dim) {
   return sizeof(float) * kRowTile * head_dim +
-         (size_t)4 * kKeys * row_bytes<T>(head_dim) +
-         sizeof(float) * kRowTile * kKeys + sizeof(int) * 2 * kKeys;
+         (size_t)4 * Cfg::kKeys * row_bytes<T>(head_dim) +
+         sizeof(float) * kRowTile * Cfg::kKeys + sizeof(int) * 2 * Cfg::kKeys;
 }
 
 struct Geometry {
@@ -101,11 +119,12 @@ struct Geometry {
 // (cp.async, 16 bytes a thread per step).  Each key's row comes through
 // its own table entry; a key past `last`, past the table, or whose entry
 // is < 0 or >= NB is never read: its rows are zero and ok[key] is 0.
-template <typename T>
+template <typename T, typename Cfg>
 __device__ __forceinline__ void stage_keys(
     const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ tables, uint8_t* k_s, uint8_t* v_s, int* ok_s,
     int b, int kvh, int k0, int last, const Geometry& g) {
+  constexpr int kKeys = Cfg::kKeys;
   const int chunks = g.D * (int)sizeof(T) / 16;   // per row
   const int rb = row_bytes<T>(g.D);
   for (int e = threadIdx.x; e < 2 * kKeys * chunks; e += kThreads) {
@@ -131,18 +150,22 @@ __device__ __forceinline__ void stage_keys(
 // row r -> token r / G, head kvh * G + r % G (of T * G rows in q/out).
 // Rows of the tile at tokens >= n are written as exact zeros.  Keys run
 // from the oldest row's first visible key to the newest row's position,
-// kKeys at a time, double-buffered: the next tile's cp.async is in flight
-// while this one is used.  Warp w owns rows 4w .. 4w + 3: lane l scores
-// keys l and l + 32 of each, row max and sum by warp shuffles, then
+// Cfg::kKeys at a time, double-buffered: the next tile's cp.async is in
+// flight while this one is used.  Warp w owns rows 4w .. 4w + 3: lane l
+// scores keys l + 32c of each, row max and sum by warp shuffles, then
 // accumulates dims l + 32c of each row's output.  Online softmax in
-// float32, with the update order of the Pallas body.
-template <typename T>
+// float32, with the update order of the Pallas body.  Every instantiation
+// runs the same arithmetic in the same order; Cfg sets only how many keys
+// a stage holds and how many output dims a lane keeps.
+template <typename T, typename Cfg>
 __device__ void attend_tile(const T* __restrict__ q,
                             const T* __restrict__ k_pages,
                             const T* __restrict__ v_pages,
                             const int* __restrict__ tables,
                             T* __restrict__ out, int b, int kvh, int base,
                             int n, int r0, const Geometry& g) {
+  constexpr int kKeys = Cfg::kKeys, kKeysPerLane = Cfg::kKeysPerLane;
+  constexpr int kDimsPerLane = Cfg::kDimsPerLane;
   extern __shared__ __align__(16) uint8_t smem[];
   const int D = g.D, G = g.H / g.KV, rb = row_bytes<T>(D);
   float* q_s = reinterpret_cast<float*>(smem);
@@ -193,8 +216,8 @@ __device__ void attend_tile(const T* __restrict__ q,
   const int first = has_window ? max(0, base + t_lo - g.window + 1) : 0;
   const int n_tiles = (last - first) / kKeys + 1;
 
-  stage_keys<T>(k_pages, v_pages, tables, k_buf(0), v_buf(0), ok_s, b, kvh,
-                first, last, g);
+  stage_keys<T, Cfg>(k_pages, v_pages, tables, k_buf(0), v_buf(0), ok_s, b,
+                     kvh, first, last, g);
   cp_async_commit();
   for (int e = tid; e < kRowTile * D; e += kThreads) {
     const int rr = r0 + e / D, d = e % D;
@@ -215,8 +238,9 @@ __device__ void attend_tile(const T* __restrict__ q,
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it & 1, k0 = first + it * kKeys;
     if (it + 1 < n_tiles) {
-      stage_keys<T>(k_pages, v_pages, tables, k_buf(st ^ 1), v_buf(st ^ 1),
-                    ok_s + (st ^ 1) * kKeys, b, kvh, k0 + kKeys, last, g);
+      stage_keys<T, Cfg>(k_pages, v_pages, tables, k_buf(st ^ 1),
+                         v_buf(st ^ 1), ok_s + (st ^ 1) * kKeys, b, kvh,
+                         k0 + kKeys, last, g);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

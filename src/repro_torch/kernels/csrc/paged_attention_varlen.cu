@@ -21,7 +21,8 @@
 // call 56, not the 8 blocks (one per slot and kv head, walking its rows
 // in serial passes) of the first design.  A tile whose rows are all
 // padding writes its zeros and returns.  Keys are staged 64 at a time
-// (8 pages of 8 rows) by cp.async, 16 bytes a thread, each row through
+// (8 pages of 8 rows; above head dim 128 float32 stages 32, paged::Wide)
+// by cp.async, 16 bytes a thread, each row through
 // its own table entry, double-buffered; each warp owns 4 rows and spreads
 // the keys over its lanes for the scores and the dims for the value
 // product, with the row max and sum from warp shuffles
@@ -32,7 +33,7 @@
 
 namespace {
 
-template <typename T>
+template <typename T, typename Cfg>
 __global__ void __launch_bounds__(paged::kThreads)
 paged_attention_varlen_kernel(const T* __restrict__ q,
                               const T* __restrict__ k_pages,
@@ -42,30 +43,46 @@ paged_attention_varlen_kernel(const T* __restrict__ q,
                               const int* __restrict__ row_len,
                               T* __restrict__ out, paged::Geometry g) {
   const int b = blockIdx.z, kvh = blockIdx.y;
-  paged::attend_tile<T>(q, k_pages, v_pages, tables, out, b, kvh,
+  paged::attend_tile<T, Cfg>(q, k_pages, v_pages, tables, out, b, kvh,
                         row_start[b], row_len[b],
                         blockIdx.x * paged::kRowTile, g);
 }
 
+template <typename T, typename Cfg>
+cudaError_t launch_cfg(const void* q, const void* k_pages,
+                       const void* v_pages, const int* tables,
+                       const int* row_start, const int* row_len, void* out,
+                       int batch, const paged::Geometry& g,
+                       cudaStream_t stream) {
+  auto kernel = paged_attention_varlen_kernel<T, Cfg>;
+  // Raised once to what the instantiation's widest head dim needs.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)paged::smem_bytes<T, Cfg>(Cfg::kMaxDim));
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (g.T * (g.H / g.KV) + paged::kRowTile - 1) /
+                    paged::kRowTile;
+  kernel<<<dim3(tiles, g.KV, batch), paged::kThreads,
+           paged::smem_bytes<T, Cfg>(g.D), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), tables, row_start, row_len,
+      static_cast<T*>(out), g);
+  return cudaGetLastError();
+}
+
+// The instantiation by head dim: Narrow up to 128, Wide above.
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* tables, const int* row_start,
                    const int* row_len, void* out, int batch,
                    const paged::Geometry& g, cudaStream_t stream) {
-  auto kernel = paged_attention_varlen_kernel<T>;
-  // Raised once to what the widest head dim needs (above 48 KB).
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)paged::smem_bytes<T>(paged::kMaxHeadDim));
-  if (attr != cudaSuccess) return attr;
-  const int tiles = (g.T * (g.H / g.KV) + paged::kRowTile - 1) /
-                    paged::kRowTile;
-  kernel<<<dim3(tiles, g.KV, batch), paged::kThreads,
-           paged::smem_bytes<T>(g.D), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), tables, row_start, row_len,
-      static_cast<T*>(out), g);
-  return cudaGetLastError();
+  if (g.D <= paged::Narrow::kMaxDim)
+    return launch_cfg<T, paged::Narrow>(q, k_pages, v_pages, tables,
+                                        row_start, row_len, out, batch, g,
+                                        stream);
+  return launch_cfg<T, paged::Wide<T>>(q, k_pages, v_pages, tables,
+                                       row_start, row_len, out, batch, g,
+                                       stream);
 }
 
 }  // namespace

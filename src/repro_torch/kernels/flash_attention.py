@@ -12,18 +12,21 @@ forward-only).  The plain versions are ``kernels.ref.ref_attention``,
 backward kernel on CUDA tensors, and the plain versions on CPU tensors,
 so the CPU tests drive the same forward/backward wiring the card runs.
 
-Three instantiations of the forward, chosen by the C launcher from
+Four instantiations of the forward, chosen by the C launcher from
 dtype and head dim alone, with or without the logsumexp
 (:func:`flash_impl` names the one a call takes; :data:`FLASH_SYMBOLS`
 the kernel each shows in a profile): float32 at D 64 and 128 takes
 ``tf32``, both products on the tensor cores in 3xTF32 (float32 accuracy;
 ``flash_kernel_tf32``); bfloat16 at D 64 and 128 takes ``wgmma``, tensor
-cores fed by TMA (``flash_kernel_wgmma``); D 8, 16 and 32 take ``fma``,
-float32 FMA from shared memory (``flash_kernel``).  Every one writes the
-logsumexp when asked.  A failure to build or launch raises: nothing
-routes a CUDA tensor to another instantiation or to the plain version.
-The backward has no D-128 path: a gradient at head dim 128 raises
-``ValueError`` on the card before anything launches.
+cores fed by TMA (``flash_kernel_wgmma``); both dtypes at D 256
+(gemma3) take ``d256``, the ``tf32`` products with each 16-row tile
+split over two warps by output dims (``flash_kernel_d256``); D 8, 16 and
+32 take ``fma``, float32 FMA from shared memory (``flash_kernel``).
+Every one writes the logsumexp when asked.  A failure to build or launch
+raises: nothing routes a CUDA tensor to another instantiation or to the
+plain version.  The backward has no D-128 or D-256 path: a gradient at
+those head dims raises ``ValueError`` on the card before anything
+launches.
 
 The backward runs its products on the tensor cores (3xTF32 for float32,
 bfloat16 ``mma`` for bfloat16) on one of two paths, picked by the
@@ -44,14 +47,14 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import Kernel, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32, 64, 128)     # the forward
-_BWD_HEAD_DIMS = (8, 16, 32, 64)      # the backward: no D-128 path yet
-_TC_HEAD_DIMS = (64, 128)             # the tensor-core instantiations
+_HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # the forward
+_BWD_HEAD_DIMS = (8, 16, 32, 64)      # the backward: no D-128 / 256 path yet
+_TC_HEAD_DIMS = (64, 128)             # the tf32 / wgmma instantiations
 _WGMMA_MAX_GROUP = 64   # query heads per kv head: one 64-row wgmma tile
 # The kernel each instantiation shows in a profile (a substring of its
 # demangled name).
 FLASH_SYMBOLS = {"tf32": "flash_kernel_tf32<", "wgmma": "flash_kernel_wgmma<",
-                 "fma": "flash_kernel<"}
+                 "d256": "flash_kernel_d256<", "fma": "flash_kernel<"}
 
 # q, k, v, out, lse | B S H KV D window dtype | scale | stream
 KERNEL = Kernel("flash_attention",
@@ -66,7 +69,10 @@ def flash_impl(dtype: torch.dtype, head_dim: int, lse: bool = False) -> str:
     """The instantiation the launcher takes for these inputs, by dtype
     and head dim alone (``lse``, whether the logsumexp is asked for, does
     not change it): ``"tf32"`` for float32 at head dim 64 or 128,
-    ``"wgmma"`` for bfloat16 there, ``"fma"`` at 8, 16 and 32."""
+    ``"wgmma"`` for bfloat16 there, ``"d256"`` for both at 256, ``"fma"``
+    at 8, 16 and 32."""
+    if head_dim == 256:
+        return "d256"
     if head_dim in _TC_HEAD_DIMS:
         return "tf32" if dtype == torch.float32 else "wgmma"
     return "fma"
@@ -106,12 +112,12 @@ def flash_bwd_impl(dtype: torch.dtype, seq: int, n_heads: int, n_kv: int,
 
 
 def _check_bwd_head_dim(head_dim: int) -> None:
-    """Refuse a head dim the backward kernel has no path for (128 has a
-    forward only), before anything launches."""
+    """Refuse a head dim the backward kernel has no path for (128 and 256
+    have a forward only), before anything launches."""
     if head_dim not in _BWD_HEAD_DIMS:
         raise ValueError(f"{BWD_KERNEL.name}: head dim {head_dim} has no "
                          f"backward kernel (it takes {_BWD_HEAD_DIMS}); "
-                         "the forward alone runs at head dim 128")
+                         "the forward alone runs at head dims 128 and 256")
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,10 +157,10 @@ def flash_attention_cuda(
     """Causal attention of every position over its prefix (and within
     ``window`` of it), ``[B, S, H, D]`` in q's dtype, from inputs of one
     dtype (float32 or bfloat16), contiguous, on one CUDA device; H a
-    multiple of KV and D in {8, 16, 32, 64, 128}.  ``return_lse`` also
+    multiple of KV and D in {8, 16, 32, 64, 128, 256}.  ``return_lse`` also
     returns each row's float32 logsumexp ``[B, S, H]`` (what the
     backward needs): ``(out, lse)``.  The instantiation is
-    ``flash_impl(q.dtype, D)``; at D 64 and 128 q, k, v must be 16-byte
+    ``flash_impl(q.dtype, D)``; at D 64 and above q, k, v must be 16-byte
     aligned (``cp.async`` / TMA), and ``wgmma`` takes H / KV <= 64."""
     name = KERNEL.name
     _check(name, q, k, v, window)
@@ -217,8 +223,8 @@ class FlashAttentionFn(torch.autograd.Function):
     ``v`` [B, S, KV, D] with its gradient: on CUDA tensors the forward
     kernel (keeping each row's logsumexp) and the backward kernel, on
     CPU tensors ``ref_attention_lse`` and ``ref_attention_backward``.
-    On the card a head dim the backward has no path for (128) raises
-    ``ValueError`` here, before the forward launches."""
+    On the card a head dim the backward has no path for (128, 256)
+    raises ``ValueError`` here, before the forward launches."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):

@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels.build import Kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128   # paged::kMaxHeadDim
+MAX_HEAD_DIM = 256   # paged::kMaxHeadDim (gemma3)
 
 # q, k, v, tables, context_lens, out | B H KV NB BS D M window | scale
 # dtype stream

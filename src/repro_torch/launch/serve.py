@@ -38,9 +38,15 @@ through a lag controller's admission hook and prints its verdicts
 vocab 151936; qwen2.5-14b: 48 layers, d 5120, 40 / 8 heads of 128,
 vocab 152064, 14.77 B params, 59.1 GB in float32; codeqwen1.5-7b: 32
 layers, d 4096, 32 / 32 heads of 128, vocab 92416, 8.19 B params, 32.8
-GB; rwkv6-1.6b: 24 layers, d 2048, vocab 65536; hymba-1.5b: 32 layers,
+GB; gemma3-12b: 48 layers, d 3840, 16 / 8 heads of 256, d_ff 15360,
+vocab 262144, tied embeddings, logits soft-capped at 30, a window of
+1024 keys on five layers of six, 11.77 B params, 43.8 GiB in float32;
+rwkv6-1.6b: 24 layers, d 2048, vocab 65536; hymba-1.5b: 32 layers,
 d 1600, vocab 32001) instead of ``reduced_config``; the math
-tokenizer's ids fit in every vocab.
+tokenizer's ids fit in every vocab.  gemma3-12b's pool holds 0.75 MiB a
+token (48 layers x 8 kv heads x 256 x 4 B x 2): the default 128 blocks
+of 8 take 768 MiB; size ``--num-blocks`` / ``--max-seq-len`` for long
+prompts (a 2,048-token prompt: 257 blocks, 1.5 GiB).
 Weights are a random init from ``--seed``, or the checkpoint
 ``--checkpoint`` names (``repro_torch.checkpoint``, the format
 ``repro.checkpoint`` writes; e.g. what ``train rlvr --checkpoint-dir``

@@ -12,7 +12,7 @@ Conventions kept from the JAX package:
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -116,3 +116,10 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
 def mlp_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(dense_apply(p["gate"], x)) * dense_apply(p["up"], x)
     return dense_apply(p["down"], h)
+
+
+def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-style logit soft-capping: ``cap * tanh(logits / cap)``."""
+    if cap is None:
+        return logits
+    return cap * torch.tanh(logits / cap)

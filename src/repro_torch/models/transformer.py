@@ -1,5 +1,6 @@
 """Decoder-only policy backbone (port of ``repro.models.transformer``)
-for the dense qwen family, attention-free rwkv6 and hybrid hymba
+for the dense qwen family, gemma3 (sliding windows on five layers of
+six, soft-capped logits), attention-free rwkv6 and hybrid hymba
 (attention and SSM heads side by side in every layer).
 
 Ported here: ``init_params``; the training/prefill ``forward`` with the
@@ -53,6 +54,7 @@ from repro_torch.models.layers import (
     mlp_init,
     rmsnorm_apply,
     rmsnorm_init,
+    softcap,
 )
 
 
@@ -67,12 +69,15 @@ def arch_unsupported(cfg: ModelConfig) -> Optional[str]:
     """Why the port cannot run this config at all (None = it can)."""
     if cfg.attn_free:
         return None
-    if (cfg.encoder_layers > 0 or cfg.moe is not None
-            or cfg.vision_prefix_len > 0 or cfg.activation != "swiglu"
-            or cfg.logit_softcap is not None):
-        return ("only attention-free rwkv6, hybrid attention+SSM hymba and "
-                "the dense qwen family (SwiGLU, no MoE, no logit softcap) "
-                "are ported yet")
+    if cfg.encoder_layers > 0:
+        return "the encoder-decoder (whisper) is not ported yet"
+    if cfg.moe is not None:
+        return "mixture-of-experts layers are not ported yet"
+    if cfg.vision_prefix_len > 0:
+        return "the vision prefix (paligemma) is not ported yet"
+    if cfg.activation != "swiglu":
+        return (f"the {cfg.activation} MLP is not ported yet (only "
+                "SwiGLU)")
     return None
 
 
@@ -174,13 +179,14 @@ def _paged_qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
 
 def _paged_head_full(params: Dict, cfg: ModelConfig, x: torch.Tensor
                      ) -> ModelOutput:
-    """Final norm + readout (tied, or the ``lm_head``) over every query
-    position ([B, S, V])."""
+    """Final norm + readout (tied, or the ``lm_head``), soft-capped where
+    the config caps its logits, over every query position ([B, S, V])."""
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = embedding_attend(params["embed"], x)
     else:
         logits = dense_apply(params["lm_head"], x)
+    logits = softcap(logits, cfg.logit_softcap)
     value = None
     if cfg.value_head:
         value = dense_apply(params["value_head"], x)[..., 0]

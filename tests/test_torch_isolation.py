@@ -48,6 +48,7 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.configs.hparams" in mods
     assert "repro_torch.configs.qwen2_5_14b" in mods
     assert "repro_torch.configs.codeqwen1_5_7b" in mods
+    assert "repro_torch.configs.gemma3_12b" in mods
     for name in ("resilience.faults", "resilience.supervision",
                  "resilience.signals", "checkpoint.checkpoint",
                  "checkpoint.codec", "runtime.controllers"):
