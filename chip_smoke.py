@@ -404,13 +404,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
     the same noise: equal tokens and prefill counts, log_beta within
     1e-4, pools within 1e-5 of their largest magnitude.
 
-40. head dim 256: ``flash_attention`` (``flash_kernel_d256``) against
-    ``ref_attention`` at gemma3-12b's batched-prefill shape (B 8 x S
-    32, 16 / 8 heads) and B 1 x S 2048 global and with a window of 1024
-    (timed beside the plain version, SDPA and the bound), S 1, ragged
-    and windowed cases, the logsumexp at three of them; then
-    ``paged_attention`` at contexts 45/17/64/33 and past a window of
-    1024, ``paged_attention_varlen`` at T 16 near and past it, and
+40. head dim 256: ``flash_attention`` (float32 ``flash_kernel_d256``,
+    bfloat16 ``flash_kernel_wgmma256``) against ``ref_attention`` at
+    gemma3-12b's batched-prefill shape (B 8 x S 32, 16 / 8 heads) and
+    B 1 x S 2048 global and with a window of 1024 (timed beside the
+    plain version, SDPA and the bound), S 1, ragged and windowed cases,
+    the logsumexp at three of them; then ``paged_attention`` (split over
+    the context) at contexts 45/17/64/33, past a window of 1024, at B 1
+    over 2,064 keys global and windowed (all timed) and at contexts 0 /
+    1 / 2,080 (each decode case called twice for the same bits),
+    ``paged_attention_varlen`` at T 16 near and past the window, and
     ``paged_kv_write`` (4 rows, KV 8, bit-exact); float32 within 2e-5,
     bfloat16 within 2e-2 (the paged kernels' of max(1, |plain|)).
 41. gemma3-12b serve: full width (48 layers, d 3840, 16 / 8 heads of
@@ -423,7 +426,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
     attention on the card: equal greedy tokens but at a top-2 log-prob
     gap under 1e-4, first-token log-probs within 1e-4; launches (flash
     48 a batched prefill dispatch), peak memory, the batched engine's
-    idle share, flash's share of the long prefill.
+    idle share (its profile must show the split decode kernel), flash's
+    share of the long prefill, the long prompt's decode ms a token after
+    the first, and one batched decode round past position 2,048
+    profiled: device ms a step and the split decode's share.
 42. gemma3 parity: the reduced gemma3-12b at head dim 256, dense
     weights x3, ``cpu`` against ``cuda``: 32-token prompts, 16 new
     tokens (past the window of 16) through the chunked and batched
@@ -627,8 +633,8 @@ def bound(nbytes: float, flops: float, dtype: str):
 
 def _tables(gen, lens, torch, nb=NB, m=M):
     """Distinct pages per slot drawn from 1..nb-1; pads are page 0."""
-    perm = torch.randperm(nb - 1, generator=gen)[: B * m] + 1
-    tables = torch.zeros(B, m, dtype=torch.int32)
+    perm = torch.randperm(nb - 1, generator=gen)[: len(lens) * m] + 1
+    tables = torch.zeros(len(lens), m, dtype=torch.int32)
     nxt = 0
     for b, ctx in enumerate(lens):
         n = -(-int(ctx) // BS)
@@ -673,7 +679,7 @@ def _attention_bound(q, rows, lens, window, n_scalars, esize, dtype,
     ``n_scalars`` int32 per slot; for each live slot its live query rows,
     the K/V rows its oldest row can see and the table entries of their
     pages, each read once.  Flops: the valid (query, key) pairs."""
-    nbytes = q.numel() * esize + n_scalars * B * 4
+    nbytes = q.numel() * esize + n_scalars * len(lens) * 4
     flops = 0
     for (start, n), ctx in zip(rows, lens):
         if n <= 0:
@@ -5316,6 +5322,13 @@ D128_PAGED = (("decode", None, [45, 17, 64, 33], None, True),
               ("varlen_t16", [40, 16, 0, 9], [1, 16, 7, 0], None, True))
 
 
+def _paged_symbol(d):
+    """The decode kernel's profiled name at head dim ``d``: the row-tile
+    routine up to 128, the context split above."""
+    return "paged_attention_kernel" if d <= 128 else \
+        "paged_attention_split_kernel"
+
+
 def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
                 nb=NB, m=M, relative=False):
     """The three paged kernels at head dim ``d`` and ``hh`` / ``kk``
@@ -5330,7 +5343,9 @@ def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention import (NARROW_MAX_DIM,
+                                                     paged_attention_cuda,
+                                                     split_geometry)
     from repro_torch.kernels.paged_attention_varlen import \
         paged_attention_varlen_cuda
     from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
@@ -5350,14 +5365,14 @@ def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
         ctx = lens if decode else [a + n for a, n in rows]
         tables = _tables(gen, [max(c, 1) for c in ctx], torch, nb,
                          m).to(dev)
-        shape = (B, hh, d) if decode else (B, 16, hh, d)
+        shape = (len(lens), hh, d) if decode else (len(lens), 16, hh, d)
         q = torch.randn(shape, generator=gen).to(dtype).to(dev)
         if decode:
             args = (q, kp, vp, tables,
                     torch.tensor(ctx, dtype=torch.int32, device=dev))
             kern = lambda: paged_attention_cuda(*args, window=window)
             plain = lambda: ref.ref_paged_attention(*args, window=window)
-            name, symbol = "paged_attention", "paged_attention_kernel"
+            name, symbol = "paged_attention", _paged_symbol(d)
         else:
             args = (q, kp, vp, tables,
                     torch.tensor(row_start, dtype=torch.int32, device=dev),
@@ -5382,9 +5397,21 @@ def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
         for b, (_, n) in enumerate(rows):
             check(bool((g4[b, n:] == 0).all()),
                   f"{tag}: padding rows of slot {b} not zero")
+            check(ctx[b] > 0 or bool((g4[b] == 0).all()),
+                  f"{tag}: slot {b} has no context but is not zero")
         rec = dict(phase="kernel", kernel=name, case=f"{geom}/{case}",
-                   dtype=dname, H=hh, KV=kk, D=d, window=window,
-                   max_abs_err=err, scaled_err=scaled, tol=TOL[dname])
+                   dtype=dname, B=len(lens), H=hh, KV=kk, D=d, window=window,
+                   contexts=ctx, max_abs_err=err, scaled_err=scaled,
+                   tol=TOL[dname])
+        if decode and d > NARROW_MAX_DIM:
+            # The split decode: its split count, and the same bits again
+            # (the splits merge in a fixed order, the tickets reset).
+            rec["splits"] = split_geometry(
+                len(lens), hh, kk, m, BS, window,
+                torch.cuda.get_device_properties(0).multi_processor_count)
+            again = kern()
+            torch.cuda.synchronize()
+            check(torch.equal(again, got), f"{tag}: a second call differs")
         if timed:
             # SDPA over K/V gathered to dense and GQA-expanded (timed
             # only).
@@ -5586,12 +5613,13 @@ def _serve_record(torch, launcher, args, engine, batch):
     return {index[t.request_id]: t for t in trajs}, launches, st, rec
 
 
-def _profiled_serve(torch, launcher, args, make_engine, batch):
+def _profiled_serve(torch, launcher, args, make_engine, batch,
+                    require=None):
     """The idle share of the first wave of ``batch`` (``--max-batch``
     prompts, one engine's slots): its unprofiled wall on one fresh
     engine, then its device busy time under the profiler on another
     (the profiler's own cost, ~10x at this launch count, stays out of
-    the wall)."""
+    the wall).  ``require``: a kernel name the profile must hold."""
     wave = args.max_batch
     args = argparse.Namespace(**dict(vars(args), requests=wave))
     head = tuple(x[:wave] for x in batch)
@@ -5601,6 +5629,8 @@ def _profiled_serve(torch, launcher, args, make_engine, batch):
     engine = make_engine()
     launcher.submit_batch(args, engine, head)
     busy_ms, rows = profile_kernels(lambda: engine.run(max_steps=10_000))
+    check(require is None or any(require in r[0] for r in rows),
+          f"profiled serve: no {require} among {[r[0] for r in rows]}")
     return dict(profiled_requests=wave, profiled_wall_ms=wall_s * 1e3,
                 device_busy_ms=busy_ms,
                 idle_share=max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
@@ -6007,11 +6037,16 @@ D256_FLASH = (  # (case, B, S, H, KV, D, window); the first three timed
 D256_TIMED = 3
 D256_LSE = (D256_FLASH[0], D256_FLASH[2], D256_FLASH[4])
 # Phase 40's paged cases (as D128_PAGED): the decode contexts, decode
-# and a varlen round past gemma3's window of 1024, a varlen round of T 16;
-# tables of 260 pages of 8 rows (contexts up to 2,080).
+# and a varlen round past gemma3's window of 1024 (decode also at B 1 and
+# at contexts 0, 1 and the table's 2,080), a varlen round of T 16; tables
+# of 260 pages of 8 rows (contexts up to 2,080).
 D256_PAGED = (
     ("decode", None, [45, 17, 64, 33], None, True),
     ("decode_long_window", None, [1100, 1500, 2050, 1025], 1024, True),
+    # Phase 41's long prompt decoding at B 1: a global and a local layer.
+    ("decode_b1_global", None, [2064], None, True),
+    ("decode_b1_window", None, [2064], 1024, True),
+    ("decode_edges", None, [0, 1, 2080, 49], 1024, False),
     ("varlen_t16", [40, 16, 0, 9], [1, 16, 7, 0], None, True),
     ("varlen_long_window", [1030, 1084, 0, 1020], [16, 16, 7, 10], 1024,
      False))
@@ -6022,19 +6057,25 @@ G3_ARGS = ["--engine", "continuous", "--arch", "gemma3-12b", "--full-width",
 # Phase 41's long prompt: decode past position 1,024 (every local layer's
 # window then masks keys).
 G3_LONG, G3_LONG_NEW = 2048, 16
-G3_LONG_ENGINES = Q14_ENGINES[:2]           # chunked and batched
+# Chunked and batched; the chunked run takes 64-row tiles, 32 rounds
+# rather than the default's 128 (cut for time: each round is host-bound).
+G3_LONG_ENGINES = (("chunked", ["--prefill-chunk", "64",
+                                "--dispatch-budget", "64"]),
+                   Q14_ENGINES[1])
 
 
 def d256_kernel_phase(torch):
-    """Phase 40: ``flash_attention`` at head dim 256 (``flash_kernel_d256``,
-    both dtypes) against its plain version at gemma3-12b's batched
-    prefill (B 8 x S 32, 16 / 8 heads) and at B 1 x S 2048 global and
-    windowed (all timed), S 1, ragged and windowed cases, and with the
-    logsumexp at three of them; the three paged kernels at 16 / 8 heads
-    of 256 (decode at contexts 45/17/64/33 and past a window of 1024,
-    varlen T 16 near and past it, the K/V row write).  float32 within
-    2e-5, bfloat16 within 2e-2 (paged: of max(1, |plain|)), the
-    logsumexp within 1e-5."""
+    """Phase 40: ``flash_attention`` at head dim 256 (float32
+    ``flash_kernel_d256``, bfloat16 ``flash_kernel_wgmma256``) against its
+    plain version at gemma3-12b's batched prefill (B 8 x S 32, 16 / 8
+    heads) and at B 1 x S 2048 global and windowed (all timed), S 1,
+    ragged and windowed cases, and with the logsumexp at three of them;
+    the three paged kernels at 16 / 8 heads of 256 (the split decode at
+    contexts 45/17/64/33, past a window of 1024, at B 1 over 2,064 keys
+    global and windowed, and at contexts 0 / 1 / 2,080, each called twice
+    for the same bits; varlen T 16 near and past the window; the K/V row
+    write).  float32 within 2e-5, bfloat16 within 2e-2 (paged: of
+    max(1, |plain|)), the logsumexp within 1e-5."""
     headline, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -6196,7 +6237,8 @@ def gemma3_serve_phase(torch):
                             for i, t in want.items()}, prompts, gap)
         if label == "batched":
             rec.update(_profiled_serve(torch, launcher, args,
-                                       lambda a=args: engine_of(a), batch))
+                                       lambda a=args: engine_of(a), batch,
+                                       require=_paged_symbol(cfg.head_dim)))
         runs[label] = rec
 
     # The static engine: one generate over the same prompts, left-padded.
@@ -6258,12 +6300,16 @@ def _gemma3_long_prompt(torch, launcher, parser, bundle, params, store,
     attention on the card.  The chunked run launches the varlen kernel
     and no flash, the batched run flash exactly once a layer and no
     varlen, both the decode kernel and the K/V write; the batched
-    prefill's forward profiled (flash's device share).  Returns the
-    launches of the runs with the kernels."""
+    prefill's forward profiled (flash's device share); the decode ms a
+    token after the first (request latency less TTFT) of each run with
+    the kernels, and one batched decode round profiled
+    (:func:`_gemma3_decode_round`).  Returns the launches of the runs with
+    the kernels."""
     import warnings
     from collections import Counter
 
     from repro_torch import kernels
+    from repro_torch.metrics.runtime_metrics import collect_serve_stats
 
     cfg = bundle.cfg
     n_tok = G3_LONG + G3_LONG_NEW
@@ -6294,6 +6340,7 @@ def _gemma3_long_prompt(torch, launcher, parser, bundle, params, store,
                 trajs, seconds = launcher.run(args, engine)
                 launches = kernels.launch_counts()
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                lat = collect_serve_stats(engine)
             check(len(trajs) == 1 and trajs[0].num_tokens == G3_LONG_NEW,
                   f"gemma3/long/{label}: {[t.num_tokens for t in trajs]}")
             outs.append(trajs[0])
@@ -6312,10 +6359,18 @@ def _gemma3_long_prompt(torch, launcher, parser, bundle, params, store,
             {0: (outs[1].tokens, outs[1].log_beta[0])},
             {0: prompt.tolist()}, gap)
         rec[label] = dict(seconds=seconds, launches=launches, peak_gib=peak,
+                          ttft_ms=lat["ttft_mean_ms"],
+                          decode_ms_per_token=(
+                              lat["request_latency_mean_ms"]
+                              - lat["ttft_mean_ms"]) / (G3_LONG_NEW - 1),
                           first_token=int(outs[0].tokens[0]),
                           first_token_logprob=float(outs[0].log_beta[0]),
                           plain_attention_logprob=float(outs[1].log_beta[0]),
                           first_token_logprob_abs_err=first, near_ties=ties)
+        if label == "batched":
+            rec[label].update(_gemma3_decode_round(
+                torch, launcher, args, bundle, params, store, device, prompt,
+                require=_paged_symbol(cfg.head_dim)))
     row = prompt.to(device)[None]
     with torch.no_grad():
         busy, rows = profile_kernels(lambda: bundle.forward(params, row))
@@ -6324,6 +6379,36 @@ def _gemma3_long_prompt(torch, launcher, parser, bundle, params, store,
                flash_share=flash_ms / busy, top_kernels=rows[:6])
     emit(**rec)
     return total
+
+
+def _gemma3_decode_round(torch, launcher, args, bundle, params, store,
+                         device, prompt, require=None):
+    """One decode round of the long prompt past position 2,048 (every
+    local layer's window masks keys), profiled on a fresh engine once a
+    round has decoded: its device ms a decode step and the decode
+    kernel's share (``require``: a name that kernel must have)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        engine = launcher.make_engine(args, bundle, params, store, device)
+    engine.submit(prompt.numpy(), G3_LONG_NEW)
+    while engine.stats.decode_steps == 0:
+        engine.step()
+    before = engine.stats.decode_steps
+    busy, rows = profile_kernels(engine.step)
+    steps = engine.stats.decode_steps - before
+    paged = sum(ms for name, ms, _ in rows if "paged_attention" in name
+                and "varlen" not in name and (require or "") in name)
+    check(steps > 0 and paged > 0,
+          f"gemma3/long/decode round: {steps} steps, decode kernel "
+          f"{require} {paged} ms in {rows[:8]}")
+    engine.run(max_steps=10_000)
+    return dict(decode_round_steps=steps,
+                decode_step_device_ms=busy / steps,
+                decode_paged_attention_ms=paged / steps,
+                decode_paged_attention_share=paged / busy,
+                decode_top_kernels=rows[:6])
 
 
 def gemma3_parity_phase(torch):
@@ -6454,7 +6539,9 @@ KERNELS = (
 
 
 # ---------------------------------------------------------------------------
-# Comparison mode: ``chip_smoke.py --ab SRC`` measures ``paged_kv_write``,
+# Comparison mode: ``chip_smoke.py --ab SRC [d256]`` measures the head-dim-256
+# flash forward and paged decode (``ab_d256``; ``d256`` stops there), then
+# ``paged_kv_write``,
 # ``ssm_scan``, ``wkv6`` and ``vtrace`` as the model calls them, the
 # ``flash_attention`` forward at the head-dim-128 serve prefills and B 1 x
 # S 2048, at hymba's learner shape with the logsumexp and at its B 1 x
@@ -6469,7 +6556,146 @@ KERNELS = (
 # ---------------------------------------------------------------------------
 
 
-def ab_main(src: str) -> int:
+# ``--ab``'s head-dim-256 cases (gemma3-12b's 16 / 8 heads): the paged
+# decode at phase 40's short contexts, past the window at B 4 and at B 1
+# over 2,064 keys global and windowed; the same decode at head dims 128
+# and 64 (the row-tile routine, which the split leaves as it was).
+AB_PAGED = (  # (case, H, KV, D, contexts, window)
+    ("g3_decode", 16, 8, 256, [45, 17, 64, 33], None),
+    ("g3_decode_long_window", 16, 8, 256, [1100, 1500, 2050, 1025], 1024),
+    ("g3_decode_b1_global", 16, 8, 256, [2064], None),
+    ("g3_decode_b1_window", 16, 8, 256, [2064], 1024),
+    ("g3_decode_b2_window", 16, 8, 256, [2064, 1500], 1024),
+    ("g3_decode_b8_window", 16, 8, 256, [1100, 1500, 2050, 1025] * 2, 1024),
+    ("g3_decode_long", 16, 8, 256, [1100, 1500, 2050, 1025], None),
+    ("q14b_decode", 40, 8, 128, [45, 17, 64, 33], None),
+    ("codeqwen_decode_long", 32, 32, 128, [1100, 1500, 2050, 1025], None),
+    ("qwen05_decode", 14, 2, 64, [45, 17, 64, 33], None))
+
+
+def ab_d256(torch):
+    """``--ab``'s head-dim-256 lines: flash's forward at phase 40's three
+    timed shapes and the paged decode at ``AB_PAGED``, both dtypes, each
+    beside SDPA's time (on gathered K/V for the decode) and its bound;
+    on a tree whose decode splits the context, the split sweep of each
+    head-dim-256 decode case (``_ab_paged_splits``); then one profiled
+    decode round of full-width gemma3-12b past position 2,048
+    (``_ab_decode_round``)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_impl)
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        esize = torch.empty((), dtype=dtype).element_size()
+        for case, bb, s, hh, kk, d, window in D256_FLASH[:D256_TIMED]:
+            gen = torch.Generator(device="cuda").manual_seed(s + hh + d)
+            q, k, v = (torch.randn(bb, s, n, d, generator=gen,
+                                   device="cuda").to(dtype)
+                       for n in (hh, kk, kk))
+            kern = lambda: flash_attention_cuda(q, k, v, window=window)
+            lib = _sdpa_fwd(torch, q, k, v, window)
+            impl = flash_impl(dtype, d)
+            b_ms, b_by = bound(
+                (2 * bb * s * hh * d + 2 * bb * s * kk * d) * esize,
+                4 * d * hh * bb * _attended_pairs(s, window),
+                _flash_rate(impl, dname))
+            emit(phase="ab_flash_fwd", case=case, dtype=dname, impl=impl,
+                 B=bb, S=s, H=hh, KV=kk, D=d, window=window, bound_ms=b_ms,
+                 bound_by=b_by, ms=time_ms(kern, iters=50),
+                 device_ms=device_ms(kern, "flash_kernel"),
+                 library_ms=time_ms(lib, iters=50),
+                 library_device_ms=device_ms(lib, iters=5))
+            del lib
+        for case, hh, kk, d, lens, window in AB_PAGED:
+            gen = torch.Generator().manual_seed(hh * 100 + kk + d)
+            m = -(-max(lens) // BS)
+            nb = len(lens) * m + 1
+            kp, vp = (torch.randn(kk, nb, BS, d, generator=gen).to(dtype)
+                      .to(dev) for _ in range(2))
+            tables = _tables(gen, lens, torch, nb, m).to(dev)
+            q = torch.randn(len(lens), hh, d, generator=gen).to(dtype).to(dev)
+            ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kern = lambda: paged_attention_cuda(q, kp, vp, tables, ctx,
+                                                window=window)
+            got, want = kern(), ref.ref_paged_attention(q, kp, vp, tables,
+                                                        ctx, window=window)
+            keys, vals = (ref._gather_pages(x, tables).repeat_interleave(
+                hh // kk, 0).transpose(0, 1) for x in (kp, vp))
+            kpos = torch.arange(m * BS, device=dev)
+            qpos = ctx[:, None] - 1
+            mask = kpos[None, :] <= qpos
+            if window is not None:
+                mask &= qpos - kpos[None, :] < window
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], keys, vals, attn_mask=mask[:, None, None])
+            b_ms, b_by = _attention_bound(
+                q, [(c - 1, 1) for c in lens], lens, window, 1, esize, dname,
+                hh, kk, d)
+            err = (got.float() - want.float()).abs().max().item()
+            emit(phase="ab_paged_decode", case=case, dtype=dname, H=hh,
+                 KV=kk, D=d, contexts=lens, window=window, max_abs_err=err,
+                 bound_ms=b_ms, bound_by=b_by, ms=time_ms(kern, iters=100),
+                 device_ms=device_ms(kern, "paged_attention"),
+                 library_ms=time_ms(lib, iters=50),
+                 library_device_ms=device_ms(lib, iters=5))
+            if d > 128 and hasattr(pa, "plan_splits"):
+                _ab_paged_splits(torch, pa, kern, case, dname, lens, window)
+            del kp, vp, keys, vals, lib
+    torch.cuda.empty_cache()
+    _ab_decode_round(torch)
+
+
+def _ab_decode_round(torch):
+    """``--ab``'s end-to-end line at head dim 256: full-width gemma3-12b's
+    batched engine on phase 41's long prompt, one decode round past
+    position 2,048 profiled (:func:`_gemma3_decode_round`)."""
+    from repro_torch.launch import serve as launcher
+
+    n_tok = G3_LONG + G3_LONG_NEW
+    args = launcher.build_parser().parse_args(G3_ARGS + [
+        "--no-chunked-prefill", "--max-batch", "1", "--num-blocks",
+        str(-(-n_tok // 8) + 1), "--max-seq-len", str(n_tok)])
+    device, bundle, params, _, store = launcher._model(args)
+    prompt = torch.randint(3, bundle.cfg.vocab_size, (G3_LONG,),
+                           generator=torch.Generator().manual_seed(41))
+    emit(phase="ab_decode_round", **_gemma3_decode_round(
+        torch, launcher, args, bundle, params, store, device, prompt))
+    del params, bundle, store
+    torch.cuda.empty_cache()
+
+
+AB_SPLITS = (1, 2, 4, 8, 12, 16, 24, 32)
+
+
+def _ab_paged_splits(torch, pa, kern, case, dname, lens, window):
+    """The split decode's device ms at each forced split count of
+    ``AB_SPLITS`` (a floor of one stage a split), beside the count the
+    planner picks: what ``plan_splits``' constants were chosen from."""
+    plan = pa.plan_splits
+    floor = pa.SPLIT_MIN_KEYS
+    span = max(lens) if window is None else min(max(lens), window)
+    ms = {}
+    try:
+        pa.SPLIT_MIN_KEYS = pa.SPLIT_STAGE_KEYS
+        for n in AB_SPLITS:
+            pa.plan_splits = lambda groups, s, sms, n=n: n
+            used = -(-span // pa.split_chunk(span, n, pa.SPLIT_STAGE_KEYS))
+            ms[n] = dict(used=used, device_ms=device_ms(kern,
+                                                        "paged_attention"))
+    finally:
+        pa.plan_splits, pa.SPLIT_MIN_KEYS = plan, floor
+    emit(phase="ab_paged_splits", case=case, dtype=dname, contexts=lens,
+         window=window, planned=pa.split_geometry(
+             len(lens), 16, 8, -(-max(lens) // BS), BS, window,
+             torch.cuda.get_device_properties(0).multi_processor_count),
+         planned_device_ms=device_ms(kern, "paged_attention"), forced=ms)
+
+
+def ab_main(src: str, only: str = "") -> int:
     sys.path.insert(0, str(Path(src).resolve()))
     import torch
 
@@ -6487,6 +6713,9 @@ def ab_main(src: str) -> int:
     build.build_all()
     emit(phase="ab_tree", src=str(Path(repro_torch.__file__).parent),
          name=torch.cuda.get_device_name(0))
+    ab_d256(torch)
+    if only == "d256":
+        return 0
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
     for dtype in (torch.float32, torch.bfloat16):
@@ -6883,7 +7112,7 @@ def conditioning_main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
-        sys.exit(ab_main(sys.argv[2]))
+        sys.exit(ab_main(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--grad-conditioning"]:
         sys.exit(conditioning_main())
     sys.exit(main())

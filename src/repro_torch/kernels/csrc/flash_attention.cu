@@ -26,15 +26,18 @@
 // S 32: 3.9 MB, 1.2 us at 3.35 TB/s).  Both products run on the tensor
 // cores at D 64, 128 and 256.
 //
-// Four instantiations, chosen by the launcher from dtype and head dim
+// Five instantiations, chosen by the launcher from dtype and head dim
 // alone (with or without the logsumexp):
 //   float32 at D 64 and 128  -> flash_kernel_tf32 below: 3xTF32 mma.sync
 //                               (mma_tf32.cuh), 495 / 3 TFLOP/s at best;
 //   bfloat16 at D 64 and 128 -> flash_kernel_wgmma
 //                               (flash_attention_wgmma.cuh: wgmma + TMA);
-//   both dtypes at D 256     -> flash_kernel_d256 below (gemma3): the
+//   float32 at D 256         -> flash_kernel_d256 below (gemma3): the
 //                               tf32 kernel's products with each 16-row
 //                               tile split over two warps by output dims;
+//   bfloat16 at D 256        -> flash_kernel_wgmma256
+//                               (flash_attention_wgmma256.cuh: wgmma +
+//                               TMA, Q read from shared memory);
 //   D 8, 16 and 32           -> flash_kernel below: float32 FMA from
 //                               shared memory (the JAX sweep's head dims;
 //                               no model the port runs uses them).
@@ -96,6 +99,7 @@
 #include <type_traits>
 
 #include "flash_attention_wgmma.cuh"
+#include "flash_attention_wgmma256.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -639,7 +643,8 @@ cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// D 256, float32 and bfloat16: two warps a 16-row tile, one a dims half.
+// D 256, float32: two warps a 16-row tile, one a dims half (bfloat16 at
+// D 256 takes flash_kernel_wgmma256).
 // ---------------------------------------------------------------------------
 
 namespace sp {
@@ -659,63 +664,23 @@ constexpr int kKT = kKeys / 8;   // 8-key steps (score n-tiles)
 constexpr int kNT = kHalf / 8;   // 8-dim output tiles of a warp
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
 struct Layout {
-  static constexpr int kQ = D + 8;    // Q row pitch (float32)
-  static constexpr int kK = D + 8;    // K row pitch (elements of T)
-  // V row pitch: 260 floats or 264 bfloat16 put a warp's V reads on 32
-  // distinct banks (two bfloat16 lanes share a word).
-  static constexpr int kV = sizeof(T) == 4 ? D + 4 : D + 8;
+  static constexpr int kQ = D + 8;    // Q row pitch
+  static constexpr int kK = D + 8;    // K row pitch
+  // V row pitch: 260 floats put a warp's V reads on 32 distinct banks.
+  static constexpr int kV = D + 4;
   static constexpr int kQFloats = kRows * kQ;
   static constexpr int kKElems = kKeys * kK;   // one stage
   static constexpr int kVElems = kKeys * kV;
   static constexpr int kExFloats = 8 * kKT * 32 * 4;   // a warp's scores
   static constexpr size_t kBytes =
       sizeof(float) * (kQFloats + kExFloats) +
-      sizeof(T) * 2 * (kKElems + kVElems);
+      sizeof(float) * 2 * (kKElems + kVElems);
 };
 
-// Two consecutive elements as float32.
+// Two consecutive elements.
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float ld1(const float* p) { return *p; }
-__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// The B operand of one product: a float32 value splits into tf32 hi and
-// lo; a bfloat16 value is a tf32 value as it stands (lo would be 0).
-template <typename T>
-__device__ __forceinline__ void split_b(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (std::is_same<T, float>::value) {
-    split(x, hi, lo);
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
-}
-
-// d += a b in float32 accuracy: 3xTF32 for a float32 b, and for a
-// bfloat16 b (exact in tf32) the two products that are not zero.
-template <typename T>
-__device__ __forceinline__ void mma(float (&d)[4], const tf32::Frag& a,
-                                    const tf32::FragB& b) {
-  if constexpr (std::is_same<T, float>::value) {
-    tf32::mma3(d, a, b);
-  } else {
-    tf32::mma_tf32(d, a.lo, b.hi);
-    tf32::mma_tf32(d, a.hi, b.hi);
-  }
 }
 
 // The two warps of one row tile (ids 1-4; 0 is __syncthreads').
@@ -735,20 +700,19 @@ __device__ __forceinline__ void pair_sync(int pair) {
 // columns of V.  Everything else (GQA packing, 32-key tiles by cp.async
 // in a ring of two, masks only on edge tiles, P's A fragment straight
 // from the score accumulator, each tile's P V from zero) is the tf32
-// kernel's.  bfloat16 inputs are staged as they are and widened at the
-// fragment reads; they are exact in tf32, so their lo products vanish.
-template <typename T, bool kWindow>
+// kernel's.
+template <bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_kernel_d256(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out,
+flash_kernel_d256(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
                   float* __restrict__ lse, int seq, int n_heads, int n_kv,
                   int window, float scale) {
-  using L = Layout<T>;
+  using L = Layout;
   extern __shared__ __align__(16) float smem[];
   float* s_q = smem;                                      // [kRows][kQ]
   float* s_ex = s_q + L::kQFloats;                        // [8][kKT][32][4]
-  T* s_k = reinterpret_cast<T*>(s_ex + L::kExFloats);     // [2][kKeys][kK]
-  T* s_v = s_k + 2 * L::kKElems;                          // [2][kKeys][kV]
+  float* s_k = s_ex + L::kExFloats;                       // [2][kKeys][kK]
+  float* s_v = s_k + 2 * L::kKElems;                      // [2][kKeys][kV]
 
   const int group = n_heads / n_kv;
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -766,12 +730,12 @@ flash_kernel_d256(const T* __restrict__ q, const T* __restrict__ k,
   const int t0 = first / kKeys, n_tiles = last / kKeys - t0 + 1;
 
   // Tile it of the walk into ring stage it % 2; keys past S zero-filled.
-  constexpr int kChunk = 16 / sizeof(T);          // elements a cp.async
+  constexpr int kChunk = 4;                       // elements a cp.async
   constexpr int kRowChunks = D / kChunk;
   auto stage = [&](int it) {
     const int k0 = (t0 + it) * kKeys;
-    T* sk = s_k + (it & 1) * L::kKElems;
-    T* sv = s_v + (it & 1) * L::kVElems;
+    float* sk = s_k + (it & 1) * L::kKElems;
+    float* sv = s_v + (it & 1) * L::kVElems;
 #pragma unroll
     for (int i = 0; i < kKeys * kRowChunks / kThreads; ++i) {
       const int e = tid + i * kThreads;
@@ -833,8 +797,8 @@ flash_kernel_d256(const T* __restrict__ q, const T* __restrict__ k,
     // for both warps of a pair, so both reach pair_sync.)
     if (warp_live && k0 <= w_hi &&
         (!kWindow || k0 + kKeys - 1 > w_lo - window)) {
-      const T* sk = s_k + (it & 1) * L::kKElems;
-      const T* sv = s_v + (it & 1) * L::kVElems;
+      const float* sk = s_k + (it & 1) * L::kKElems;
+      const float* sv = s_v + (it & 1) * L::kVElems;
 
       // This warp's half of S = Q K^T, in two 64-dim chunks, each from
       // zero.
@@ -864,9 +828,9 @@ flash_kernel_d256(const T* __restrict__ q, const T* __restrict__ k,
           for (int j = 0; j < kKT; ++j) {
             const float2 y = ld2(sk + (8 * j + g8) * L::kK + d0 + 2 * t4);
             tf32::FragB bf;
-            split_b<T>(y.x, bf.hi[0], bf.lo[0]);
-            split_b<T>(y.y, bf.hi[1], bf.lo[1]);
-            mma<T>(part[j], a, bf);
+            split(y.x, bf.hi[0], bf.lo[0]);
+            split(y.y, bf.hi[1], bf.lo[1]);
+            tf32::mma3(part[j], a, bf);
           }
         }
 #pragma unroll
@@ -933,17 +897,17 @@ flash_kernel_d256(const T* __restrict__ q, const T* __restrict__ k,
         split(s[j][1], pa[j].hi[2], pa[j].lo[2]);
         split(s[j][3], pa[j].hi[3], pa[j].lo[3]);
       }
-      const T* svh = sv + half * kHalf;
+      const float* svh = sv + half * kHalf;
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int j = 0; j < kKT; ++j) {
-          const T* vp = svh + (8 * j + 2 * t4) * L::kV + 8 * nt + g8;
+          const float* vp = svh + (8 * j + 2 * t4) * L::kV + 8 * nt + g8;
           tf32::FragB bf;
-          split_b<T>(ld1(vp), bf.hi[0], bf.lo[0]);
-          split_b<T>(ld1(vp + L::kV), bf.hi[1], bf.lo[1]);
-          mma<T>(part, pa[j], bf);
+          split(vp[0], bf.hi[0], bf.lo[0]);
+          split(vp[L::kV], bf.hi[1], bf.lo[1]);
+          tf32::mma3(part, pa[j], bf);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -965,21 +929,22 @@ flash_kernel_d256(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / l_safe;
     const size_t head_row =
         ((size_t)b * seq + pos[h]) * n_heads + kvh * group + r % group;
-    T* row = out + head_row * D + half * kHalf;
+    float* row = out + head_row * D + half * kHalf;
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
-      st2(row + 8 * nt + 2 * t4, o[nt][2 * h] * inv, o[nt][2 * h + 1] * inv);
+      *reinterpret_cast<float2*>(row + 8 * nt + 2 * t4) =
+          make_float2(o[nt][2 * h] * inv, o[nt][2 * h + 1] * inv);
     if (lse != nullptr && half == 0 && t4 == 0)
       lse[head_row] = m[h] + logf(l_safe);
   }
 }
 
-template <typename T, bool kWindow>
+template <bool kWindow>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int batch, int seq, int n_heads, int n_kv,
                    int window, float scale, cudaStream_t stream) {
-  auto kernel = flash_kernel_d256<T, kWindow>;
-  constexpr size_t bytes = Layout<T>::kBytes;
+  auto kernel = flash_kernel_d256<kWindow>;
+  constexpr size_t bytes = Layout::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(   // once
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return attr;
@@ -988,27 +953,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   dim3 grid((unsigned)tiles, n_kv, batch);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, seq, n_heads,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, seq, n_heads,
       n_kv, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
-                     float* lse, int batch, int seq, int n_heads, int n_kv,
-                     int window, float scale, cudaStream_t stream) {
+inline cudaError_t launch_w(const void* q, const void* k, const void* v,
+                            void* out, float* lse, int batch, int seq,
+                            int n_heads, int n_kv, int window, float scale,
+                            cudaStream_t stream) {
   if (window > 0)
-    return launch<T, true>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
-                           window, scale, stream);
-  return launch<T, false>(q, k, v, out, lse, batch, seq, n_heads, n_kv, 0,
-                          scale, stream);
+    return launch<true>(q, k, v, out, lse, batch, seq, n_heads, n_kv, window,
+                        scale, stream);
+  return launch<false>(q, k, v, out, lse, batch, seq, n_heads, n_kv, 0, scale,
+                       stream);
 }
 
 }  // namespace sp
 
 // The instantiation by dtype and head dim alone: fma at D 8, 16 and 32;
-// tf32 (float32) or wgmma (bfloat16) at D 64 and 128; d256 at D 256.
+// tf32 (float32) or wgmma (bfloat16) at D 64 and 128; d256 (float32) or
+// wgmma256 (bfloat16) at D 256.
 template <typename T>
 cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
                      void* out, float* lse, int batch, int seq, int n_heads,
@@ -1039,8 +1005,12 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
         return tc::launch_w<128>(q, k, v, out, lse, batch, seq, n_heads,
                                  n_kv, window, scale, stream);
     case 256:
-      return sp::launch_w<T>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
-                             window, scale, stream);
+      if constexpr (kBf16)
+        return wg256::launch_w(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                               window, scale, stream);
+      else
+        return sp::launch_w(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                            window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1051,10 +1021,11 @@ cudaError_t launch_d(int dim, const void* q, const void* k, const void* v,
 // q [B, S, H, D], k and v [B, S, KV, D]: contiguous, one dtype (0 =
 // float32, 1 = bfloat16), H a multiple of KV, D in {8, 16, 32, 64, 128,
 // 256}; at D 64 and above q, k, v 16-byte aligned, and bfloat16 there
-// (flash_kernel_wgmma) H / KV <= 64.  window > 0 limits each query to the
-// keys p - window < j <= p; 0 is global causal attention.  out [B, S, H, D]
-// in the inputs' dtype is written, and lse [B, S, H] float32 unless it is
-// null.  Returns the cudaError_t of the launch.
+// (flash_kernel_wgmma, flash_kernel_wgmma256) H / KV <= 64.  window > 0
+// limits each query to the keys p - window < j <= p; 0 is global causal
+// attention.  out [B, S, H, D] in the inputs' dtype is written, and lse
+// [B, S, H] float32 unless it is null.  Returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int batch, int seq, int n_heads,

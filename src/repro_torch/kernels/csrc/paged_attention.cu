@@ -12,17 +12,20 @@
 // microsecond at 3.35 TB/s, so a launch (a few microseconds) is what a
 // call costs: the kernel is launch-bound there, not bandwidth-bound.
 //
-// Design: the ragged kernel's block routine (paged_attention_common.cuh,
-// attend_tile) with one live row per slot at position ctx - 1: grid
-// (row tiles, KV, B), one block per 16 of the G = H / KV group heads of a
-// (slot, kv head), so each staged key tile serves every group head (the
-// Pallas grid (B, H, M) streams every page once per query head).  Keys
-// are staged 64 at a time by cp.async, double-buffered (at head dims
-// above 128, gemma3's 256, float32 stages 32: paged::Wide); pages wholly
-// left of a sliding window and table entries past the context are never
-// read.  ctx == 0 gives exact zeros.  Known limit: at B = 4, KV = 2 the grid has
-// 8 blocks for 132 SMs; a context split would fill it.
+// Design, D <= 128: the ragged kernel's block routine
+// (paged_attention_common.cuh, attend_tile, paged::Narrow) with one live
+// row per slot at position ctx - 1: grid (row tiles, KV, B), one block per
+// 16 of the G = H / KV group heads of a (slot, kv head), so each staged
+// key tile serves every group head (the Pallas grid (B, H, M) streams
+// every page once per query head).  Keys are staged 64 at a time by
+// cp.async, double-buffered; pages wholly left of a sliding window and
+// table entries past the context are never read.  ctx == 0 gives exact
+// zeros.  Known limit: at B = 4, KV = 2 the grid has 8 blocks for 132 SMs.
+// Above head dim 128 (gemma3's 256) the decode is split over the context
+// instead (paged_attention_split.cuh): grid (splits x row tiles, KV, B),
+// the splits merged in one launch by the last block to finish.
 #include "paged_attention_common.cuh"
+#include "paged_attention_split.cuh"
 
 namespace {
 
@@ -60,28 +63,36 @@ cudaError_t launch_cfg(const void* q, const void* k_pages,
   return cudaGetLastError();
 }
 
-// The instantiation by head dim: Narrow up to 128, Wide above.
+// The routine by head dim: Narrow up to 128, the context split above.
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* tables, const int* context_lens, void* out,
-                   int batch, const paged::Geometry& g, cudaStream_t stream) {
+                   float* part, int* tickets, int batch,
+                   const paged::Geometry& g, int n_splits, int min_keys,
+                   cudaStream_t stream) {
   if (g.D <= paged::Narrow::kMaxDim)
     return launch_cfg<T, paged::Narrow>(q, k_pages, v_pages, tables,
                                         context_lens, out, batch, g, stream);
-  return launch_cfg<T, paged::Wide<T>>(q, k_pages, v_pages, tables,
-                                       context_lens, out, batch, g, stream);
+  return paged::split::launch<T>(q, k_pages, v_pages, tables, context_lens,
+                                 out, part, tickets, batch, g, n_splits,
+                                 min_keys, stream);
 }
 
 }  // namespace
 
 // q [B, H, D], pages [KV, NB, BS, D], tables [B, M] int32, context_lens [B]
 // int32, out [B, H, D]; all contiguous, q/pages/out of one dtype.
-// window < 0 means global attention.  Returns cudaGetLastError().
+// window < 0 means global attention.  Above head dim 128 the decode takes
+// n_splits context splits of at least min_keys keys; at n_splits > 1,
+// part is float32 scratch of B * H * n_splits * (D + 2) and tickets int32
+// of B * H, all 0 (the kernel leaves them 0).  D <= 128 reads none of the
+// four.  Returns cudaGetLastError().
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* tables, const void* context_lens, void* out, int batch,
-    int heads, int kv_heads, int num_blocks, int block_size, int head_dim,
-    int max_blocks, int window, float scale, int dtype, void* stream) {
+    const void* tables, const void* context_lens, void* out, void* part,
+    void* tickets, int batch, int heads, int kv_heads, int num_blocks,
+    int block_size, int head_dim, int max_blocks, int window, int n_splits,
+    int min_keys, float scale, int dtype, void* stream) {
   paged::Geometry g{1, heads, kv_heads, num_blocks, block_size, head_dim,
                     max_blocks, window, scale};
   cudaError_t err = paged::check_geometry(g, batch);
@@ -89,13 +100,16 @@ extern "C" int paged_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tbl = static_cast<const int*>(tables);
   const int* lens = static_cast<const int*>(context_lens);
+  float* pf = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
   switch (dtype) {
     case paged::kFloat32:
-      return (int)launch<float>(q, k_pages, v_pages, tbl, lens, out, batch, g,
-                                s);
+      return (int)launch<float>(q, k_pages, v_pages, tbl, lens, out, pf, tk,
+                                batch, g, n_splits, min_keys, s);
     case paged::kBFloat16:
       return (int)launch<__nv_bfloat16>(q, k_pages, v_pages, tbl, lens, out,
-                                        batch, g, s);
+                                        pf, tk, batch, g, n_splits, min_keys,
+                                        s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,11 @@
 // Shared block routine of the two paged-attention kernels
-// (paged_attention.cu: one query per slot; paged_attention_varlen.cu:
-// ragged rows per slot).  Both launch a grid of (row tiles, KV, B) and
-// call attend_tile; they differ only in how a slot's rows are described.
-// Two instantiations of the routine, by head dim: paged::Narrow up to 128
-// and paged::Wide up to 256 (gemma3).
+// (paged_attention.cu: one query per slot, up to head dim 128;
+// paged_attention_varlen.cu: ragged rows per slot).  Both launch a grid
+// of (row tiles, KV, B) and call attend_tile; they differ only in how a
+// slot's rows are described.  Two instantiations of the routine, by head
+// dim: paged::Narrow up to 128 and paged::Wide up to 256 (gemma3's
+// varlen rounds; its decode is split over the context instead,
+// paged_attention_split.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

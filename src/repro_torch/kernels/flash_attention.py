@@ -12,16 +12,18 @@ forward-only).  The plain versions are ``kernels.ref.ref_attention``,
 backward kernel on CUDA tensors, and the plain versions on CPU tensors,
 so the CPU tests drive the same forward/backward wiring the card runs.
 
-Four instantiations of the forward, chosen by the C launcher from
+Five instantiations of the forward, chosen by the C launcher from
 dtype and head dim alone, with or without the logsumexp
 (:func:`flash_impl` names the one a call takes; :data:`FLASH_SYMBOLS`
 the kernel each shows in a profile): float32 at D 64 and 128 takes
 ``tf32``, both products on the tensor cores in 3xTF32 (float32 accuracy;
 ``flash_kernel_tf32``); bfloat16 at D 64 and 128 takes ``wgmma``, tensor
-cores fed by TMA (``flash_kernel_wgmma``); both dtypes at D 256
-(gemma3) take ``d256``, the ``tf32`` products with each 16-row tile
-split over two warps by output dims (``flash_kernel_d256``); D 8, 16 and
-32 take ``fma``, float32 FMA from shared memory (``flash_kernel``).
+cores fed by TMA (``flash_kernel_wgmma``); at D 256 (gemma3) float32
+takes ``d256``, the ``tf32`` products with each 16-row tile split over
+two warps by output dims (``flash_kernel_d256``), and bfloat16
+``wgmma256``, the ``wgmma`` design with Q read from shared memory
+(``flash_kernel_wgmma256``); D 8, 16 and 32 take ``fma``, float32 FMA
+from shared memory (``flash_kernel``).
 Every one writes the logsumexp when asked.  A failure to build or launch
 raises: nothing routes a CUDA tensor to another instantiation or to the
 plain version.  The backward has no D-128 or D-256 path: a gradient at
@@ -54,7 +56,8 @@ _WGMMA_MAX_GROUP = 64   # query heads per kv head: one 64-row wgmma tile
 # The kernel each instantiation shows in a profile (a substring of its
 # demangled name).
 FLASH_SYMBOLS = {"tf32": "flash_kernel_tf32<", "wgmma": "flash_kernel_wgmma<",
-                 "d256": "flash_kernel_d256<", "fma": "flash_kernel<"}
+                 "d256": "flash_kernel_d256<",
+                 "wgmma256": "flash_kernel_wgmma256<", "fma": "flash_kernel<"}
 
 # q, k, v, out, lse | B S H KV D window dtype | scale | stream
 KERNEL = Kernel("flash_attention",
@@ -69,10 +72,10 @@ def flash_impl(dtype: torch.dtype, head_dim: int, lse: bool = False) -> str:
     """The instantiation the launcher takes for these inputs, by dtype
     and head dim alone (``lse``, whether the logsumexp is asked for, does
     not change it): ``"tf32"`` for float32 at head dim 64 or 128,
-    ``"wgmma"`` for bfloat16 there, ``"d256"`` for both at 256, ``"fma"``
-    at 8, 16 and 32."""
+    ``"wgmma"`` for bfloat16 there, ``"d256"`` for float32 and
+    ``"wgmma256"`` for bfloat16 at 256, ``"fma"`` at 8, 16 and 32."""
     if head_dim == 256:
-        return "d256"
+        return "d256" if dtype == torch.float32 else "wgmma256"
     if head_dim in _TC_HEAD_DIMS:
         return "tf32" if dtype == torch.float32 else "wgmma"
     return "fma"
@@ -161,13 +164,14 @@ def flash_attention_cuda(
     returns each row's float32 logsumexp ``[B, S, H]`` (what the
     backward needs): ``(out, lse)``.  The instantiation is
     ``flash_impl(q.dtype, D)``; at D 64 and above q, k, v must be 16-byte
-    aligned (``cp.async`` / TMA), and ``wgmma`` takes H / KV <= 64."""
+    aligned (``cp.async`` / TMA), and ``wgmma`` / ``wgmma256`` take
+    H / KV <= 64."""
     name = KERNEL.name
     _check(name, q, k, v, window)
     b, s, h, d = q.shape
     kv = k.shape[2]
     impl = flash_impl(q.dtype, d)
-    if impl == "wgmma" and h // kv > _WGMMA_MAX_GROUP:
+    if impl in ("wgmma", "wgmma256") and h // kv > _WGMMA_MAX_GROUP:
         raise ValueError(f"{name}: bfloat16 at D {d} takes at most "
                          f"{_WGMMA_MAX_GROUP} query heads per kv head, "
                          f"got {h // kv}")

@@ -14,6 +14,9 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core.vtrace import vtrace
+from repro_torch.kernels.paged_attention import (SPLIT_MIN_KEYS,
+                                                 SPLIT_STAGE_KEYS,
+                                                 split_chunk)
 
 NEG_INF = -1e30
 
@@ -59,6 +62,58 @@ def ref_paged_attention(
     out = torch.where((ctx > 0)[:, None, None, None], out,
                       torch.zeros_like(out))
     return out.reshape(b, h, d)
+
+
+def ref_paged_attention_split(
+    q: torch.Tensor,             # [B, H, D]
+    k_pages: torch.Tensor,       # [KV, NB, BS, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32
+    context_lens: torch.Tensor,  # [B] int32 (0 = inactive -> zero output)
+    *,
+    window: Optional[int] = None,
+    n_splits: int = 1,
+    min_keys: int = SPLIT_MIN_KEYS,
+    stage: int = SPLIT_STAGE_KEYS,
+) -> torch.Tensor:
+    """The decode split over the context, as the kernel above head dim
+    128 computes it (``csrc/paged_attention_split.cuh``): slot b's visible
+    keys ``[first, ctx - 1]`` cut into spans of ``split_chunk`` keys (the
+    later of ``n_splits`` splits may see none); per split, in float32,
+    its max ``m``, sum ``l`` and unnormalised values ``acc``; then the
+    splits that see a key merged in split order: ``M = max m_s``,
+    ``l = sum l_s exp(m_s - M)``, ``acc`` likewise, ``out = acc /
+    max(l, 1e-30)``.  ``ctx == 0`` gives zeros.  The probabilities stay
+    float32 (the kernel's, not the JAX oracle's cast to q's dtype)."""
+    kv, _, _, d = k_pages.shape
+    b, h, _ = q.shape
+    keys = _gather_pages(k_pages, block_tables).float()
+    vals = _gather_pages(v_pages, block_tables).float()
+    qg = q.reshape(b, kv, h // kv, d).float() * d ** -0.5
+    out = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+    for bi, ctx in enumerate(context_lens.tolist()):
+        if ctx <= 0:
+            continue
+        first = 0 if window is None else max(0, ctx - int(window))
+        chunk = split_chunk(ctx - first, n_splits, min_keys, stage)
+        parts = []
+        for lo in range(first, ctx, chunk)[:n_splits]:
+            hi = min(ctx, lo + chunk)
+            s = torch.einsum("kgd,ksd->kgs", qg[bi], keys[:, bi, lo:hi])
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1),
+                          torch.einsum("kgs,ksd->kgd", p, vals[:, bi, lo:hi])))
+        m_all = parts[0][0]
+        for m, _, _ in parts[1:]:
+            m_all = torch.maximum(m_all, m)
+        l_all, acc = torch.zeros_like(m_all), torch.zeros_like(out[bi])
+        for m, l, a in parts:
+            scale = torch.exp(m - m_all)
+            l_all = l_all + l * scale
+            acc = acc + a * scale[..., None]
+        out[bi] = acc / l_all.clamp(min=1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def ref_paged_attention_varlen(

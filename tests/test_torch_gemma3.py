@@ -299,7 +299,8 @@ def test_flash_gradient_at_head_dim_256_raises_before_any_launch():
     """The backward has no head-dim-256 path: the check the card's
     route runs first (in ``FlashAttentionFn.forward`` and the backward's
     wrapper) raises ``ValueError``, so nothing launches; the forward's
-    instantiation at 256 is ``d256`` in both dtypes."""
+    instantiation at 256 is ``d256`` in float32 and ``wgmma256`` in
+    bfloat16."""
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="head dim 256"):
         flash_mod._check_bwd_head_dim(256)
@@ -309,10 +310,11 @@ def test_flash_gradient_at_head_dim_256_raises_before_any_launch():
     with pytest.raises(ValueError, match="head dim 256"):
         flash_mod.flash_attention_bwd_cuda(x, x, x, x, lse, x)
     assert sum(kernels.launch_counts().values()) == 0
-    for dtype in (torch.float32, torch.bfloat16):
-        assert flash_mod.flash_impl(dtype, 256) == "d256"
-        assert flash_mod.flash_impl(dtype, 256, lse=True) == "d256"
-    assert "d256" in flash_mod.FLASH_SYMBOLS
+    for dtype, impl in ((torch.float32, "d256"),
+                        (torch.bfloat16, "wgmma256")):
+        assert flash_mod.flash_impl(dtype, 256) == impl
+        assert flash_mod.flash_impl(dtype, 256, lse=True) == impl
+        assert impl in flash_mod.FLASH_SYMBOLS
     # The CPU route differentiates the plain attention at 256.
     q = torch.randn(1, 5, 2, 256, requires_grad=True)
     ops.attention(q, q.detach(), q.detach()).sum().backward()

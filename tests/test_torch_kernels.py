@@ -228,12 +228,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "tf32"),
     (torch.bfloat16, 32, "fma"), (torch.bfloat16, 8, "fma"),
     (torch.float32, 16, "fma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.float32, 128, "tf32"), (torch.float32, 32, "fma")])
+    (torch.float32, 128, "tf32"), (torch.float32, 32, "fma"),
+    (torch.float32, 256, "d256"), (torch.bfloat16, 256, "wgmma256")])
 def test_flash_instantiation_depends_on_dtype_and_head_dim_alone(dtype, d,
                                                                  impl, lse):
-    """Both dtypes at D 64 and 128 take a tensor-core path (float32
-    ``tf32``, bfloat16 ``wgmma``), D 8, 16 and 32 the FMA kernel, with
-    or without the logsumexp, whatever the other shapes."""
+    """Both dtypes at D 64, 128 and 256 take a tensor-core path (float32
+    ``tf32`` / ``d256``, bfloat16 ``wgmma`` / ``wgmma256``), D 8, 16 and
+    32 the FMA kernel, with or without the logsumexp, whatever the other
+    shapes."""
     from repro_torch.kernels.flash_attention import FLASH_SYMBOLS, flash_impl
 
     assert flash_impl(dtype, d, lse) == impl
