@@ -413,9 +413,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
     the context) at contexts 45/17/64/33, past a window of 1024, at B 1
     over 2,064 keys global and windowed (all timed) and at contexts 0 /
     1 / 2,080 (each decode case called twice for the same bits),
-    ``paged_attention_varlen`` at T 16 near and past the window, and
-    ``paged_kv_write`` (4 rows, KV 8, bit-exact); float32 within 2e-5,
-    bfloat16 within 2e-2 (the paged kernels' of max(1, |plain|)).
+    ``paged_attention_varlen`` (on the tensor cores, split over the
+    context) at T 16 near and past the window and at phase 41's last
+    chunked round of the long prompt, 64 rows at position 1,984, global
+    and past a window of 1024 (timed; each varlen case called twice for
+    the same bits), and ``paged_kv_write`` (4 rows, KV 8, bit-exact);
+    float32 within 2e-5, bfloat16 within 2e-2 (the paged kernels' of
+    max(1, |plain|)).
 41. gemma3-12b serve: full width (48 layers, d 3840, 16 / 8 heads of
     256, d_ff 15360, vocab 262144, softcap 30, window 1024 on five
     layers of six, 11.77 B params, seeded random init, float32) with
@@ -5329,13 +5333,30 @@ def _paged_symbol(d):
         "paged_attention_split_kernel"
 
 
+def _varlen_symbol(d):
+    """The varlen kernel's profiled name at head dim ``d``: the row-tile
+    routine up to 128, the tensor-core split above."""
+    return "paged_attention_varlen_kernel" if d <= 128 else \
+        "varlen_d256_kernel"
+
+
+def _paged_rate(name, d, dname):
+    """The ``PEAK_FLOPS`` key of a paged kernel's bound: 3xTF32 on the
+    tensor cores for the varlen kernel's float32 above head dim 128, else
+    the dtype's (the FMA pipes in float32)."""
+    return "tf32x3" if (name == "paged_attention_varlen" and d > 128
+                        and dname == "float32") else dname
+
+
 def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
                 nb=NB, m=M, relative=False):
     """The three paged kernels at head dim ``d`` and ``hh`` / ``kk``
     heads against their plain versions (phase 36 at head dim 128: decode
     at contexts 45/17/64/33, a varlen round of T 16; phase 40 adds
     contexts past a window of 1024 over pools of ``nb`` pages and tables
-    of ``m``), then a decode step's K/V rows, bit-exact also through
+    of ``m``, and phase 41's long chunk of 64 rows; above head dim 128
+    each is called twice for the same bits), then a decode step's K/V
+    rows, bit-exact also through
     ``ops.paged_kv_write``; a timed case and the write beside the plain
     version, a library call and the bound.  float32 within 2e-5,
     bfloat16 within 2e-2 (``relative``: of max(1, |plain|), as phase 40
@@ -5346,13 +5367,14 @@ def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
     from repro_torch.kernels.paged_attention import (NARROW_MAX_DIM,
                                                      paged_attention_cuda,
                                                      split_geometry)
-    from repro_torch.kernels.paged_attention_varlen import \
-        paged_attention_varlen_cuda
+    from repro_torch.kernels.paged_attention_varlen import (
+        paged_attention_varlen_cuda, varlen_splits)
     from repro_torch.kernels.paged_kv_write import paged_kv_write_cuda
 
     dev = torch.device("cuda")
     dname = str(dtype).split(".")[-1]
     esize = torch.empty((), dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(hh * 100 + kk)
     kp, vp = (torch.randn(kk, nb, BS, d, generator=gen) for _ in range(2))
     kp[:, 0] = vp[:, 0] = 1e4         # the pad page: poison, as phase 3
@@ -5365,7 +5387,8 @@ def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
         ctx = lens if decode else [a + n for a, n in rows]
         tables = _tables(gen, [max(c, 1) for c in ctx], torch, nb,
                          m).to(dev)
-        shape = (len(lens), hh, d) if decode else (len(lens), 16, hh, d)
+        t = max(16, max(lens))   # a varlen round's rows a slot
+        shape = (len(lens), hh, d) if decode else (len(lens), t, hh, d)
         q = torch.randn(shape, generator=gen).to(dtype).to(dev)
         if decode:
             args = (q, kp, vp, tables,
@@ -5380,8 +5403,7 @@ def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
             kern = lambda: paged_attention_varlen_cuda(*args, window=window)
             plain = lambda: ref.ref_paged_attention_varlen(*args,
                                                            window=window)
-            name = "paged_attention_varlen"
-            symbol = "paged_attention_varlen_kernel"
+            name, symbol = "paged_attention_varlen", _varlen_symbol(d)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -5403,12 +5425,12 @@ def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
                    dtype=dname, B=len(lens), H=hh, KV=kk, D=d, window=window,
                    contexts=ctx, max_abs_err=err, scaled_err=scaled,
                    tol=TOL[dname])
-        if decode and d > NARROW_MAX_DIM:
-            # The split decode: its split count, and the same bits again
-            # (the splits merge in a fixed order, the tickets reset).
-            rec["splits"] = split_geometry(
-                len(lens), hh, kk, m, BS, window,
-                torch.cuda.get_device_properties(0).multi_processor_count)
+        if d > NARROW_MAX_DIM:
+            # Split over the context: the split count, and the same bits
+            # again (the splits merge in a fixed order, the tickets reset).
+            rec["splits"] = (split_geometry(len(lens), hh, kk, m, BS,
+                                            window, sms) if decode else
+                             varlen_splits(t, hh, kk, m, BS, window, sms))
             again = kern()
             torch.cuda.synchronize()
             check(torch.equal(again, got), f"{tag}: a second call differs")
@@ -5428,8 +5450,9 @@ def _paged_heads(torch, dtype, geom, hh, kk, d=128, cases=D128_PAGED,
             lib = lambda: F.scaled_dot_product_attention(
                 qh, keys, vals, attn_mask=mask[:, None])
             b_ms, b_by = _attention_bound(q, rows, ctx, window,
-                                          1 if decode else 2, esize, dname,
-                                          hh, kk, d)
+                                          1 if decode else 2, esize,
+                                          _paged_rate(name, d, dname), hh,
+                                          kk, d)
             rec.update(
                 kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
                 library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
@@ -6038,8 +6061,9 @@ D256_TIMED = 3
 D256_LSE = (D256_FLASH[0], D256_FLASH[2], D256_FLASH[4])
 # Phase 40's paged cases (as D128_PAGED): the decode contexts, decode
 # and a varlen round past gemma3's window of 1024 (decode also at B 1 and
-# at contexts 0, 1 and the table's 2,080), a varlen round of T 16; tables
-# of 260 pages of 8 rows (contexts up to 2,080).
+# at contexts 0, 1 and the table's 2,080), a varlen round of T 16, and
+# phase 41's long chunk of 64 rows; tables of 260 pages of 8 rows
+# (contexts up to 2,080).
 D256_PAGED = (
     ("decode", None, [45, 17, 64, 33], None, True),
     ("decode_long_window", None, [1100, 1500, 2050, 1025], 1024, True),
@@ -6049,7 +6073,11 @@ D256_PAGED = (
     ("decode_edges", None, [0, 1, 2080, 49], 1024, False),
     ("varlen_t16", [40, 16, 0, 9], [1, 16, 7, 0], None, True),
     ("varlen_long_window", [1030, 1084, 0, 1020], [16, 16, 7, 10], 1024,
-     False))
+     False),
+    # Phase 41's last chunked round of the long prompt (64 rows of slot 0
+    # at 1,984, three idle slots): a global and a local layer.
+    ("varlen_chunk_global", [1984, 0, 0, 0], [64, 0, 0, 0], None, True),
+    ("varlen_chunk_window", [1984, 0, 0, 0], [64, 0, 0, 0], 1024, True))
 D256_M = 260
 D256_NB = B * D256_M + 1
 G3_ARGS = ["--engine", "continuous", "--arch", "gemma3-12b", "--full-width",
@@ -6073,9 +6101,11 @@ def d256_kernel_phase(torch):
     the three paged kernels at 16 / 8 heads of 256 (the split decode at
     contexts 45/17/64/33, past a window of 1024, at B 1 over 2,064 keys
     global and windowed, and at contexts 0 / 1 / 2,080, each called twice
-    for the same bits; varlen T 16 near and past the window; the K/V row
-    write).  float32 within 2e-5, bfloat16 within 2e-2 (paged: of
-    max(1, |plain|)), the logsumexp within 1e-5."""
+    for the same bits; varlen T 16 near and past the window and phase
+    41's last chunked round of the long prompt, global and windowed, each
+    called twice for the same bits; the K/V row write).  float32 within
+    2e-5, bfloat16 within 2e-2 (paged: of max(1, |plain|)), the
+    logsumexp within 1e-5."""
     headline, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -6092,9 +6122,13 @@ def d256_kernel_phase(torch):
         recs = _paged_heads(torch, dtype, "gemma3-12b", 16, 8, d=256,
                            cases=D256_PAGED, nb=D256_NB, m=D256_M,
                            relative=True)
-        for name, case in (("paged_attention", "decode"),
-                           ("paged_attention_varlen", "varlen_t16")):
-            key = (f"{name}_d256", dname)
+        for name, case, entry in (
+                ("paged_attention", "decode", "paged_attention_d256"),
+                ("paged_attention_varlen", "varlen_t16",
+                 "paged_attention_varlen_d256"),
+                ("paged_attention_varlen", "varlen_chunk_window",
+                 "paged_attention_varlen_d256_chunk")):
+            key = (entry, dname)
             headline[key] = recs[(name, case)]
             worst[key] = max(r["max_abs_err"] for (n, _), r in recs.items()
                              if n == name)
@@ -6512,11 +6546,17 @@ KERNELS = (
      "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention_pallas.py:109"),
     # The head-dim-256 instantiations (gemma3-12b): numbers phase 40's at
-    # its batched-prefill shape and decode / varlen T 16 contexts,
-    # launches phase 41's runs with the kernels together.
+    # its batched-prefill shape, the decode contexts and the varlen T 16
+    # round, launches phase 41's runs with the kernels together.
     ("paged_attention_d256", "src/repro_torch/kernels/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention_pallas.py:128"),
     ("paged_attention_varlen_d256",
+     "src/repro_torch/kernels/csrc/paged_attention_varlen.cu",
+     "src/repro/kernels/paged_attention_pallas.py:262"),
+    # The same varlen kernel at the long prompt's windowed 64-row chunk
+    # (its most launched shape in phase 41): its own bound; launches are
+    # the kernel's, the same count as the line above.
+    ("paged_attention_varlen_d256_chunk",
      "src/repro_torch/kernels/csrc/paged_attention_varlen.cu",
      "src/repro/kernels/paged_attention_pallas.py:262"),
     ("flash_attention_d256",
@@ -6539,8 +6579,11 @@ KERNELS = (
 
 
 # ---------------------------------------------------------------------------
-# Comparison mode: ``chip_smoke.py --ab SRC [d256]`` measures the head-dim-256
-# flash forward and paged decode (``ab_d256``; ``d256`` stops there), then
+# Comparison mode: ``chip_smoke.py --ab SRC [d256|k256]`` measures the
+# head-dim-256 flash forward, paged decode and varlen rounds, and
+# gemma3-12b's long prompt's chunked prefill and decode round
+# (``ab_d256``; ``d256`` stops there, ``k256`` runs flash and the varlen
+# kernel alone), then
 # ``paged_kv_write``,
 # ``ssm_scan``, ``wkv6`` and ``vtrace`` as the model calls them, the
 # ``flash_attention`` forward at the head-dim-128 serve prefills and B 1 x
@@ -6573,14 +6616,88 @@ AB_PAGED = (  # (case, H, KV, D, contexts, window)
     ("qwen05_decode", 14, 2, 64, [45, 17, 64, 33], None))
 
 
-def ab_d256(torch):
-    """``--ab``'s head-dim-256 lines: flash's forward at phase 40's three
-    timed shapes and the paged decode at ``AB_PAGED``, both dtypes, each
-    beside SDPA's time (on gathered K/V for the decode) and its bound;
-    on a tree whose decode splits the context, the split sweep of each
-    head-dim-256 decode case (``_ab_paged_splits``); then one profiled
-    decode round of full-width gemma3-12b past position 2,048
-    (``_ab_decode_round``)."""
+# ``--ab``'s varlen cases: phase 40's T 16 round and phase 41's last
+# chunked round of the long prompt (global and local) at gemma3's 16 / 8
+# heads of 256, a speculative verify round (T 4) there, and T 16 rounds at
+# head dims 128 and 64 (the row-tile routine, which the redesign leaves as
+# it was); tables of 260 pages as phase 40's.
+AB_VARLEN = (  # (case, H, KV, D, row_start, row_len, window)
+    ("g3_varlen_t16", 16, 8, 256, [40, 16, 0, 9], [1, 16, 7, 0], None),
+    ("g3_varlen_chunk_global", 16, 8, 256, [1984, 0, 0, 0], [64, 0, 0, 0],
+     None),
+    ("g3_varlen_chunk_window", 16, 8, 256, [1984, 0, 0, 0], [64, 0, 0, 0],
+     1024),
+    ("g3_verify_t4", 16, 8, 256, [2060, 700, 0, 44], [4, 4, 0, 4], None),
+    ("q14b_varlen_t16", 40, 8, 128, [40, 16, 0, 9], [1, 16, 7, 0], None),
+    ("qwen05_varlen_t16", 14, 2, 64, [40, 16, 0, 9], [1, 16, 7, 0], None))
+AB_VARLEN_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+# ``--ab``'s mma.sync probe (``csrc/probe_mma_rate.cu``): its modes, and
+# blocks of 8 warps an SM (1: the D-256 kernels' occupancy; 0: as many as
+# fit).
+AB_MMA_MODES = ("tf32", "3xtf32", "3xtf32_loop")
+AB_MMA_BLOCKS = (1, 0)
+
+
+def _ab_mma_rate(torch):
+    """The rate of ``mma.sync.m16n8k8`` in float32 products on this card
+    (``csrc/probe_mma_rate.cu``), one line a mode and occupancy: TFLOP/s
+    at 2,048 flops a product, from CUDA events over 5 launches after one
+    to build and warm."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    if not (build.CSRC / "probe_mma_rate.cu").exists():
+        return
+    fn = build.load("probe_mma_rate").probe_mma_rate_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    src = torch.randn(1024, device="cuda")
+    iters = 4096
+    for mode, name in enumerate(AB_MMA_MODES):
+        for per_sm in AB_MMA_BLOCKS:
+            active = ctypes.c_int(0)
+            blocks = sms * max(per_sm, 1)
+
+            def launch(blocks=blocks):
+                out = torch.empty(blocks * 256, device="cuda")
+                build.check(fn(src.data_ptr(), out.data_ptr(), mode, blocks,
+                               iters, ctypes.byref(active),
+                               torch.cuda.current_stream().cuda_stream),
+                            "probe_mma_rate")
+            launch()
+            if per_sm == 0:
+                blocks = sms * active.value
+                launch(blocks)
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            for _ in range(5):
+                launch(blocks)
+            b.record()
+            torch.cuda.synchronize()
+            ms = a.elapsed_time(b) / 5
+            flops = blocks * 8 * iters * 32 * 2048
+            emit(phase="ab_mma_rate", mode=name, blocks_per_sm=blocks // sms,
+                 active_per_sm=active.value, warps_per_sm=8 * blocks // sms,
+                 ms=ms, tflops=flops / ms / 1e9)
+
+
+def ab_d256(torch, kernels_only=False):
+    """``--ab``'s head-dim-256 lines: the ``mma.sync`` probe's rates
+    (:func:`_ab_mma_rate`, on a tree that has the probe), flash's forward
+    at phase 40's three timed shapes, the paged decode at ``AB_PAGED``
+    and the varlen kernel at ``AB_VARLEN``, both dtypes, each beside
+    SDPA's time (on gathered K/V for the paged kernels) and its bound; on
+    a tree whose decode or varlen kernel splits the context, the split
+    sweep of each head-dim-256 decode and long-chunk case
+    (``_ab_paged_splits``, ``_ab_varlen_splits``); then full-width
+    gemma3-12b on phase 41's long prompt: its chunked prefill and one
+    decode round past position 2,048, each profiled
+    (``_ab_gemma3_long``).  ``kernels_only`` (``--ab SRC k256``): flash
+    and the varlen kernel alone, for many short alternating runs."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -6588,6 +6705,8 @@ def ab_d256(torch):
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
     dev = torch.device("cuda")
+    if not kernels_only:
+        _ab_mma_rate(torch)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         esize = torch.empty((), dtype=dtype).element_size()
@@ -6610,7 +6729,8 @@ def ab_d256(torch):
                  library_ms=time_ms(lib, iters=50),
                  library_device_ms=device_ms(lib, iters=5))
             del lib
-        for case, hh, kk, d, lens, window in AB_PAGED:
+        for case, hh, kk, d, lens, window in ([] if kernels_only
+                                              else AB_PAGED):
             gen = torch.Generator().manual_seed(hh * 100 + kk + d)
             m = -(-max(lens) // BS)
             nb = len(lens) * m + 1
@@ -6645,23 +6765,150 @@ def ab_d256(torch):
             if d > 128 and hasattr(pa, "plan_splits"):
                 _ab_paged_splits(torch, pa, kern, case, dname, lens, window)
             del kp, vp, keys, vals, lib
+        for case, hh, kk, d, starts, lens, window in AB_VARLEN:
+            _ab_varlen(torch, dtype, case, hh, kk, d, starts, lens, window,
+                       sweep=not kernels_only)
     torch.cuda.empty_cache()
-    _ab_decode_round(torch)
+    if not kernels_only:
+        _ab_gemma3_long(torch)
 
 
-def _ab_decode_round(torch):
-    """``--ab``'s end-to-end line at head dim 256: full-width gemma3-12b's
-    batched engine on phase 41's long prompt, one decode round past
-    position 2,048 profiled (:func:`_gemma3_decode_round`)."""
+def _host_ms(fn, iters: int = 200, repeats: int = 7) -> float:
+    """Host time a call: the least, over ``repeats``, of the wall time of
+    ``iters`` calls issued back to back, divided by ``iters`` (the card
+    keeps up when its time a call is the smaller; the least reading is
+    the one a busy shared host disturbed least)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / iters)
+        torch.cuda.synchronize()
+    return best
+
+
+def _ab_varlen(torch, dtype, case, hh, kk, d, starts, lens, window,
+               sweep=True):
+    """One ``AB_VARLEN`` case: the varlen kernel against its plain version,
+    its events and profiler times (the kernels named ``varlen``: the
+    call's one launch), the wrapper's host time a call
+    (:func:`_host_ms`), SDPA's on gathered K/V and the bound; with
+    ``sweep``, on a tree that splits the varlen rows, the split sweep of
+    the long chunks."""
+    from repro_torch.kernels import paged_attention_varlen as pav
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    dname = str(dtype).split(".")[-1]
+    esize = torch.empty((), dtype=dtype).element_size()
+    gen = torch.Generator().manual_seed(hh * 100 + kk + d + 7)
+    m = D256_M
+    nb = len(lens) * m + 1
+    kp, vp = (torch.randn(kk, nb, BS, d, generator=gen).to(dtype).to(dev)
+              for _ in range(2))
+    ctx = [a + n for a, n in zip(starts, lens)]
+    tables = _tables(gen, [max(c, 1) for c in ctx], torch, nb, m).to(dev)
+    t = max(lens)
+    q = torch.randn(len(lens), t, hh, d, generator=gen).to(dtype).to(dev)
+    args = (q, kp, vp, tables,
+            torch.tensor(starts, dtype=torch.int32, device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+    kern = lambda: pav.paged_attention_varlen_cuda(*args, window=window)
+    got = kern()
+    want = ref.ref_paged_attention_varlen(*args, window=window)
+    diff = (got.float() - want.float()).abs()
+    if dtype != torch.float32:
+        diff = diff / want.float().abs().clamp(min=1.0)
+    keys, vals = (ref._gather_pages(x, tables).repeat_interleave(
+        hh // kk, 0).transpose(0, 1) for x in (kp, vp))
+    qpos = torch.tensor([[a + i for i in range(t)] for a in starts],
+                        device=dev)
+    kpos = torch.arange(m * BS, device=dev)[None, None, :]
+    mask = kpos <= qpos[:, :, None]
+    if window is not None:
+        mask &= qpos[:, :, None] - kpos < window
+    qh = q.transpose(1, 2)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, keys, vals, attn_mask=mask[:, None])
+    b_ms, b_by = _attention_bound(
+        q, list(zip(starts, lens)), ctx, window, 2, esize,
+        _paged_rate("paged_attention_varlen", d, dname), hh, kk, d)
+    emit(phase="ab_varlen", case=case, dtype=dname, H=hh, KV=kk, D=d,
+         row_start=starts, row_len=lens, window=window,
+         scaled_err=diff.max().item(), bound_ms=b_ms, bound_by=b_by,
+         ms=time_ms(kern, iters=100), device_ms=device_ms(kern, "varlen"),
+         host_ms=_host_ms(kern), library_ms=time_ms(lib, iters=50),
+         library_device_ms=device_ms(lib, iters=5))
+    if sweep and "chunk" in case and hasattr(pav, "plan_varlen_splits"):
+        _ab_varlen_splits(torch, pav, kern, case, dname, t, hh, kk, window)
+    del kp, vp, keys, vals, lib
+
+
+def _ab_varlen_splits(torch, pav, kern, case, dname, t, hh, kk, window):
+    """The varlen kernel's device ms at each forced split count of
+    ``AB_VARLEN_SPLITS`` beside the count the planner picks: what
+    ``plan_varlen_splits`` was chosen from."""
+    plan = pav.varlen_splits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planned = plan(t, hh, kk, D256_M, BS, window, sms)
+    ms = {}
+    try:
+        for n in AB_VARLEN_SPLITS:
+            pav.varlen_splits = lambda *a, n=n: n
+            ms[n] = device_ms(kern, "varlen")
+    finally:
+        pav.varlen_splits = plan
+    emit(phase="ab_varlen_splits", case=case, dtype=dname, window=window,
+         planned=planned, planned_device_ms=device_ms(kern, "varlen"),
+         forced=ms)
+
+
+def _ab_gemma3_long(torch):
+    """``--ab``'s end-to-end lines at head dim 256: full-width gemma3-12b
+    on phase 41's long prompt.  Its chunked prefill (64-row rounds, as
+    phase 41 runs it) profiled on a fresh chunked engine until the first
+    token: the device ms of the rounds and the varlen kernel's; then the
+    batched engine's decode round past position 2,048
+    (:func:`_gemma3_decode_round`)."""
+    import warnings
+
     from repro_torch.launch import serve as launcher
 
     n_tok = G3_LONG + G3_LONG_NEW
-    args = launcher.build_parser().parse_args(G3_ARGS + [
-        "--no-chunked-prefill", "--max-batch", "1", "--num-blocks",
-        str(-(-n_tok // 8) + 1), "--max-seq-len", str(n_tok)])
+    pool = ["--max-batch", "1", "--num-blocks", str(-(-n_tok // 8) + 1),
+            "--max-seq-len", str(n_tok)]
+    parser = launcher.build_parser()
+    args = parser.parse_args(G3_ARGS + ["--no-chunked-prefill"] + pool)
     device, bundle, params, _, store = launcher._model(args)
     prompt = torch.randint(3, bundle.cfg.vocab_size, (G3_LONG,),
                            generator=torch.Generator().manual_seed(41))
+    chunked = parser.parse_args(G3_ARGS + G3_LONG_ENGINES[0][1] + pool)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        engine = launcher.make_engine(chunked, bundle, params, store, device)
+    engine.submit(prompt.numpy(), G3_LONG_NEW)
+
+    def prefill():   # the rounds up to the one that ends the prompt
+        while engine.stats.prefills == 0:
+            engine.step()
+
+    t0 = time.perf_counter()
+    busy, rows = profile_kernels(prefill)
+    seconds = time.perf_counter() - t0
+    rounds = engine.stats.prefill_dispatches
+    varlen = [r for r in rows if "varlen" in r[0]]
+    engine.run(max_steps=10_000)
+    emit(phase="ab_chunked_prefill", rounds=rounds, seconds=seconds,
+         device_ms=busy,
+         varlen_device_ms=sum(r[1] for r in varlen),
+         varlen_launches=sum(r[2] for r in varlen),
+         varlen_share=sum(r[1] for r in varlen) / busy, top_kernels=rows[:6])
+    del engine
     emit(phase="ab_decode_round", **_gemma3_decode_round(
         torch, launcher, args, bundle, params, store, device, prompt))
     del params, bundle, store
@@ -6713,8 +6960,8 @@ def ab_main(src: str, only: str = "") -> int:
     build.build_all()
     emit(phase="ab_tree", src=str(Path(repro_torch.__file__).parent),
          name=torch.cuda.get_device_name(0))
-    ab_d256(torch)
-    if only == "d256":
+    ab_d256(torch, kernels_only=only == "k256")
+    if only in ("d256", "k256"):
         return 0
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
@@ -7064,6 +7311,8 @@ def main() -> int:
     gemma3 = run("41 gemma3-12b serve", gemma3_serve_phase, torch)
     launches.update({f"{k}_d256": gemma3[k] for k in (
         "paged_attention", "paged_attention_varlen", "flash_attention")})
+    launches["paged_attention_varlen_d256_chunk"] = gemma3[
+        "paged_attention_varlen"]
     release()
     run("42 gemma3 parity", gemma3_parity_phase, torch)
     print(json.dumps({"phase_seconds": phase_s,

@@ -34,7 +34,9 @@
 //                               (flash_attention_wgmma.cuh: wgmma + TMA);
 //   float32 at D 256         -> flash_kernel_d256 below (gemma3): the
 //                               tf32 kernel's products with each 16-row
-//                               tile split over two warps by output dims;
+//                               row group split over four warps by output
+//                               dims, two 16-row m-tiles a warp where the
+//                               grid allows (attention_d256.cuh);
 //   bfloat16 at D 256        -> flash_kernel_wgmma256
 //                               (flash_attention_wgmma256.cuh: wgmma +
 //                               TMA, Q read from shared memory);
@@ -98,6 +100,7 @@
 
 #include <type_traits>
 
+#include "attention_d256.cuh"
 #include "flash_attention_wgmma.cuh"
 #include "flash_attention_wgmma256.cuh"
 #include "mma_tf32.cuh"
@@ -643,8 +646,9 @@ cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// D 256, float32: two warps a 16-row tile, one a dims half (bfloat16 at
-// D 256 takes flash_kernel_wgmma256).
+// D 256, float32: four warps a row group, one for each 64 output dims, kM
+// m-tiles of 16 rows a warp (attention_d256.cuh); bfloat16 at D 256 takes
+// flash_kernel_wgmma256.
 // ---------------------------------------------------------------------------
 
 namespace sp {
@@ -652,311 +656,199 @@ namespace sp {
 using tf32::cp_async16;
 using tf32::cp_async_commit;
 using tf32::cp_async_wait;
-using tf32::split;
-using wg::ex2;   // 2^x on the SFU
 
-constexpr int D = 256;
-constexpr int kHalf = D / 2;     // the output dims a warp owns
-constexpr int kThreads = 256;    // 8 warps: 4 row tiles x 2 dims halves
-constexpr int kRows = 64;        // (position, head) rows per block
-constexpr int kKeys = 32;        // keys a K/V tile
-constexpr int kKT = kKeys / 8;   // 8-key steps (score n-tiles)
-constexpr int kNT = kHalf / 8;   // 8-dim output tiles of a warp
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int D = d256::kMaxD;
+constexpr int kKeys = d256::kKeys;
+constexpr int kGroups = 2;                              // row groups a block
+constexpr int kWarps = kGroups * d256::kWarpsPerTile;   // 8
+constexpr int kThreads = 32 * kWarps;
 
-struct Layout {
-  static constexpr int kQ = D + 8;    // Q row pitch
-  static constexpr int kK = D + 8;    // K row pitch
-  // V row pitch: 260 floats put a warp's V reads on 32 distinct banks.
-  static constexpr int kV = D + 4;
-  static constexpr int kQFloats = kRows * kQ;
-  static constexpr int kKElems = kKeys * kK;   // one stage
-  static constexpr int kVElems = kKeys * kV;
-  static constexpr int kExFloats = 8 * kKT * 32 * 4;   // a warp's scores
+// A block of 8 warps: two row groups of kM m-tiles, so 32 kM rows.  At
+// kM 2 (64 rows) Q's fragments wait in shared memory and the ring holds
+// two 67 KB K/V stages (exchange, ring and Q then fill the 232,448 bytes
+// a block may have); at kM 1 (32 rows) Q stays in registers beside a
+// ring of three.
+template <int kM>
+struct Shape {
+  static constexpr int kRows = 16 * kM * kGroups;
+  static constexpr int kStages = kM == 2 ? 2 : 3;
+  static constexpr bool kQShared = kM == 2;
+  using Q = std::conditional_t<kQShared, d256::QShared<float, kM>,
+                               d256::QRegs<float, kM>>;
+  static constexpr size_t kRing = kStages * d256::stage_bytes<float>();
   static constexpr size_t kBytes =
-      sizeof(float) * (kQFloats + kExFloats) +
-      sizeof(float) * 2 * (kKElems + kVElems);
+      d256::exchange_bytes(kWarps, kM) + kRing +
+      (kQShared ? d256::q_shared_bytes<float>(kWarps, kM) : 0);
+  static_assert(kBytes <= 232448, "over an H100 block's shared memory");
 };
 
-// Two consecutive elements.
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-// The two warps of one row tile (ids 1-4; 0 is __syncthreads').
-__device__ __forceinline__ void pair_sync(int pair) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
-}
-
-// The tf32 kernel's design with the work of each 16-row tile split over
-// two warps (the output accumulator of one warp holding all 256 dims
-// would take 128 registers a lane): warp w takes rows 16 (w / 2) ..
-// 16 (w / 2) + 15 and dims half = w % 2, 128 half .. 128 half + 127.
-// Per K/V tile each warp sums its half of the score product, in two
-// 64-dim chunks each from zero; the pair swaps the 16 x 32 partial
-// scores through shared memory and each adds the other's to its own
-// (float addition commutes), so both hold the same scores, the same
-// running max and sum and the same P.  Each then multiplies P by its own 128
-// columns of V.  Everything else (GQA packing, 32-key tiles by cp.async
-// in a ring of two, masks only on edge tiles, P's A fragment straight
-// from the score accumulator, each tile's P V from zero) is the tf32
-// kernel's.
-template <bool kWindow>
+// GQA packing as in the tf32 kernel: the block takes kRows (position,
+// head) rows of one (b, kv head), heaviest first, and walks the 32-key
+// tiles any of its rows sees, aligned to multiples of 32 (keys past S
+// zero-filled); a row group skips the tiles none of its rows sees and
+// masks only on tiles that cross its causal edge or its window's start.
+// Each tile's work is d256::attend.  With the logsumexp when lse is not
+// null.
+template <bool kWindow, int kM>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel_d256(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   float* __restrict__ lse, int seq, int n_heads, int n_kv,
                   int window, float scale) {
-  using L = Layout;
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                                      // [kRows][kQ]
-  float* s_ex = s_q + L::kQFloats;                        // [8][kKT][32][4]
-  float* s_k = s_ex + L::kExFloats;                       // [2][kKeys][kK]
-  float* s_v = s_k + 2 * L::kKElems;                      // [2][kKeys][kV]
+  using S = Shape<kM>;
+  constexpr int kK = d256::Pitch<float>::kK, kV = d256::Pitch<float>::kV;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float4* ex = reinterpret_cast<float4*>(smem);
+  uint8_t* ring = smem + d256::exchange_bytes(kWarps, kM);
+  auto k_stage = [&](int st) {
+    return reinterpret_cast<float*>(ring + st * d256::stage_bytes<float>());
+  };
 
   const int group = n_heads / n_kv;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int n_rows = seq * group;           // rows of this (b, kv head)
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // heaviest first
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * S::kRows;   // heaviest first
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int pair = warp / 2, half = warp % 2;
-  const int g8 = lane / 4, t4 = lane % 4;
+  const int rg = warp / d256::kWarpsPerTile;
+  const int dw = (warp % d256::kWarpsPerTile) * d256::kWarpDims;
+  const int t4 = lane % 4, g8 = lane / 4;
   const size_t kv_row = (size_t)n_kv * D;   // one position of k, v
   const size_t kv_base = (size_t)b * seq * kv_row + (size_t)kvh * D;
 
   // Keys any row of this block can reach: [first, last].
-  const int last = (min(r0 + kRows, n_rows) - 1) / group;
+  const int last = (min(r0 + S::kRows, n_rows) - 1) / group;
   const int first = kWindow ? max(0, r0 / group - window + 1) : 0;
   const int t0 = first / kKeys, n_tiles = last / kKeys - t0 + 1;
 
-  // Tile it of the walk into ring stage it % 2; keys past S zero-filled.
-  constexpr int kChunk = 4;                       // elements a cp.async
-  constexpr int kRowChunks = D / kChunk;
+  // Tile it of the walk into ring stage it % kStages, 16 bytes a copy.
+  constexpr int kRowChunks = D / 4;
   auto stage = [&](int it) {
     const int k0 = (t0 + it) * kKeys;
-    float* sk = s_k + (it & 1) * L::kKElems;
-    float* sv = s_v + (it & 1) * L::kVElems;
+    float* sk = k_stage(it % S::kStages);
+    float* sv = sk + kKeys * kK;
 #pragma unroll
     for (int i = 0; i < kKeys * kRowChunks / kThreads; ++i) {
       const int e = tid + i * kThreads;
-      const int j = e / kRowChunks, c = (e % kRowChunks) * kChunk;
+      const int j = e / kRowChunks, c = (e % kRowChunks) * 4;
       const bool ok = k0 + j < seq;
       const size_t at = kv_base + (size_t)(ok ? k0 + j : 0) * kv_row + c;
-      cp_async16(sk + j * L::kK + c, k + at, ok ? 16 : 0);
-      cp_async16(sv + j * L::kV + c, v + at, ok ? 16 : 0);
+      cp_async16(sk + j * kK + c, k + at, ok ? 16 : 0);
+      cp_async16(sv + j * kV + c, v + at, ok ? 16 : 0);
     }
-    cp_async_commit();
   };
-  stage(0);
-
-  // Q, scaled in float32 (as the plain version scales it); rows past
-  // S * G zero.  Row r sits at position r / group, query head
-  // kvh * group + r % group.
-  for (int e = tid; e < kRows * D / 2; e += kThreads) {
-    const int rr = e / (D / 2), c = (e % (D / 2)) * 2, r = r0 + rr;
-    float2 x = make_float2(0.f, 0.f);
-    if (r < n_rows)
-      x = ld2(q + (((size_t)b * seq + r / group) * n_heads + kvh * group +
-                   r % group) * D + c);
-    *reinterpret_cast<float2*>(s_q + rr * L::kQ + c) =
-        make_float2(x.x * scale, x.y * scale);
+#pragma unroll
+  for (int s = 0; s < S::kStages - 1; ++s) {
+    if (s < n_tiles) stage(s);
+    cp_async_commit();
   }
 
-  // This pair's rows: positions [w_lo, w_hi]; a row past S * G has
-  // position -1 and attends nothing.
-  const int wr0 = r0 + 16 * pair;
-  const bool warp_live = wr0 < n_rows;
+  // This row group's rows: positions [w_lo, w_hi]; a row past S * G has
+  // position -1, a zero query, and attends nothing.
+  const int wr0 = r0 + 16 * kM * rg;
+  const bool live = wr0 < n_rows;
   const int w_lo = wr0 / group;
-  const int w_hi = (min(wr0 + 16, n_rows) - 1) / group;
-  int pos[2];
+  const int w_hi = (min(wr0 + 16 * kM, n_rows) - 1) / group;
+  int pos[kM][2];
+  const float* qrow[kM][2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = wr0 + g8 + 8 * h;
-    pos[h] = r < n_rows ? r / group : -1;
-  }
-  float o[kNT][4], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < kM; ++i)
 #pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  const float* wq = s_q + 16 * pair * L::kQ;
-  float4* ex_mine = reinterpret_cast<float4*>(s_ex) + warp * kKT * 32;
-  const float4* ex_other =
-      reinterpret_cast<const float4*>(s_ex) + (warp ^ 1) * kKT * 32;
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr0 + 16 * i + g8 + 8 * h;
+      pos[i][h] = r < n_rows ? r / group : -1;
+      qrow[i][h] = r < n_rows ? q + (((size_t)b * seq + r / group) * n_heads +
+                                     kvh * group + r % group) * D
+                              : nullptr;
+    }
+  typename S::Q qf;
+  if constexpr (S::kQShared)
+    qf.p = reinterpret_cast<uint4*>(ring + S::kRing) +
+           warp * kM * d256::q_steps<float>() * 32;
+  d256::load_q<float, kM>(qf, qrow, dw, D, scale, t4);
+  d256::State<kM> st;
+  d256::init(st);
 
   for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      stage(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // tile it (and, the first time, Q) is in
+    if (it + S::kStages - 1 < n_tiles) stage(it + S::kStages - 1);
+    cp_async_commit();
+    cp_async_wait<S::kStages - 1>();
+    __syncthreads();   // tile it is in
     const int k0 = (t0 + it) * kKeys;
-    // Does any row of the pair see a key of the tile?  (The same answer
-    // for both warps of a pair, so both reach pair_sync.)
-    if (warp_live && k0 <= w_hi &&
+    // Does any row of the group see a key of the stage?  (The same answer
+    // for its four warps, so all four reach d256::tile_sync.)
+    if (live && k0 <= w_hi &&
         (!kWindow || k0 + kKeys - 1 > w_lo - window)) {
-      const float* sk = s_k + (it & 1) * L::kKElems;
-      const float* sv = s_v + (it & 1) * L::kVElems;
-
-      // This warp's half of S = Q K^T, in two 64-dim chunks, each from
-      // zero.
-      float s[kKT][4];
-#pragma unroll
-      for (int j = 0; j < kKT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int c0 = half * kHalf; c0 < half * kHalf + kHalf; c0 += 64) {
-        float part[kKT][4];
-#pragma unroll
-        for (int j = 0; j < kKT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-#pragma unroll
-        for (int d0 = c0; d0 < c0 + 64; d0 += 8) {
-          // Slot t4 is dim d0 + 2 t4, slot t4 + 4 dim d0 + 2 t4 + 1.
-          const float2 x0 = ld2(wq + g8 * L::kQ + d0 + 2 * t4);
-          const float2 x1 = ld2(wq + (g8 + 8) * L::kQ + d0 + 2 * t4);
-          tf32::Frag a;
-          split(x0.x, a.hi[0], a.lo[0]);
-          split(x1.x, a.hi[1], a.lo[1]);
-          split(x0.y, a.hi[2], a.lo[2]);
-          split(x1.y, a.hi[3], a.lo[3]);
-#pragma unroll
-          for (int j = 0; j < kKT; ++j) {
-            const float2 y = ld2(sk + (8 * j + g8) * L::kK + d0 + 2 * t4);
-            tf32::FragB bf;
-            split(y.x, bf.hi[0], bf.lo[0]);
-            split(y.y, bf.hi[1], bf.lo[1]);
-            tf32::mma3(part[j], a, bf);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kKT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
-      }
-      // The pair's halves meet: S = half 0's + half 1's in both warps.
-#pragma unroll
-      for (int j = 0; j < kKT; ++j)
-        ex_mine[j * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2],
-                                             s[j][3]);
-      pair_sync(pair);
-#pragma unroll
-      for (int j = 0; j < kKT; ++j) {   // a + b == b + a: both agree
-        const float4 y = ex_other[j * 32 + lane];
-        s[j][0] += y.x, s[j][1] += y.y, s[j][2] += y.z, s[j][3] += y.w;
-      }
-
-      // Online softmax, as in the tf32 kernel.
+      const float* sk = k_stage(it % S::kStages);
       const bool edge =
           k0 + kKeys - 1 > w_lo || (kWindow && k0 <= w_hi - window);
-      float alpha[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = -1e30f;
-#pragma unroll
-        for (int j = 0; j < kKT; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            float& x = s[j][2 * h + c];
-            if (edge) {
-              const int key = k0 + 8 * j + 2 * t4 + c;
-              const bool ok =
-                  key <= pos[h] && (!kWindow || pos[h] - key < window);
-              x = ok ? x : -INFINITY;
-            }
-            mx = fmaxf(mx, x);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[h], mx);
-        alpha[h] = ex2((m[h] - m_new) * kLog2e);
-        const float ml = m_new * kLog2e;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < kKT; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            float& x = s[j][2 * h + c];
-            x = ex2(fmaf(x, kLog2e, -ml));   // masked: ex2(-inf) = 0
-            sum += x;
-          }
-        l[h] = l[h] * alpha[h] + sum;   // this lane's share; summed at the end
-        m[h] = m_new;
-      }
-
-      // O = O alpha + P V over this warp's 128 dims.
-      tf32::Frag pa[kKT];
-#pragma unroll
-      for (int j = 0; j < kKT; ++j) {
-        split(s[j][0], pa[j].hi[0], pa[j].lo[0]);
-        split(s[j][2], pa[j].hi[1], pa[j].lo[1]);
-        split(s[j][1], pa[j].hi[2], pa[j].lo[2]);
-        split(s[j][3], pa[j].hi[3], pa[j].lo[3]);
-      }
-      const float* svh = sv + half * kHalf;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < kKT; ++j) {
-          const float* vp = svh + (8 * j + 2 * t4) * L::kV + 8 * nt + g8;
-          tf32::FragB bf;
-          split(vp[0], bf.hi[0], bf.lo[0]);
-          split(vp[L::kV], bf.hi[1], bf.lo[1]);
-          tf32::mma3(part, pa[j], bf);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[nt][e] = fmaf(o[nt][e], alpha[e / 2], part[e]);
-      }
+      d256::attend<float, kM>(st, qf, sk, sk + kKeys * kK, ex, warp, edge,
+                              [&](int kk, int i, int h) {
+                                const int key = k0 + kk;
+                                return key <= pos[i][h] &&
+                                       (!kWindow || pos[i][h] - key < window);
+                              });
     }
     __syncthreads();   // every warp is done with this stage and its scores
   }
 
-  if (!warp_live) return;
+  if (!live) return;
+  d256::reduce_l(st);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float sum = l[h];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (pos[h] < 0) continue;
-    const int r = wr0 + g8 + 8 * h;
-    const float l_safe = fmaxf(sum, 1e-30f);
-    const float inv = 1.f / l_safe;
-    const size_t head_row =
-        ((size_t)b * seq + pos[h]) * n_heads + kvh * group + r % group;
-    float* row = out + head_row * D + half * kHalf;
+  for (int i = 0; i < kM; ++i)
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-      *reinterpret_cast<float2*>(row + 8 * nt + 2 * t4) =
-          make_float2(o[nt][2 * h] * inv, o[nt][2 * h + 1] * inv);
-    if (lse != nullptr && half == 0 && t4 == 0)
-      lse[head_row] = m[h] + logf(l_safe);
-  }
+    for (int h = 0; h < 2; ++h) {
+      if (pos[i][h] < 0) continue;
+      const int r = wr0 + 16 * i + g8 + 8 * h;
+      const size_t head_row =
+          ((size_t)b * seq + pos[i][h]) * n_heads + kvh * group + r % group;
+      d256::write_row(out + head_row * D, st, i, h, true, dw, D, t4);
+      if (lse != nullptr && dw == 0 && t4 == 0)
+        lse[head_row] = st.m[i][h] + logf(fmaxf(st.l[i][h], d256::kMinDenom));
+    }
 }
 
-template <bool kWindow>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int batch, int seq, int n_heads, int n_kv,
-                   int window, float scale, cudaStream_t stream) {
-  auto kernel = flash_kernel_d256<kWindow>;
-  constexpr size_t bytes = Layout::kBytes;
+template <bool kWindow, int kM>
+cudaError_t launch_m(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int batch, int seq, int n_heads, int n_kv,
+                     int window, float scale, cudaStream_t stream) {
+  using S = Shape<kM>;
+  auto kernel = flash_kernel_d256<kWindow, kM>;
   static const cudaError_t attr = cudaFuncSetAttribute(   // once
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kBytes);
   if (attr != cudaSuccess) return attr;
   const long long rows = (long long)seq * (n_heads / n_kv);
-  const long long tiles = (rows + kRows - 1) / kRows;
+  const long long tiles = (rows + S::kRows - 1) / S::kRows;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   dim3 grid((unsigned)tiles, n_kv, batch);
-  kernel<<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, S::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, seq, n_heads,
       n_kv, window, scale);
   return cudaGetLastError();
+}
+
+// m-tiles a warp, by shape alone: 2 (64-row blocks) where that grid still
+// gives every SM a block, else 1 (32-row blocks: the batched prefill's 64
+// rows a (b, kv head) in two blocks).  On an H100, ten alternating runs
+// in one call (chip_smoke.py --ab SRC k256; PERF.md): B 1 x S 2048 with
+// a window of 1024 0.612 ms at kM 2 against 0.670 at kM 1, global 0.846
+// against 0.842 (within either's spread).
+template <bool kWindow>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int batch, int seq, int n_heads, int n_kv,
+                   int window, float scale, cudaStream_t stream) {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const long long rows = (long long)seq * (n_heads / n_kv);
+  if ((rows + Shape<2>::kRows - 1) / Shape<2>::kRows * n_kv * batch >= sms)
+    return launch_m<kWindow, 2>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                                window, scale, stream);
+  return launch_m<kWindow, 1>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                              window, scale, stream);
 }
 
 inline cudaError_t launch_w(const void* q, const void* k, const void* v,

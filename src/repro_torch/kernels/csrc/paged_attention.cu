@@ -13,7 +13,7 @@
 // call costs: the kernel is launch-bound there, not bandwidth-bound.
 //
 // Design, D <= 128: the ragged kernel's block routine
-// (paged_attention_common.cuh, attend_tile, paged::Narrow) with one live
+// (paged_attention_common.cuh, attend_tile) with one live
 // row per slot at position ctx - 1: grid (row tiles, KV, B), one block per
 // 16 of the G = H / KV group heads of a (slot, kv head), so each staged
 // key tile serves every group head (the Pallas grid (B, H, M) streams
@@ -29,7 +29,7 @@
 
 namespace {
 
-template <typename T, typename Cfg>
+template <typename T>
 __global__ void __launch_bounds__(paged::kThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const T* __restrict__ v_pages,
@@ -39,40 +39,40 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int ctx = context_lens[b];
   // The decode query is the newest row: position ctx - 1, one live row.
-  paged::attend_tile<T, Cfg>(q, k_pages, v_pages, tables, out, b, kvh, ctx - 1,
+  paged::attend_tile<T>(q, k_pages, v_pages, tables, out, b, kvh, ctx - 1,
                         ctx > 0 ? 1 : 0, blockIdx.x * paged::kRowTile, g);
 }
 
-template <typename T, typename Cfg>
-cudaError_t launch_cfg(const void* q, const void* k_pages,
-                       const void* v_pages, const int* tables,
-                       const int* context_lens, void* out, int batch,
-                       const paged::Geometry& g, cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<T, Cfg>;
-  // Raised once to what the instantiation's widest head dim needs.
+template <typename T>
+cudaError_t launch_narrow(const void* q, const void* k_pages,
+                          const void* v_pages, const int* tables,
+                          const int* context_lens, void* out, int batch,
+                          const paged::Geometry& g, cudaStream_t stream) {
+  auto kernel = paged_attention_kernel<T>;
+  // Raised once to what the widest head dim of the routine needs.
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)paged::smem_bytes<T, Cfg>(Cfg::kMaxDim));
+      (int)paged::smem_bytes<T>(paged::kNarrowMaxDim));
   if (attr != cudaSuccess) return attr;
   const int tiles = (g.H / g.KV + paged::kRowTile - 1) / paged::kRowTile;
   kernel<<<dim3(tiles, g.KV, batch), paged::kThreads,
-           paged::smem_bytes<T, Cfg>(g.D), stream>>>(
+           paged::smem_bytes<T>(g.D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), tables, context_lens,
       static_cast<T*>(out), g);
   return cudaGetLastError();
 }
 
-// The routine by head dim: Narrow up to 128, the context split above.
+// The routine by head dim: attend_tile up to 128, the context split above.
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* tables, const int* context_lens, void* out,
                    float* part, int* tickets, int batch,
                    const paged::Geometry& g, int n_splits, int min_keys,
                    cudaStream_t stream) {
-  if (g.D <= paged::Narrow::kMaxDim)
-    return launch_cfg<T, paged::Narrow>(q, k_pages, v_pages, tables,
-                                        context_lens, out, batch, g, stream);
+  if (g.D <= paged::kNarrowMaxDim)
+    return launch_narrow<T>(q, k_pages, v_pages, tables, context_lens, out,
+                            batch, g, stream);
   return paged::split::launch<T>(q, k_pages, v_pages, tables, context_lens,
                                  out, part, tickets, batch, g, n_splits,
                                  min_keys, stream);

@@ -1,7 +1,7 @@
 // Paged decode above head dim 128 (gemma3-12b's 256), split over the
 // context: the decode routine of paged_attention.cu at 128 < D <= 256, in
 // both dtypes.  D <= 128 keeps the row-tile routine
-// (paged_attention_common.cuh, paged::Narrow).
+// (paged_attention_common.cuh, attend_tile).
 //
 // What bounds it on an H100: the K/V rows, 2 * KV * span_b * D *
 // sizeof(T) bytes for slot b's span_b visible keys (67.1 MB for gemma3's

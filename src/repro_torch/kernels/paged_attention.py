@@ -6,10 +6,11 @@ paged_attention``.  The plain version is ``kernels.ref.ref_paged_attention``.
 Up to head dim 128 the kernel runs one block per (slot, kv head, 16 group
 heads).  Above it (gemma3's 256) the decode is split over each slot's
 visible keys (``csrc/paged_attention_split.cuh``): :func:`plan_splits`
-picks the split count on the host from the geometry alone, the wrapper
-allocates the splits' float32 partials, and a per-(slot, kv head) ticket
-(zeros kept per device and stream, which the kernel leaves zero) tells
-the last block to merge them in split order.
+picks the split count on the host from the geometry alone, the splits'
+float32 partials go to scratch kept per device and stream
+(:func:`_scratch`), and a per-(slot, kv head) ticket (zeros kept the
+same way, which the kernel leaves zero) tells the last block to merge
+them in split order.
 ``kernels.ref.ref_paged_attention_split`` is the split's plain version.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ from repro_torch.kernels.build import Kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256   # paged::kMaxHeadDim (gemma3)
-NARROW_MAX_DIM = 128   # paged::Narrow: the row-tile routine; above, splits
+NARROW_MAX_DIM = 128   # paged::kNarrowMaxDim: the row-tile routine's widest
 SPLIT_STAGE_KEYS = 16  # paged::split::kKeys: a split's keys round up to it
 SPLIT_MIN_KEYS = 64    # the floor of keys a split: short contexts take one
 SPLIT_MAX = 32         # paged::split::kMaxSplits: splits a (slot, kv head)
@@ -74,6 +75,7 @@ def split_geometry(batch: int, heads: int, kv_heads: int, max_blocks: int,
 
 _SMS: Dict[int, int] = {}
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _sm_count(device: torch.device) -> int:
@@ -91,6 +93,19 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
+def _scratch(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` float32 of the splits' partials for the current
+    stream of ``device``, kept between calls (grown when a call needs
+    more): a call reads only what it wrote, and calls on one stream
+    never overlap."""
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    t = _SCRATCH.get(key)
+    if t is None or t.numel() < n:
+        t = _SCRATCH[key] = torch.empty(n, dtype=torch.float32,
                                         device=device)
     return t
 
@@ -154,8 +169,7 @@ def paged_attention_cuda(
         n_splits = split_geometry(b, h, kv, m, bs, window,
                                   _sm_count(q.device))
         if n_splits > 1:
-            part = torch.empty(b * h * n_splits * (d + 2),
-                               dtype=torch.float32, device=q.device)
+            part = _scratch(q.device, b * h * n_splits * (d + 2))
             tickets = _tickets(q.device, b * h)
     KERNEL.launch(q.device, q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), block_tables.data_ptr(),

@@ -17,6 +17,9 @@ from repro_torch.core.vtrace import vtrace
 from repro_torch.kernels.paged_attention import (SPLIT_MIN_KEYS,
                                                  SPLIT_STAGE_KEYS,
                                                  split_chunk)
+from repro_torch.kernels.paged_attention_varlen import (VARLEN_BLOCK_ROWS,
+                                                        VARLEN_MIN_KEYS,
+                                                        VARLEN_STAGE_KEYS)
 
 NEG_INF = -1e30
 
@@ -157,6 +160,82 @@ def ref_paged_attention_varlen(
     out = torch.where(row_live[:, :, None, None, None], out,
                       torch.zeros_like(out))
     return out.reshape(b, t, h, d)
+
+
+def ref_paged_attention_varlen_split(
+    q: torch.Tensor,             # [B, T, H, D] ragged query chunks
+    k_pages: torch.Tensor,       # [KV, NB, BS, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32
+    row_start: torch.Tensor,     # [B] int32 abs position of query row 0
+    row_len: torch.Tensor,       # [B] int32 live rows (0 = inactive)
+    *,
+    window: Optional[int] = None,
+    n_splits: int = 1,
+    min_keys: int = VARLEN_MIN_KEYS,
+    stage: int = VARLEN_STAGE_KEYS,
+    block_rows: int = VARLEN_BLOCK_ROWS,
+) -> torch.Tensor:
+    """The ragged rows split over the context, as the kernel above head
+    dim 128 computes them (``csrc/paged_attention_varlen.cu``,
+    ``varlen_d256_kernel``): a slot's live rows packed (token x group
+    head) into blocks of ``block_rows`` (the kernel's 32 by default); a
+    block's visible keys ``[first, last]`` (its
+    oldest row's window start, its newest row's position) cut into spans
+    of ``split_chunk`` keys (the later of ``n_splits`` splits may see
+    none); per split, in float32, each row's max ``m`` over the keys it
+    sees (its own causal end and window), its sum ``l`` and unnormalised
+    values ``acc``; then the splits merged in split order: ``M = max
+    m_s``, ``l = sum l_s exp(m_s - M)``, ``acc`` likewise, ``out = acc /
+    max(l, 1e-30)``.  Padding rows and idle slots give zeros.  The
+    probabilities stay float32 (the kernel's, not the JAX oracle's cast
+    to q's dtype)."""
+    kv, _, _, d = k_pages.shape
+    b, t, h, _ = q.shape
+    g = h // kv
+    rows = t * g
+    keys = _gather_pages(k_pages, block_tables).float()
+    vals = _gather_pages(v_pages, block_tables).float()
+    # Packed rows [B, KV, T * G, D]: row r is token r // g, head kv g + r % g.
+    qp = (q * d ** -0.5).float().reshape(b, t, kv, g, d).permute(
+        0, 2, 1, 3, 4).reshape(b, kv, rows, d)
+    out = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
+    for bi, (base, n) in enumerate(zip(row_start.tolist(),
+                                       row_len.tolist())):
+        live = min(max(n, 0), t) * g
+        for r0 in range(0, live, block_rows):
+            r1 = min(r0 + block_rows, live)
+            pos = base + torch.arange(r0, r1, device=q.device) // g
+            first = 0 if window is None else max(0, base + r0 // g
+                                                 - int(window) + 1)
+            last = base + (r1 - 1) // g
+            chunk = split_chunk(last - first + 1, n_splits, min_keys, stage)
+            parts = []
+            for lo in range(first, last + 1, chunk)[:n_splits]:
+                hi = min(last + 1, lo + chunk)
+                kpos = torch.arange(lo, hi, device=q.device)
+                seen = kpos[None, :] <= pos[:, None]
+                if window is not None:
+                    seen &= pos[:, None] - kpos[None, :] < int(window)
+                s = torch.einsum("krd,ksd->krs", qp[bi, :, r0:r1],
+                                 keys[:, bi, lo:hi])
+                s = torch.where(seen, s, torch.full_like(s, -float("inf")))
+                m = s.amax(-1).clamp(min=NEG_INF)
+                p = torch.exp(s - m[..., None])
+                parts.append((m, p.sum(-1), torch.einsum(
+                    "krs,ksd->krd", p, vals[:, bi, lo:hi])))
+            m_all = parts[0][0]
+            for m, _, _ in parts[1:]:
+                m_all = torch.maximum(m_all, m)
+            l_all = torch.zeros_like(m_all)
+            acc = torch.zeros_like(out[bi, :, r0:r1])
+            for m, l, a in parts:
+                scale = torch.exp(m - m_all)
+                l_all = l_all + l * scale
+                acc = acc + a * scale[..., None]
+            out[bi, :, r0:r1] = acc / l_all.clamp(min=1e-30)[..., None]
+    return out.reshape(b, kv, t, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, t, h, d).to(q.dtype)
 
 
 def ref_paged_attention_multi(

@@ -1019,11 +1019,14 @@ def test_hymba_full_width_logits_gap_is_the_models_not_flash(dev,
         card = tf.tree_to(params, dev)
         run = lambda: bundle.forward(card, tokens.to(dev)).logits.cpu()
         kernel = run()
-        monkeypatch.setattr(ops, "attention", lambda q, k, v, *, window=None:
-                            ref.ref_attention(q, k, v, window=window))
+        monkeypatch.setattr(ops, "attention",
+                            lambda q, k, v, *, window=None, kv_valid=None:
+                            ref.ref_attention(q, k, v, window=window,
+                                              kv_valid=kv_valid))
         plain = run()
-        monkeypatch.setattr(ops, "attention", lambda q, k, v, *, window=None:
-                            ref.ref_attention(q, k, v))
+        monkeypatch.setattr(ops, "attention",
+                            lambda q, k, v, *, window=None, kv_valid=None:
+                            ref.ref_attention(q, k, v, kv_valid=kv_valid))
         no_window = run()
     gap = lambda a, b: (a - b).abs().max().item()
     print(json.dumps({"hymba_logits_gap": {

@@ -4,7 +4,10 @@ with its logsumexp (float32 ``flash_kernel_d256``, bfloat16
 ``flash_kernel_wgmma256``), the paged decode split over the context
 (B 1 and B 4, global and past a window of 1024, contexts of one split and
 of many, ``ctx`` 0, the same bits on a second call) and the varlen
-kernel at 16 / 8 heads of 256.  Marked ``cuda``;
+kernel at 16 / 8 heads of 256 (on the tensor cores and split over the
+context: phase 41's long chunks, decode and verify rounds, G 1 and 7, a
+head dim of 192, the same bits on a second call), with the row-tile
+routine up to head dim 128 beside it.  Marked ``cuda``;
 each test skips on a host without one (no JAX import, so the card's
 machine collects it).  Run on a GPU machine with:
 
@@ -174,3 +177,92 @@ def test_split_paged_decode_takes_any_group(dev, h, kv):
     torch.cuda.synchronize()
     assert splits > 1
     assert (got - want).abs().max().item() <= 2e-5
+
+
+def _varlen_case(dev, dtype, starts, rows, t, window, h=16, kv=8, d=256,
+                 m=260, seed=0):
+    """The varlen kernel and its plain version on pools of shuffled pages
+    for slots at ``starts`` with ``rows`` live rows of ``t`` (tables
+    ``m`` pages of 8 rows); returns (kernel output, plain output, a
+    closure that calls the kernel again)."""
+    from repro_torch.kernels.paged_attention_varlen import \
+        paged_attention_varlen_cuda
+
+    rng = np.random.default_rng(seed)
+    b = len(starts)
+    nb = b * m + 1
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((b, m), np.int32)
+    for i, (a, n) in enumerate(zip(starts, rows)):
+        pages = -(-max(a + n, 1) // 8)
+        tables[i, :pages] = perm[i * m:i * m + pages]
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    kp, vp = (on(rng.standard_normal((kv, nb, 8, d)).astype(np.float32))
+              .to(dtype) for _ in range(2))
+    q = on(rng.standard_normal((b, t, h, d)).astype(np.float32)).to(dtype)
+    args = (q, kp, vp, on(tables), on(np.asarray(starts, np.int32)),
+            on(np.asarray(rows, np.int32)))
+    got = paged_attention_varlen_cuda(*args, window=window)
+    want = ref.ref_paged_attention_varlen(*args, window=window)
+    return got, want, lambda: paged_attention_varlen_cuda(*args,
+                                                          window=window)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("starts,rows,t,window,h,kv,d", [
+    # Phase 41's last chunked round of the long prompt, global and local.
+    ([1984, 0, 0, 0], [64, 0, 0, 0], 64, None, 16, 8, 256),
+    ([1984, 0, 0, 0], [64, 0, 0, 0], 64, 1024, 16, 8, 256),
+    # Four live chunks, a decode round, verify rows (T 4), G 1 and G 7,
+    # and a head dim under 256 (its dims past D zero-filled).
+    ([1000, 1900, 37, 500], [64, 40, 64, 1], 64, 1024, 16, 8, 256),
+    ([40, 16, 0, 9], [1, 16, 7, 0], 16, None, 16, 8, 256),
+    ([2060, 700, 0, 44], [4, 4, 0, 4], 4, None, 16, 8, 256),
+    ([1500, 30, 0], [33, 5, 0], 33, 1024, 8, 8, 256),
+    ([1500, 30, 0], [20, 5, 0], 20, None, 14, 2, 256),
+    ([1200, 3, 0], [50, 9, 0], 50, 100, 16, 8, 192)])
+def test_varlen_kernel_above_head_dim_128_matches_plain(
+        dev, dtype, tol, starts, rows, t, window, h, kv, d):
+    """The tensor-core varlen kernel split over the context against the
+    plain version within ``tol`` (bfloat16 of max(1, |plain|)); one
+    launch; padding rows and idle slots exactly zero; a second and third
+    call give the same bits (splits merge in a fixed order, tickets are
+    left at zero)."""
+    kernels.reset_launch_counts()
+    got, want, again = _varlen_case(dev, dtype, starts, rows, t, window,
+                                    h=h, kv=kv, d=d)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_attention_varlen"] == 1
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        diff = diff / want.float().abs().clamp(min=1.0)
+    assert diff.max().item() <= tol
+    for i, n in enumerate(rows):
+        assert bool((got[i, n:] == 0).all())
+    for _ in range(2):
+        assert torch.equal(again(), got)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,kv,d", [(14, 2, 64), (25, 5, 64), (40, 8, 128),
+                                    (32, 32, 128)])
+def test_varlen_kernel_up_to_head_dim_128_matches_plain(dev, dtype, tol, h,
+                                                        kv, d):
+    """The row-tile routine (``paged::attend_tile``), which the head-dim-256
+    redesign leaves as it was, at the serve configs' heads: T 16 rows
+    near and past a window of 12 and a long chunk, against the plain
+    version; the same bits on a second call."""
+    for starts, rows, t, window in (([40, 16, 0, 9], [1, 16, 7, 0], 16,
+                                     None),
+                                    ([40, 16, 0, 9], [1, 16, 7, 0], 16, 12),
+                                    ([1100, 0], [64, 0], 64, None)):
+        got, want, again = _varlen_case(dev, dtype, starts, rows, t, window,
+                                        h=h, kv=kv, d=d, m=150, seed=h)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            diff = diff / want.float().abs().clamp(min=1.0)
+        assert diff.max().item() <= tol
+        assert torch.equal(again(), got)

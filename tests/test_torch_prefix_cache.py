@@ -296,6 +296,19 @@ JCFG = jax_reduced_config("qwen2.5-0.5b", vocab=TOK.vocab_size)
 CFG = reduced_config("qwen2.5-0.5b", vocab=TOK.vocab_size)
 
 
+def _assert_same_tokens(item, port, jax_tokens):
+    """The two packages' tokens of one queue item are equal; where they
+    are not, the message lists every differing index (row, position)
+    with both tokens, not only the first, to show which side moved."""
+    assert port.shape == jax_tokens.shape, (item, port.shape,
+                                            jax_tokens.shape)
+    diff = np.argwhere(port != jax_tokens)
+    assert diff.size == 0, (
+        f"item {item}: {len(diff)} tokens differ (index: port / jax): "
+        + ", ".join(f"({tuple(int(x) for x in ix)}: {port[tuple(ix)]} / "
+                    f"{jax_tokens[tuple(ix)]})" for ix in diff))
+
+
 def test_serve_rlvr_trainer_with_prefix_cache_and_speculation_matches_jax():
     """``RLVRTrainer(producer="serve", forced_lag=2, engine_prefix_cache=
     True, engine_speculate_k=2)``: 2 warmup steps, one phase of 2
@@ -324,9 +337,8 @@ def test_serve_rlvr_trainer_with_prefix_cache_and_speculation_matches_jax():
     want, got = jtr.train_phase(), tr.train_phase()
     assert len(got) == len(want) == 2
     assert len(items["port"]) == len(items["jax"]) == 2
-    for g, w in zip(items["port"], items["jax"]):
-        np.testing.assert_array_equal(g.gen.tokens.numpy(),
-                                      np.asarray(w.gen.tokens))
+    for i, (g, w) in enumerate(zip(items["port"], items["jax"])):
+        _assert_same_tokens(i, g.gen.tokens.numpy(), np.asarray(w.gen.tokens))
         np.testing.assert_array_equal(g.gen.mask.numpy(),
                                       np.asarray(w.gen.mask))
         np.testing.assert_array_equal(g.versions, np.asarray(w.versions))
